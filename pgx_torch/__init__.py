@@ -1,0 +1,11 @@
+"""pgx_torch — the PyTorch/CUDA port of pgx for NVIDIA Hopper.
+
+The package mirrors ``pgx``'s module tree.  It imports torch and numpy and
+nothing of JAX or of ``pgx``.  Public tensors are NHWC, as in ``pgx``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; the
+hot work goes through hand-written CUDA kernels (``pgx_torch.ops.kernels``)
+whose plain PyTorch versions serve CPU tensors and the tests.
+
+This slice carries the serving path: ``GeneratorService``
+(``pgx_torch.serve``) over the EMA generator's forward.
+"""

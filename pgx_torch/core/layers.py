@@ -1,0 +1,201 @@
+"""Equalized-learning-rate layers over NHWC tensors.
+
+Counterpart of ``pgx/core/layers.py``.  Parameters are stored at their raw
+N(0,1) initialization in ``pgx``'s layouts (conv kernels HWIO, the input
+layer's transposed-conv kernel HWOI) and the He constant is applied at
+forward, in f32, before the cast to the compute dtype.
+
+fan_in follows the reference's quirk:
+  * Conv2d           -> fan_in = in_ch * kh * kw
+  * ConvTranspose2d  -> fan_in = out_ch * kh * kw   (quirk)
+  * Embedding        -> fan_in = embedding_dim
+
+Dispatch mirrors ``pgx``: every padding-1 3x3 conv that is not preceded by
+a fused upsample runs kernel C (conv + bias + pixel-norm + lrelu in one
+pass); the epilogue after ``equal_conv2d_up2x`` runs kernel A when it
+pixel-normalizes.  Each kernel wrapper takes its plain version for CPU
+tensors only.  cuDNN/cuBLAS carry the work ``pgx`` leaves to XLA: the
+latent projection, the 1x1 to_rgb convs and the upsample + conv.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from pgx_torch.ops.kernels import (bias_pixelnorm_lrelu, conv3x3_epilogue)
+from pgx_torch.ops.resize import upsample2x
+
+# ---------------------------------------------------------------------------
+# PixelNorm / LeakyReLU
+# ---------------------------------------------------------------------------
+
+
+def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """x / sqrt(mean_c(x^2) + eps) over the last axis, in x's dtype."""
+    ssq = torch.sum(x * x, dim=-1, keepdim=True, dtype=x.dtype)
+    return x * torch.rsqrt(ssq * (1.0 / x.shape[-1]) + eps)
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
+
+
+# ---------------------------------------------------------------------------
+# Equalized conv / transposed conv / embedding
+# ---------------------------------------------------------------------------
+
+
+def _he_scaled(w: torch.Tensor, fan_in: int, dtype) -> torch.Tensor:
+    return (w * math.sqrt(2.0 / fan_in)).to(dtype)
+
+
+def _conv_nhwc(x: torch.Tensor, w_hwio: torch.Tensor,
+               padding: int) -> torch.Tensor:
+    y = F.conv2d(x.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1),
+                 padding=padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def equal_conv2d(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                 padding: int = 0, bias: bool = True) -> torch.Tensor:
+    """EqualConv2d over NHWC ``x`` with the raw HWIO kernel ``w``."""
+    kh, kw, in_ch, _ = w.shape
+    y = _conv_nhwc(x, _he_scaled(w, in_ch * kh * kw, x.dtype), padding)
+    if not bias:
+        return y
+    return (y + b.to(x.dtype)).contiguous()
+
+
+def equal_conv2d_up2x(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                      bias: bool = True) -> torch.Tensor:
+    """``equal_conv2d(w, b, upsample2x(x), padding=1)`` for a 3x3 kernel.
+
+    ``pgx`` composes the upsample into a 6x6 kernel over the dilated input
+    and corrects the border afterwards; both are exact forms of this
+    sequence, which is computed here as written (an upsample, then one
+    cuDNN conv), so no border correction is needed."""
+    kh, kw, _, _ = w.shape
+    if (kh, kw) != (3, 3):
+        raise ValueError("equal_conv2d_up2x is specialized to 3x3 kernels")
+    y = equal_conv2d(w, b, upsample2x(x), padding=1, bias=bias)
+    return y.contiguous()
+
+
+def latent_to_4x4(w: torch.Tensor, b: torch.Tensor,
+                  z: torch.Tensor) -> torch.Tensor:
+    """The 4x4 input layer: ConvTranspose2d(k=4, s=1, p=0) on a 1x1 input,
+    i.e. one matmul z -> (4, 4, out).  ``w`` is HWOI (4, 4, out, in); its
+    fan_in is out * 16 (the reference's transposed-conv quirk)."""
+    kh, kw, out_ch, in_ch = w.shape
+    wm = _he_scaled(w, out_ch * kh * kw, z.dtype).reshape(kh * kw * out_ch,
+                                                          in_ch)
+    y = (z @ wm.t()).reshape(z.shape[0], kh, kw, out_ch)
+    return y + b.to(z.dtype)
+
+
+def embedding(w: torch.Tensor, labels: torch.Tensor, equalized: bool = False,
+              dtype=torch.float32) -> torch.Tensor:
+    """Label embedding lookup; ``equalized`` applies sqrt(2 / dim)."""
+    if equalized:
+        w = w * math.sqrt(2.0 / w.shape[1])
+    return w[labels.long()].to(dtype)
+
+
+class EqualConv2d(nn.Module):
+    """Raw HWIO kernel ``w`` ~ N(0,1) and bias ``b``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(kernel, kernel, in_ch, out_ch))
+        self.b = nn.Parameter(torch.zeros(out_ch))
+
+
+class EqualConvTranspose2d(nn.Module):
+    """Raw HWOI kernel ``w`` (out, in trailing) and bias ``b``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(kernel, kernel, out_ch, in_ch))
+        self.b = nn.Parameter(torch.zeros(out_ch))
+
+
+class Embedding(nn.Module):
+    def __init__(self, num_embeddings: int, dim: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(num_embeddings, dim))
+
+
+# ---------------------------------------------------------------------------
+# Conv blocks
+# ---------------------------------------------------------------------------
+
+
+def conv_epilogue(y: torch.Tensor, b: torch.Tensor, use_pixel_norm: bool,
+                  slope: float = 0.2) -> torch.Tensor:
+    """bias -> PixelNorm? -> LeakyReLU on a pre-bias conv output; kernel A
+    where it pixel-normalizes."""
+    if use_pixel_norm:
+        return bias_pixelnorm_lrelu(y, b, slope)
+    return leaky_relu(y + b.to(y.dtype), slope)
+
+
+def _conv_step(conv: EqualConv2d, x: torch.Tensor, padding: int,
+               use_pixel_norm: bool, slope: float) -> torch.Tensor:
+    """One conv + epilogue: kernel C for a padding-1 3x3 conv (where pgx's
+    ``_maybe_fused_conv_step`` applies), else conv then epilogue."""
+    kh, kw, in_ch, _ = conv.w.shape
+    if padding == 1 and (kh, kw) == (3, 3):
+        w = conv.w * math.sqrt(2.0 / (in_ch * kh * kw))
+        return conv3x3_epilogue(x, w, conv.b, use_pixel_norm=use_pixel_norm,
+                                slope=slope)
+    y = equal_conv2d(conv.w, conv.b, x, padding=padding, bias=False)
+    return conv_epilogue(y, conv.b, use_pixel_norm, slope)
+
+
+class ConvBlock(nn.Module):
+    """[EqualConv2d -> PixelNorm? -> LeakyReLU] x2."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel1: int = 3,
+                 kernel2: Optional[int] = None):
+        super().__init__()
+        kernel2 = kernel1 if kernel2 is None else kernel2
+        self.conv1 = EqualConv2d(in_ch, out_ch, kernel1)
+        self.conv2 = EqualConv2d(out_ch, out_ch, kernel2)
+
+
+class SingleConvBlock(nn.Module):
+    """EqualConv2d -> PixelNorm? -> LeakyReLU (the mnist blocks and the
+    proper arch's 4x4 block)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3):
+        super().__init__()
+        self.conv1 = EqualConv2d(in_ch, out_ch, kernel)
+
+
+def conv_block(p: ConvBlock, x: torch.Tensor, padding1: int = 1,
+               padding2: Optional[int] = None, use_pixel_norm: bool = True,
+               slope: float = 0.2, upsample_first: bool = False
+               ) -> torch.Tensor:
+    """``upsample_first`` runs a bilinear upsample2x before conv1 — the
+    caller passes the LOW-res input."""
+    padding2 = padding1 if padding2 is None else padding2
+    if upsample_first:
+        x = equal_conv2d_up2x(p.conv1.w, p.conv1.b, x, bias=False)
+        x = conv_epilogue(x, p.conv1.b, use_pixel_norm, slope)
+    else:
+        x = _conv_step(p.conv1, x, padding1, use_pixel_norm, slope)
+    return _conv_step(p.conv2, x, padding2, use_pixel_norm, slope)
+
+
+def single_conv_block(p: SingleConvBlock, x: torch.Tensor, padding: int = 1,
+                      use_pixel_norm: bool = True, slope: float = 0.2,
+                      upsample_first: bool = False) -> torch.Tensor:
+    if upsample_first:
+        x = equal_conv2d_up2x(p.conv1.w, p.conv1.b, x, bias=False)
+        return conv_epilogue(x, p.conv1.b, use_pixel_norm, slope)
+    return _conv_step(p.conv1, x, padding, use_pixel_norm, slope)

@@ -1,0 +1,25 @@
+"""Hand-written CUDA kernels of the port and their plain PyTorch versions.
+
+Counterpart of ``pgx/ops/pallas/``.  Each wrapper takes its plain version
+for CPU tensors only and launches its kernel for CUDA tensors; there is no
+switch that sends a CUDA tensor to the plain version.  The library is built
+from ``csrc/`` on first launch (``build.py``), never at import.
+"""
+
+from pgx_torch.ops.kernels.build import (  # noqa: F401
+    launch_counts,
+    load_library,
+    reset_launch_counts,
+)
+from pgx_torch.ops.kernels.conv_epilogue import (  # noqa: F401
+    conv3x3_epilogue,
+    conv3x3_epilogue_ref,
+)
+from pgx_torch.ops.kernels.epilogue import (  # noqa: F401
+    bias_pixelnorm_lrelu,
+    bias_pixelnorm_lrelu_ref,
+)
+from pgx_torch.ops.kernels.pixel_norm_lrelu import (  # noqa: F401
+    pixel_norm_lrelu,
+    pixel_norm_lrelu_ref,
+)

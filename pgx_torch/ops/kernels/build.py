@@ -1,0 +1,183 @@
+"""Build and load the CUDA kernel library (``csrc/*.cu``) on first use.
+
+Each source is compiled by its own ``nvcc`` process, all started together,
+for ``sm_90a``; the objects are linked into one shared library with a plain C
+interface, loaded with ``ctypes``.  The library lands in ``build/`` at the
+root of the checkout under a name keyed on a hash of the sources, so an edit
+rebuilds and an unchanged tree loads the cached file.  A failed compile
+raises with nvcc's stderr.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC"]
+
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+
+_lib = None
+_lib_lock = threading.Lock()
+build_seconds = None          # wall time of the build in this process, if any
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cu, cuh = _sources()
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from source on first use")
+
+
+def _compile(out_dir: Path, lib_path: Path) -> None:
+    nvcc = _nvcc()
+    cu, _ = _sources()
+    procs = []
+    for src in cu:
+        obj = out_dir / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+               "-o", str(obj)]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for cmd, _, p in procs:
+        out, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"$ {' '.join(cmd)}\n{out}{err}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs),
+           "-lcudart"]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n$ {' '.join(cmd)}\n"
+                           f"{r.stdout}{r.stderr}")
+    os.replace(tmp, lib_path)
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
+        ctypes.c_float
+    lib.pgx_bias_pixelnorm_lrelu.argtypes = [p, p, p, i64, i, i, f, f, p]
+    lib.pgx_pixel_norm_lrelu.argtypes = [p, p, i64, i, i, f, f, p]
+    lib.pgx_conv3x3_epilogue.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f,
+                                         f, p]
+    for fn in (lib.pgx_bias_pixelnorm_lrelu, lib.pgx_pixel_norm_lrelu,
+               lib.pgx_conv3x3_epilogue):
+        fn.restype = ctypes.c_int
+    lib.pgx_conv3x3_cout_pad.argtypes = [i]
+    lib.pgx_conv3x3_cout_pad.restype = ctypes.c_int
+    lib.pgx_error_string.argtypes = [i]
+    lib.pgx_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; cached per process."""
+    global _lib, build_seconds
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        out_dir = BUILD_ROOT / f"kernels-{_source_hash()}"
+        lib_path = out_dir / "libpgx_torch_kernels.so"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # one build per checkout: other processes wait on the lock and
+        # then load what it built
+        with open(out_dir / "lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not lib_path.exists():
+                t0 = time.monotonic()
+                _compile(out_dir, lib_path)
+                build_seconds = time.monotonic() - t0
+        _lib = _declare(ctypes.CDLL(str(lib_path)))
+        return _lib
+
+
+def check(status: int, name: str) -> None:
+    """Raise if a C entry returned a CUDA error code."""
+    if status != 0:
+        msg = _lib.pgx_error_string(status).decode()
+        raise RuntimeError(f"{name}: CUDA error {status} ({msg}) at launch")
+
+
+# ---------------------------------------------------------------------------
+# What every wrapper shares: launch counts and the forward-only guard
+# ---------------------------------------------------------------------------
+
+# kernel name -> launches in this process; a wrapper adds one where it
+# launches its kernel and nowhere else
+LAUNCHES = {"bias_pixelnorm_lrelu": 0, "pixel_norm_lrelu": 0,
+            "conv3x3_epilogue": 0}
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def forbid_autograd(name: str, *tensors) -> None:
+    """The kernels are forward-only: refuse to be recorded for autograd
+    rather than return a result whose gradient would be silently wrong."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only: call it under torch.no_grad() or "
+            f"torch.inference_mode(), or on tensors that do not require grad")
+
+
+def check_cuda_input(name: str, t) -> None:
+    """Device, type, layout and alignment a kernel's input must have."""
+    import torch
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: dtype {t.dtype} not supported "
+                        f"(float32 or bfloat16)")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous (NHWC) tensor")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: data pointer not 16-byte aligned")
+
+
+def dtype_code(t) -> int:
+    return DTYPE_CODES[str(t.dtype).removeprefix("torch.")]
+
+
+def stream_ptr() -> int:
+    import torch
+    return torch.cuda.current_stream().cuda_stream

@@ -1,0 +1,32 @@
+"""Bilinear 2x upsampling with exact ``F.interpolate`` parity, NHWC.
+
+Counterpart of ``pgx/ops/resize.py``.  With half-pixel centres the source
+coordinate of output pixel ``i`` is ``i/2 - 0.25``; with edge clamping that
+is an edge pad of 1 followed by a fixed 2-tap filter, interleaved::
+
+    out[2j]   = 0.25*p[j]   + 0.75*p[j+1]
+    out[2j+1] = 0.75*p[j+1] + 0.25*p[j+2]       (p = edge-padded input)
+
+applied separably along H and W.  ``pgx`` writes these taps out because
+XLA fuses them; here one ``F.interpolate`` call computes the same filter in
+one pass over memory instead of one per tap, and in bf16 rounds once
+instead of after every tap.  tests/test_torch_layers.py holds it against
+``pgx``'s tap-by-tap form and against the taps of ``UP_FIR``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+# The bilinear 2x upsample as a zero-stuffing FIR: F4 = [1,3,3,1]/4, i.e.
+# the interleaved (0.25, 0.75) / (0.75, 0.25) phase taps above.
+UP_FIR = (0.25, 0.75, 0.75, 0.25)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Exact ``F.interpolate(x, scale_factor=2, mode='bilinear',
+    align_corners=False)``, NHWC in and out."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                      mode="bilinear", align_corners=False)
+    return y.permute(0, 2, 3, 1).contiguous()
