@@ -6,19 +6,30 @@
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. build   — build the CUDA kernel library from pgx_torch/ops/kernels/csrc.
-2. kernels — record the shapes the 128px flagship generator's bf16 forward
-   at batch 64 hands each kernel (A bias_pixelnorm_lrelu, B
-   pixel_norm_lrelu, C conv3x3_epilogue); at each, hold the kernel against
-   its plain PyTorch version in f32 and bf16 (TF32 off) and time kernel,
-   plain version and, where one PyTorch call computes the same function,
-   that call (CUDA events, median after warmup).
+2. kernels — record the shapes the 128px flagship hands each kernel (A
+   bias_pixelnorm_lrelu, B pixel_norm_lrelu, C conv3x3_epilogue and C's
+   residual-emitting entry conv3x3_epilogue_r) in the generator's bf16
+   forward at batch 64 and in one bf16 WGAN-GP training iteration at batch
+   32; at each, hold the kernel against its plain PyTorch version in f32
+   and bf16 (TF32 off; for the residual-emitting entry both y and r) and
+   time kernel, plain version and, where one PyTorch call computes the same
+   function, that call (CUDA events, median after warmup).  Then hold each
+   wrapper's gradients against autograd through its plain version at one
+   mid-size shape (kernel A also to second order, gradient-penalty shaped).
 3. serve   — write the full-width flagship (random weights, seed 0) as a
    trial directory, serve it in bf16 through GeneratorService and its HTTP
    front end, check the outputs and that every forward went through A, B
    and C, check the float forward against the plain path, and measure
    img/s at batch 64 and batch-1 latency.
    A torch.profiler pass splits the forward's device time by part.
-4. card    — nvidia-smi's name and power limit.
+4. train   — the full-width flagship G and D (seed 0), 128px, batch 32:
+   one f32 iteration through the kernels against the same iteration with
+   the plain versions swapped in (metrics and every gradient); bf16
+   iterations, one of them fading, with finite metrics, moving parameters
+   and EMA, and launch counts per iteration as the configs imply (kernel C
+   never from the discriminator); then ms per iteration, img/s, peak
+   memory and a torch.profiler split of one iteration by part.
+5. card    — nvidia-smi's name and power limit.
 
 Prints JSON lines; the last two lines before the final one are the
 kernels table and the card, the last line is
@@ -46,17 +57,24 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 F32_ELEMENTWISE_OPS = 67e12
 
+A, B, C, C_R = ("bias_pixelnorm_lrelu", "pixel_norm_lrelu",
+                "conv3x3_epilogue", "conv3x3_epilogue_r")
 SOURCES = {
-    "bias_pixelnorm_lrelu": ("pgx_torch/ops/kernels/csrc/epilogue.cu",
-                             "pgx/ops/pallas/epilogue.py:97"),
-    "pixel_norm_lrelu": ("pgx_torch/ops/kernels/csrc/epilogue.cu",
-                         "pgx/ops/pallas/kernels.py:266"),
-    "conv3x3_epilogue": ("pgx_torch/ops/kernels/csrc/conv_epilogue.cu",
-                         "pgx/ops/pallas/conv_epilogue.py:139"),
+    A: ("pgx_torch/ops/kernels/csrc/epilogue.cu",
+        "pgx/ops/pallas/epilogue.py:97"),
+    B: ("pgx_torch/ops/kernels/csrc/epilogue.cu",
+        "pgx/ops/pallas/kernels.py:266"),
+    C: ("pgx_torch/ops/kernels/csrc/conv_epilogue.cu",
+        "pgx/ops/pallas/conv_epilogue.py:139"),
+    # the same pallas_call, its emit_r=True variant (:133-138)
+    C_R: ("pgx_torch/ops/kernels/csrc/conv_epilogue.cu",
+          "pgx/ops/pallas/conv_epilogue.py:139"),
 }
-PER_FORWARD = {"bias_pixelnorm_lrelu": 2, "pixel_norm_lrelu": 1,
-               "conv3x3_epilogue": 9}
+PER_FORWARD = {A: 2, B: 1, C: 9}
+DEVICE = "cuda"           # every phase runs on the card
 SERVE_BATCH = 64
+TRAIN_BATCH = 32
+TRAIN_STEP = 6            # 128px
 
 
 def emit(obj) -> None:
@@ -98,14 +116,13 @@ def bf16_tol(ref_max: float) -> float:
 
 @contextlib.contextmanager
 def swap_path_kernels(wrap):
-    """Replace the kernel wrappers where the path calls them (layers for
-    A and C, the generator for B) with ``wrap(name, wrapper)``."""
+    """Replace the kernel wrappers where the paths call them (layers for
+    A and C, in the generator and the discriminator; the generator for B)
+    with ``wrap(name, wrapper)``."""
     from pgx_torch.core import layers
     from pgx_torch.models import generator as G
     with contextlib.ExitStack() as stack:
-        for mod, name in ((layers, "conv3x3_epilogue"),
-                          (layers, "bias_pixelnorm_lrelu"),
-                          (G, "pixel_norm_lrelu")):
+        for mod, name in ((layers, C), (layers, A), (G, B)):
             stack.enter_context(mock.patch.object(
                 mod, name, wrap(name, getattr(mod, name))))
         yield
@@ -118,9 +135,10 @@ def plain_versions():
     return swap_path_kernels(lambda name, fn: getattr(K, name + "_ref"))
 
 
-def record_main_path_calls(torch, gen, cfg):
-    """The (kernel, shape, options) calls one bf16 forward at batch 64
-    makes, in order."""
+def record_calls(torch, run):
+    """The (kernel, shape, weight shapes, options) calls ``run()`` makes,
+    in order.  A call of kernel C that records a graph with pixel-norm is
+    the residual-emitting entry's."""
     calls = []
 
     def rec(name, fn):
@@ -128,29 +146,41 @@ def record_main_path_calls(torch, gen, cfg):
             tensors = [a for a in args if isinstance(a, torch.Tensor)]
             opts = dict(kw)
             opts.update({"slope": a for a in args if isinstance(a, float)})
-            calls.append((name, tuple(tensors[0].shape),
+            entry = name
+            if (name == C and kw.get("use_pixel_norm", True)
+                    and torch.is_grad_enabled()
+                    and any(t.requires_grad for t in tensors)):
+                entry = C_R
+            calls.append((entry, tuple(tensors[0].shape),
                           tuple(tuple(t.shape) for t in tensors[1:]),
                           json.dumps(opts, sort_keys=True)))
             return fn(*args, **kw)
         return wrapped
 
     with swap_path_kernels(rec):
-        z = torch.randn(SERVE_BATCH, cfg.z_dim, device="cuda")
-        lab = torch.arange(SERVE_BATCH, device="cuda") % cfg.num_classes
-        with torch.inference_mode():
-            gen(z, lab, step=cfg.max_step)
+        run()
         torch.cuda.synchronize()
     return calls
 
 
-def kernel_phase(torch, calls):
+def count_calls(calls) -> dict:
+    counts = {}
+    for c in calls:
+        counts[c[0]] = counts.get(c[0], 0) + 1
+    return counts
+
+
+def kernel_phase(torch, calls, per: str, reps: int = 10):
+    """Hold every kernel against its plain version at every distinct call
+    of ``calls``, in bf16 and f32, and time both.  Returns the sums over
+    the calls by (kernel, dtype)."""
     import math
     from pgx_torch.ops import kernels as K
 
-    g = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
 
     def randn(*shape, dtype=torch.float32, scale=1.0):
-        return (torch.randn(*shape, generator=g, device="cuda") * scale).to(
+        return (torch.randn(*shape, generator=g, device=DEVICE) * scale).to(
             dtype)
 
     uniq = {}
@@ -165,17 +195,25 @@ def kernel_phase(torch, calls):
             es = torch.finfo(dt).bits // 8
             x = randn(*shape, dtype=dt)
             numel = x.numel()
-            if name == "conv3x3_epilogue":
+            slope = opts.get("slope", 0.2)
+            if name in (C, C_R):
                 cin, cout = shape[-1], wshapes[0][-1]
                 w = randn(3, 3, cin, cout, scale=math.sqrt(2 / (9 * cin)))
                 b = randn(cout, scale=0.1)
                 kw = {k: v for k, v in opts.items() if k != "slope"}
-                kw["slope"] = opts.get("slope", 0.2)
-                kern = lambda: K.conv3x3_epilogue(x, w, b, **kw)
-                plain = lambda: K.conv3x3_epilogue_ref(x, w, b, **kw)
+                kw["slope"] = slope
                 m = numel // cin
                 ops = 2.0 * m * 9 * cin * cout
                 nbytes = (numel + 9 * cin * cout + cout + m * cout) * es
+                if name == C_R:
+                    kern = lambda: K.conv3x3_epilogue_with_r(
+                        x, w, b, slope=slope)
+                    plain = lambda: K.conv3x3_epilogue_ref(
+                        x, w, b, return_r=True, slope=slope)
+                    nbytes += m * 4         # r: one f32 per output pixel
+                else:
+                    kern = lambda: K.conv3x3_epilogue(x, w, b, **kw)
+                    plain = lambda: K.conv3x3_epilogue_ref(x, w, b, **kw)
                 peak = PEAK_OPS[dt_name]
                 w_oihw = w.to(dt).permute(3, 2, 0, 1).contiguous()
                 x_nchw = x.permute(0, 3, 1, 2)
@@ -184,8 +222,7 @@ def kernel_phase(torch, calls):
             else:
                 c = shape[-1]
                 b = randn(c, scale=0.1)
-                slope = opts.get("slope", 0.2)
-                if name == "bias_pixelnorm_lrelu":
+                if name == A:
                     kern = lambda: K.bias_pixelnorm_lrelu(x, b, slope)
                     plain = lambda: K.bias_pixelnorm_lrelu_ref(x, b, slope)
                 else:
@@ -198,37 +235,134 @@ def kernel_phase(torch, calls):
             with torch.inference_mode():
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
+                r_err = r_tol = None
+                if name == C_R:
+                    (got, got_r), (want, want_r) = got, want
+                    # r = 1/rms: compared relatively.  In bf16 the plain
+                    # version takes its statistics from a conv output
+                    # already rounded to bf16 (2^-9 relative per term)
+                    r_tol = 4e-3 if dt_name == "bfloat16" else 1e-4
+                    r_err = ((got_r - want_r.float()).abs()
+                             / want_r.float()).max().item()
+                    require(got_r.shape == shape[:3] + (1,)
+                            and got_r.dtype == torch.float32,
+                            f"{name} {shape} {dt_name}: r shape/dtype")
+                    require(math.isfinite(r_err) and r_err <= r_tol,
+                            f"{name} {shape} {dt_name}: r max rel err "
+                            f"{r_err} > tol {r_tol}")
                 err = (got.float() - want.float()).abs().max().item()
                 ref_max = want.float().abs().max().item()
                 tol = (bf16_tol(ref_max) if dt_name == "bfloat16"
-                       else (1e-4 if name == "conv3x3_epilogue" else 1e-5))
+                       else (1e-4 if name in (C, C_R) else 1e-5))
                 require(got.shape == want.shape and got.dtype == dt,
                         f"{name} {shape} {dt_name}: shape/dtype mismatch")
                 require(math.isfinite(err) and err <= tol,
                         f"{name} {shape} {dt_name}: max abs err {err} > "
                         f"tol {tol}")
-                ms = cuda_ms(torch, kern)
-                plain_ms = cuda_ms(torch, plain)
-                conv_ms = cuda_ms(torch, conv_only) if conv_only else None
+                del got, want
+                ms = cuda_ms(torch, kern, reps)
+                plain_ms = cuda_ms(torch, plain, reps)
+                conv_ms = (cuda_ms(torch, conv_only, reps) if conv_only
+                           else None)
             t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             row = {"kernel": name, "shape": list(shape), "dtype": dt_name,
-                   "calls_per_forward": mult, **opts,
+                   "calls": mult, "per": per, **opts,
                    "max_abs_err": err, "tol": tol, "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops > t_bytes else "bytes",
                    "cudnn_conv_bias_ms": conv_ms}
+            if r_err is not None:
+                row.update(r_max_rel_err=r_err, r_tol=r_tol)
             emit({"phase": "kernel_shape", **row})
             agg = per_kernel.setdefault((name, dt_name), {
                 "ms": 0.0, "plain_ms": 0.0, "t_ops": 0.0, "t_bytes": 0.0,
-                "err": 0.0, "tol": 0.0, "conv_ms": 0.0})
+                "err": 0.0, "tol": 0.0, "conv_ms": 0.0, "calls": 0})
             agg["ms"] += mult * ms
             agg["plain_ms"] += mult * plain_ms
             agg["t_ops"] += mult * t_ops
             agg["t_bytes"] += mult * t_bytes
             agg["conv_ms"] += mult * (conv_ms or 0.0)
+            agg["calls"] += mult
             if err >= agg["err"]:
                 agg["err"], agg["tol"] = err, tol
     return per_kernel
+
+
+def gradient_phase(torch):
+    """Each wrapper's gradients (its hand-written backward) against
+    autograd through its plain version, at one mid-size shape per kernel,
+    f32 and bf16; kernel A also to second order, gradient-penalty shaped
+    (f32).  Tolerance: relative to the largest entry of each gradient;
+    f32 2e-4 (sums in another order), bf16 6e-2 (the backward rounds to
+    bf16 once, autograd through the plain version at every op)."""
+    import math
+    from pgx_torch.ops import kernels as K
+
+    rng = torch.Generator(device=DEVICE).manual_seed(3)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=rng, device=DEVICE)
+                * scale).to(dtype)
+
+    def grads(fn, inputs, g):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad((fn(*leaves).float() * g).sum(), leaves)
+
+    def worst(got, want):
+        return max(((a.float() - e.float()).abs().max()
+                    / e.float().abs().max().clamp_min(1e-12)).item()
+                   for a, e in zip(got, want))
+
+    out = {}
+    for dt_name, tol in (("float32", 2e-4), ("bfloat16", 6e-2)):
+        dt = getattr(torch, dt_name)
+        y = randn(8, 32, 32, 256, dtype=dt)
+        b = randn(256, scale=0.1)
+        g = randn(8, 32, 32, 256)
+        x = randn(8, 32, 32, 128, dtype=dt)
+        w = randn(3, 3, 128, 256, scale=math.sqrt(2 / (9 * 128)))
+        errs = {
+            A: worst(grads(K.bias_pixelnorm_lrelu, (y, b), g),
+                     grads(K.bias_pixelnorm_lrelu_ref, (y, b), g)),
+            B: worst(grads(K.pixel_norm_lrelu, (y,), g),
+                     grads(K.pixel_norm_lrelu_ref, (y,), g)),
+            C_R: worst(grads(K.conv3x3_epilogue, (x, w, b), g),
+                       grads(K.conv3x3_epilogue_ref, (x, w, b), g)),
+        }
+        for name, err in errs.items():
+            require(math.isfinite(err) and err <= tol,
+                    f"{name} {dt_name}: gradient max rel err {err} > {tol}")
+        out[dt_name] = {"max_rel_err": errs, "tol": tol}
+
+    y, b, g = randn(8, 16, 16, 256), randn(256, scale=0.1), randn(
+        8, 16, 16, 256)
+
+    def penalty_grads(fn):
+        ty = y.clone().requires_grad_(True)
+        tb = b.clone().requires_grad_(True)
+        gy, = torch.autograd.grad((fn(ty, tb) * g).sum(), ty,
+                                  create_graph=True)
+        norms = gy.square().sum(dim=(1, 2, 3)).sqrt()
+        return torch.autograd.grad(((norms - 1.0) ** 2).mean(), (ty, tb))
+
+    err2 = worst(penalty_grads(K.bias_pixelnorm_lrelu),
+                 penalty_grads(K.bias_pixelnorm_lrelu_ref))
+    require(math.isfinite(err2) and err2 <= 2e-4,
+            f"{A}: second-derivative max rel err {err2} > 2e-4")
+    out["second_order_f32"] = {"max_rel_err": {A: err2}, "tol": 2e-4}
+
+    # kernel C differentiates once only: a backward that records a graph
+    # must raise
+    tx = x.float().requires_grad_(True)
+    yc = K.conv3x3_epilogue(tx, w, b)
+    try:
+        torch.autograd.grad(yc.sum(), tx, create_graph=True)
+    except RuntimeError as e:
+        require("differentiable once only" in str(e), f"unexpected: {e}")
+    else:
+        require(False, f"{C}: a double backward did not raise")
+    torch.cuda.synchronize()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -255,13 +389,13 @@ def forward_check(torch, cfg_bf16, params):
     from pgx_torch.models.generator import Generator
     from pgx_torch.train.wgan import make_eval_generate
     out = {}
-    rng = torch.Generator(device="cuda").manual_seed(1)
+    rng = torch.Generator(device=DEVICE).manual_seed(1)
     for dt in ("bfloat16", "float32"):
         cfg = dataclasses.replace(cfg_bf16, dtype=dt)
-        gen = Generator.from_jax_params(cfg, params, "cuda")
+        gen = Generator.from_jax_params(cfg, params, DEVICE)
         fn = make_eval_generate(cfg, step=cfg.max_step, output="float")
-        z = torch.randn(8, cfg.z_dim, generator=rng, device="cuda")
-        lab = torch.arange(8, device="cuda") % cfg.num_classes
+        z = torch.randn(8, cfg.z_dim, generator=rng, device=DEVICE)
+        lab = torch.arange(8, device=DEVICE) % cfg.num_classes
         got = fn(gen, z, lab).float()
         with plain_versions():
             want = fn(gen, z, lab).float()
@@ -277,8 +411,8 @@ def forward_check(torch, cfg_bf16, params):
         require(err <= tol, f"{dt} forward vs plain path: max abs err "
                             f"{err} > {tol}")
         zb = torch.randn(SERVE_BATCH, cfg.z_dim, generator=rng,
-                         device="cuda")
-        lb = torch.arange(SERVE_BATCH, device="cuda") % cfg.num_classes
+                         device=DEVICE)
+        lb = torch.arange(SERVE_BATCH, device=DEVICE) % cfg.num_classes
         fwd_ms = cuda_ms(torch, lambda: fn(gen, zb, lb), reps=5)
         with plain_versions():
             plain_fwd_ms = cuda_ms(torch, lambda: fn(gen, zb, lb), reps=5)
@@ -290,24 +424,62 @@ def forward_check(torch, cfg_bf16, params):
     return out
 
 
+def g_calls_per_forward(cfg, step: int) -> dict:
+    """Kernel calls of one generator forward, from the config: kernel B on
+    the input layer; kernel C on every padding-1 3x3 conv that no fused
+    upsample precedes; kernel A after each upsample + conv."""
+    single = cfg.block_type == "single"
+    counts = {A: 0, B: 1, C: 1 if (cfg.arch == "proper" or single) else 2}
+    for k in range(1, cfg.out_stage(step) + 1):
+        convs = 1 if single else 2
+        in_res = 4 * 2 ** (k - 1)
+        if cfg.fuse_up_conv_min_size and in_res >= cfg.fuse_up_conv_min_size:
+            counts[A] += 1
+            counts[C] += convs - 1
+        else:
+            counts[C] += convs
+    return counts
+
+
+def calls_per_iteration(gcfg, dcfg, step: int) -> dict:
+    """Kernel launches of one training iteration, from the configs: four
+    discriminator forwards (real, fake, x_hat; the G step's) of two convs
+    per stage, each conv followed by kernel A, never kernel C; two
+    generator forwards, the D step's without grad (C's plain entry) and
+    the G step's under grad (C's residual-emitting entry)."""
+    g = g_calls_per_forward(gcfg, step)
+    d_convs = sum(2 if (k == 0 or dcfg.block_type == "double") else 1
+                  for k in range(dcfg.entry_stage(step) + 1))
+    return {A: 4 * d_convs + 2 * g[A], B: 2 * g[B], C: g[C], C_R: g[C]}
+
+
 def flagship(torch):
-    """The flagship config, its seeded weights and the kernel calls of one
-    bf16 forward at batch 64."""
+    """The flagship configs (bf16), the generator's seeded weights and the
+    kernel calls of one bf16 forward at batch 64."""
     from pgx_torch.models import zoo
     from pgx_torch.models.generator import Generator, init_generator
 
     cfg = zoo.conditional_correct_generator(
         z_dim=512, num_classes=10, channel=512, max_step=6,
         dtype="bfloat16")
+    dcfg = zoo.conditional_correct_discriminator_wgangp(
+        feat_dim=512, num_classes=10, max_step=6, dtype="bfloat16")
     params = init_generator(cfg, seed=0)
-    calls = record_main_path_calls(
-        torch, Generator.from_jax_params(cfg, params, "cuda"), cfg)
-    counts = {}
-    for c in calls:
-        counts[c[0]] = counts.get(c[0], 0) + 1
-    require(counts == PER_FORWARD,
-            f"kernel calls per forward {counts} != {PER_FORWARD}")
-    return cfg, params, calls
+    gen = Generator.from_jax_params(cfg, params, DEVICE)
+
+    def forward():
+        z = torch.randn(SERVE_BATCH, cfg.z_dim, device=DEVICE)
+        lab = torch.arange(SERVE_BATCH, device=DEVICE) % cfg.num_classes
+        with torch.inference_mode():
+            gen(z, lab, step=cfg.max_step)
+
+    calls = record_calls(torch, forward)
+    require(count_calls(calls) == PER_FORWARD,
+            f"kernel calls per forward {count_calls(calls)} != "
+            f"{PER_FORWARD}")
+    require(g_calls_per_forward(cfg, cfg.max_step) == PER_FORWARD,
+            "kernel calls per forward derived from the config differ")
+    return cfg, dcfg, params, calls
 
 
 def profile_forward(torch, cfg, params, reps: int = 3):
@@ -317,10 +489,10 @@ def profile_forward(torch, cfg, params, reps: int = 3):
     from torch.profiler import ProfilerActivity, profile
     from pgx_torch.models.generator import Generator
     from pgx_torch.train.wgan import make_eval_generate
-    gen = Generator.from_jax_params(cfg, params, "cuda")
+    gen = Generator.from_jax_params(cfg, params, DEVICE)
     fn = make_eval_generate(cfg, step=cfg.max_step, output="uint8")
-    z = torch.randn(SERVE_BATCH, cfg.z_dim, device="cuda")
-    lab = torch.arange(SERVE_BATCH, device="cuda") % cfg.num_classes
+    z = torch.randn(SERVE_BATCH, cfg.z_dim, device=DEVICE)
+    lab = torch.arange(SERVE_BATCH, device=DEVICE) % cfg.num_classes
     for _ in range(2):
         fn(gen, z, lab)
     torch.cuda.synchronize()
@@ -363,7 +535,7 @@ def drive_service(torch, cfg, params):
         trial = os.path.join(tmp, "trial_smoke")
         write_trial(trial, cfg, params)
         t0 = time.monotonic()
-        svc = GeneratorService(trial, device="cuda", max_batch=SERVE_BATCH)
+        svc = GeneratorService(trial, device=DEVICE, max_batch=SERVE_BATCH)
         try:
             result["load_s"] = time.monotonic() - t0
             require(svc.state.step == 6 and svc.state.resolution == 128,
@@ -449,6 +621,327 @@ def drive_service(torch, cfg, params):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 4: training
+# ---------------------------------------------------------------------------
+
+def train_batch(torch, gcfg, seed: int):
+    """One step's inputs on the card, from a seed: a real batch in
+    [-1, 1], labels, z and eps."""
+    from pgx_torch.train import draw_z_eps
+    rng = torch.Generator(device=DEVICE).manual_seed(seed)
+    res = gcfg.resolution(TRAIN_STEP)
+    real = torch.randn(TRAIN_BATCH, res, res, 3, generator=rng,
+                       device=DEVICE).clamp_(-1.0, 1.0)
+    labels = torch.arange(TRAIN_BATCH, device=DEVICE) % gcfg.num_classes
+    z, eps = draw_z_eps(gcfg, TRAIN_BATCH, rng)
+    return real, labels, z, eps
+
+
+def new_train_state(gcfg, dcfg, dtype: str):
+    from pgx_torch.train import TrainConfig, init_train_state
+    g = dataclasses.replace(gcfg, dtype=dtype)
+    d = dataclasses.replace(dcfg, dtype=dtype)
+    tc = TrainConfig()
+    return g, d, tc, init_train_state(g, d, tc, seed=0, device=DEVICE)
+
+
+def record_train_calls(torch, gcfg, dcfg):
+    """The kernel calls of one bf16 training iteration at batch 32."""
+    from pgx_torch.train import make_train_step
+    g, d, tc, state = new_train_state(gcfg, dcfg, "bfloat16")
+    step = make_train_step(g, d, tc, step=TRAIN_STEP, fading=False)
+    real, labels, z, eps = train_batch(torch, g, seed=100)
+    calls = record_calls(
+        torch, lambda: step(state, real, labels, 1.0, z=z, eps=eps))
+    want = calls_per_iteration(g, d, TRAIN_STEP)
+    require(count_calls(calls) == want,
+            f"kernel calls per iteration {count_calls(calls)} != {want}")
+    return calls
+
+
+@contextlib.contextmanager
+def perturbed_fake(torch, rel: float):
+    """The D step's fake batch (the generator's forward without grad) with
+    seeded noise of ``rel`` times its largest value added: a yardstick for
+    how far rounding-size differences in D's input move its gradients."""
+    from pgx_torch.train import wgan
+    inner = wgan.generator_apply
+
+    def noisy(*args, **kw):
+        out = inner(*args, **kw)
+        if torch.is_grad_enabled():
+            return out
+        rng = torch.Generator(device=DEVICE).manual_seed(5)
+        return out + rel * out.abs().max() * torch.randn(
+            out.shape, generator=rng, device=DEVICE, dtype=out.dtype)
+
+    with mock.patch.object(wgan, "generator_apply", noisy):
+        yield
+
+
+def train_f32_check(torch, gcfg, dcfg):
+    """f32 iterations through the kernels against the same iterations with
+    the plain versions swapped in, TF32 off.  With beta1 = 0 Adam's first
+    moment after a step is that step's gradient, so ``mu`` of every
+    parameter of D and G is what is compared, per tensor: the largest
+    error relative to the tensor's largest entry, and the mean error
+    relative to its mean magnitude.
+
+    Two iterations per path, from one seeded state.  The first runs with
+    learning rate 0, so both networks' gradients are taken at identical
+    weights.  The second is a reference-exact iteration (learning rate
+    1e-3): metrics must agree to 1e-3 relative (1e-4 absolute).
+
+    Tolerance of the gradients: 3e-2 of the largest entry and 5e-3 in the
+    mean.  It is set by the function, not by the kernels: at a random
+    initialization the penalty's second-order gradient is so sensitive
+    that noise of 3e-7 (one f32 rounding) on the fake batch alone, with
+    the plain versions on both sides, moves D's gradients by up to 9e-3 of
+    their largest entry (a leaky-ReLU branch that flips).  That yardstick
+    is measured here too and printed beside the kernels' numbers.  In the
+    second iteration G's gradients are taken against the UPDATED D, and
+    Adam at beta1 = 0 moves every weight by lr * g / (|g| + 1e-8), which
+    turns rounding-size differences in near-zero gradient entries into
+    +-lr steps of D; they are held to 0.1 and reported."""
+    import math
+    from pgx_torch.train import make_train_step
+
+    def run(context, iterations):
+        g, d, tc, state = new_train_state(gcfg, dcfg, "float32")
+        tcs = (dataclasses.replace(tc, learning_rate=0.0), tc)[:iterations]
+        out = []
+        with context:
+            for i, tc_i in enumerate(tcs):
+                step = make_train_step(g, d, tc_i, step=TRAIN_STEP,
+                                       fading=False)
+                real, labels, z, eps = train_batch(torch, g, seed=200 + i)
+                _, metrics = step(state, real, labels, 1.0, z=z, eps=eps)
+                torch.cuda.synchronize()
+                out.append(({k: float(v) for k, v in metrics.items()},
+                            {f"{net}.{n}": t.clone() for net in ("d", "g")
+                             for n, t in state[f"opt_{net}"]["mu"].items()}))
+        return out
+
+    def worst_gradient(got, want, nets):
+        worst = {"max_err_rel_to_largest_entry": 0.0, "tensor": None,
+                 "mean_err_rel_to_mean": 0.0, "tensors_on_graph": 0}
+        for name, w in want.items():
+            if not name.startswith(nets):
+                continue
+            scale = w.abs().max().item()
+            diff = (got[name] - w).abs()
+            err = diff.max().item()
+            require(math.isfinite(err), f"f32 gradient {name} not finite")
+            if scale == 0.0:    # a parameter off the graph: zeros in both
+                require(err == 0.0, f"f32 gradient {name}: off-graph, "
+                                    f"nonzero")
+                continue
+            worst["tensors_on_graph"] += 1
+            worst["mean_err_rel_to_mean"] = max(
+                worst["mean_err_rel_to_mean"],
+                diff.mean().item() / w.abs().mean().item())
+            if err / scale >= worst["max_err_rel_to_largest_entry"]:
+                worst["max_err_rel_to_largest_entry"] = err / scale
+                worst["tensor"] = name
+        return worst
+
+    def hold(r, tol_max, tol_mean, what):
+        require(r["max_err_rel_to_largest_entry"] <= tol_max
+                and r["mean_err_rel_to_mean"] <= tol_mean,
+                f"f32 gradients, {what}: {r} over ({tol_max}, {tol_mean})")
+
+    k0, k1 = run(contextlib.nullcontext(), 2)
+    p0, p1 = run(plain_versions(), 2)
+    with plain_versions():
+        n0, = run(perturbed_fake(torch, 3e-7), 1)
+
+    report = {"same_weights": {
+        "d": worst_gradient(k0[1], p0[1], ("d.",)),
+        "g": worst_gradient(k0[1], p0[1], ("g.",)),
+        "tol_max": 3e-2, "tol_mean": 5e-3,
+        "yardstick_plain_vs_plain_with_3e-7_noise_on_the_fake": {
+            "d": worst_gradient(n0[1], p0[1], ("d.",)),
+            "g": worst_gradient(n0[1], p0[1], ("g.",))}}}
+    hold(report["same_weights"]["d"], 3e-2, 5e-3, "D at identical weights")
+    hold(report["same_weights"]["g"], 3e-2, 5e-3, "G at identical weights")
+    m_k, m_p = k1[0], p1[0]
+    worst_metric = 0.0
+    for k, v in m_p.items():
+        require(math.isfinite(m_k[k]), f"f32 metric {k} = {m_k[k]}")
+        err = abs(m_k[k] - v)
+        require(err <= 1e-4 + 1e-3 * abs(v),
+                f"f32 metric {k}: kernels {m_k[k]} vs plain {v}")
+        worst_metric = max(worst_metric, err / max(abs(v), 1e-4))
+    report["iteration"] = {
+        "metrics_kernels": m_k, "metrics_plain": m_p,
+        "metric_max_rel_err": worst_metric, "metric_tol": 1e-3,
+        "d": worst_gradient(k1[1], p1[1], ("d.",)),
+        "g_against_updated_d": worst_gradient(k1[1], p1[1], ("g.",)),
+        "g_tol_max": 0.1}
+    hold(report["iteration"]["d"], 3e-2, 5e-3, "D in the full iteration")
+    hold(report["iteration"]["g_against_updated_d"], 0.1, 0.1,
+         "G against the updated D")
+    return report
+
+
+def profile_iteration(torch, run, reps: int = 2):
+    """Device time of one bf16 training iteration by part (torch.profiler,
+    kernels classified by name).  Kernel A's plain-op backward (first
+    order: every call of the Function's backward, also the penalty's inner
+    one) is read from a labelled range around it; its double backward
+    under the gradient penalty runs in autograd's own nodes.  Both are
+    part of "elementwise and reductions"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from pgx_torch.ops.kernels import epilogue
+
+    inner = epilogue._BiasPixelNormLrelu.backward
+
+    def labelled(ctx, g):
+        with record_function("kernel_a_backward"):
+            return inner(ctx, g)
+
+    with mock.patch.object(epilogue._BiasPixelNormLrelu, "backward",
+                           staticmethod(labelled)):
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+    parts = {"kernel C (plain + emit-r)": ("conv3x3_mma_kernel",
+                                           "conv3x3_fma_kernel"),
+             "kernels A+B": ("rownorm_kernel",),
+             "cuDNN gradient convs (dgrad, wgrad)": ("dgrad", "wgrad"),
+             "cuDNN/cuBLAS forward convs and matmuls (also those inside the "
+             "double backward)": ("fprop", "xmma", "cudnn", "cutlass",
+                                  "gemm"),
+             "optimizer + EMA (foreach)": ("multi_tensor_apply",),
+             "upsample / interpolate": ("upsample_bilinear",)}
+    by_part = {k: 0.0 for k in [*parts, "elementwise and reductions",
+                                "other"]}
+    device_events = [ev for ev in prof.events()
+                     if ev.device_type == DeviceType.CUDA
+                     and ev.name != "kernel_a_backward"]  # the range itself
+    for ev in device_events:
+        name = ev.name.lower()
+        part = next((k for k, pats in parts.items()
+                     if any(pat in name for pat in pats)), None)
+        if part is None:
+            part = ("elementwise and reductions"
+                    if "elementwise" in name or "reduce" in name
+                    or "cat" in name or "copy" in name else "other")
+        by_part[part] += ev.time_range.elapsed_us() / 1e3 / reps
+    total = sum(by_part.values())
+    # the labelled range as the profiler mirrors it on the device's
+    # timeline: from the first to the last kernel launched inside it
+    a_bwd = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA
+                and ev.name == "kernel_a_backward") / 1e3 / reps
+    require(total > 0 and by_part["kernel C (plain + emit-r)"] > 0,
+            "profiler saw no device time for the iteration")
+    by_name = {}
+    for ev in device_events:
+        by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                            + ev.time_range.elapsed_us() / 1e3 / reps)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"device_ms_per_iteration": total, "by_part_ms": by_part,
+            "top_kernels_ms": [[n[:90], t] for n, t in top],
+            "kernel_a_backward_first_order_ms": a_bwd,
+            "note": "kernel_a_backward_first_order_ms is part of "
+                    "'elementwise and reductions'"}
+
+
+def train_phase(torch, gcfg, dcfg):
+    """The training main path in bf16: launch counts from 0, every metric
+    finite, the state moving; then time, memory and the profile."""
+    import math
+    from pgx_torch.ops import kernels as K
+    from pgx_torch.train import make_train_step
+
+    g, d, tc, state = new_train_state(gcfg, dcfg, "bfloat16")
+    steps = {fading: make_train_step(g, d, tc, step=TRAIN_STEP,
+                                     fading=fading)
+             for fading in (False, True)}
+    want = calls_per_iteration(g, d, TRAIN_STEP)
+    before = {net: [p.detach().clone() for p in state[net].parameters()]
+              for net in ("g", "d", "g_ema")}
+
+    # ---- the main path: counts from 0 to what each iteration launched ----
+    plan = [(False, 1.0), (True, 0.5), (False, 1.0)]
+    launches = {k: 0 for k in want}
+    history = []
+    for i, (fading, alpha) in enumerate(plan):
+        real, labels, z, eps = train_batch(torch, g, seed=300 + i)
+        K.reset_launch_counts()
+        _, metrics = steps[fading](state, real, labels, alpha, z=z, eps=eps)
+        torch.cuda.synchronize()
+        got = K.launch_counts()
+        require(got == want, f"iteration {i + 1} (fading={fading}): "
+                             f"launches {got} != {want}")
+        for k in launches:
+            launches[k] += got[k]
+        vals = {k: float(v) for k, v in metrics.items()}
+        require(all(math.isfinite(v) for v in vals.values()),
+                f"iteration {i + 1}: metrics {vals}")
+        history.append({"fading": fading, "alpha": alpha, **vals})
+    # ----------------------------------------------------------------------
+    require(state["iteration"] == len(plan)
+            and state["opt_d"]["count"] == len(plan)
+            and state["opt_g"]["count"] == len(plan),
+            f"iteration {state['iteration']} after {len(plan)} steps")
+    res = g.resolution(TRAIN_STEP)
+    moved = {}
+    for net, olds in before.items():
+        # parameters on the 128px path; the 64px heads joined in the fade
+        deltas = [(p.detach() - o).abs().max().item()
+                  for p, o in zip(state[net].parameters(), olds)]
+        require(all(math.isfinite(x) for x in deltas), f"{net} not finite")
+        moved[net] = sum(x > 0 for x in deltas)
+        require(moved[net] > 0, f"{net} did not move")
+
+    # kernel C never from the discriminator: a D forward alone launches A
+    # for each of its convs and nothing else
+    real, labels, z, eps = train_batch(torch, g, seed=400)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        scores = state["d"](real, labels, step=TRAIN_STEP)
+    torch.cuda.synchronize()
+    d_alone = K.launch_counts()
+    d_convs = (want[A] - 2 * PER_FORWARD[A]) // 4
+    require(d_alone == {A: d_convs, B: 0, C: 0, C_R: 0},
+            f"a discriminator forward launched {d_alone}")
+    require(scores.shape == (TRAIN_BATCH, 1), f"D output {scores.shape}")
+
+    # ---- time, memory, profile (after the counted run) ----
+    def run():
+        steps[False](state, real, labels, 1.0, z=z, eps=eps)
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(torch, run, reps=7, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with plain_versions():
+        plain_ms = cuda_ms(torch, run, reps=3, warmup=1)
+    prof = profile_iteration(torch, run)
+    return {"resolution": res, "batch": TRAIN_BATCH, "dtype": "bfloat16",
+            "iterations_counted": len(plan), "launches": launches,
+            "launches_per_iteration": want,
+            "discriminator_forward_launches": d_alone,
+            "history": history, "tensors_moved": moved,
+            "device_ms_per_iteration": ms,
+            "plain_path_device_ms_per_iteration": plain_ms,
+            "host_wall_ms_per_iteration": host_ms,
+            "img_per_s": TRAIN_BATCH / ms * 1e3,
+            "peak_memory_bytes": peak, "profile": prof}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -467,9 +960,13 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.monotonic() - t0,
           "nvcc_seconds": build.build_seconds})
 
-    # 2. kernels at the main path's shapes
-    cfg, params, calls = flagship(torch)
-    per_kernel = kernel_phase(torch, calls)
+    # 2. kernels at the shapes of both main paths, and their gradients
+    cfg, dcfg, params, calls = flagship(torch)
+    per_kernel = kernel_phase(torch, calls, "bf16 forward, batch 64")
+    train_calls = record_train_calls(torch, cfg, dcfg)
+    per_kernel_train = kernel_phase(
+        torch, train_calls, "bf16 training iteration, batch 32", reps=5)
+    emit({"phase": "kernel_gradients", **gradient_phase(torch)})
 
     # 3. serving through the entry points a user calls
     fwd = forward_check(torch, cfg, params)
@@ -481,26 +978,55 @@ def main() -> int:
           "z_dim=512, num_classes=10, channel=512, max_step=6), bfloat16, "
           "128px", **served, "total_s": time.monotonic() - t_start})
 
+    # 4. training: the step a user calls, full width, 128px, batch 32
+    emit({"phase": "train_f32_check", **train_f32_check(torch, cfg, dcfg)})
+    trained = train_phase(torch, cfg, dcfg)
+    emit({"phase": "train", "config": "conditional_correct_generator + "
+          "conditional_correct_discriminator_wgangp(feat_dim=512, "
+          "num_classes=10, max_step=6), step 6 (128px), batch 32, "
+          "gp_mode=reverse, gp_every=1", **trained,
+          "total_s": time.monotonic() - t_start})
+
+    def summed(agg):
+        return {"launches": agg["calls"], "max_abs_err": agg["err"],
+                "tol": agg["tol"], "ms": agg["ms"],
+                "plain_ms": agg["plain_ms"],
+                "bound_ms": max(agg["t_ops"], agg["t_bytes"]),
+                "bound_by": ("operations" if agg["t_ops"] > agg["t_bytes"]
+                             else "bytes"),
+                "cudnn_conv_bias_ms": agg["conv_ms"] or None}
+
     kernels = []
     for name, (source, replaces) in SOURCES.items():
-        agg, agg32 = per_kernel[(name, "bfloat16")], per_kernel[(name,
-                                                                "float32")]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": served["launches"][name],
-            "max_abs_err": agg["err"], "tol": agg["tol"], "ms": agg["ms"],
-            "plain_ms": agg["plain_ms"],
-            "bound_ms": max(agg["t_ops"], agg["t_bytes"]),
-            "bound_by": ("operations" if agg["t_ops"] > agg["t_bytes"]
-                         else "bytes"),
-            "library_ms": None,
-            "cudnn_conv_bias_ms": agg["conv_ms"] or None,
-            "f32": {"max_abs_err": agg32["err"], "tol": agg32["tol"],
-                    "ms": agg32["ms"], "plain_ms": agg32["plain_ms"],
-                    "bound_ms": max(agg32["t_ops"], agg32["t_bytes"])},
-            "per": "one bf16 forward at batch 64 (sum over its calls)"})
+        # the headline numbers: per serving forward for the kernels the
+        # serving path runs, per training iteration for the entry only
+        # training runs
+        on_serve = (name, "bfloat16") in per_kernel
+        head = per_kernel if on_serve else per_kernel_train
+        serve_launches = served["launches"].get(name, 0)
+        train_launches = trained["launches"][name]
+        require(train_launches > 0 and (serve_launches > 0 or not on_serve),
+                f"{name}: not launched on its main path")
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces,
+                 "launches": serve_launches + train_launches,
+                 "launches_serve": serve_launches,
+                 "launches_train": train_launches,
+                 **{k: v for k, v in summed(head[(name, "bfloat16")]).items()
+                    if k != "launches"},
+                 "library_ms": None,
+                 "f32": summed(head[(name, "float32")]),
+                 "per": ("one bf16 forward at batch 64 (sum over its calls)"
+                         if on_serve else "one bf16 training iteration at "
+                         "batch 32 (sum over its calls)"),
+                 "train": {"per": "one bf16 training iteration at batch 32 "
+                                  "(sum over its calls)",
+                           **summed(per_kernel_train[(name, "bfloat16")]),
+                           "f32": summed(per_kernel_train[(name,
+                                                           "float32")])}}
+        kernels.append(entry)
 
-    # 4. the card
+    # 5. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -8,14 +8,20 @@ forward, in f32, before the cast to the compute dtype.
 fan_in follows the reference's quirk:
   * Conv2d           -> fan_in = in_ch * kh * kw
   * ConvTranspose2d  -> fan_in = out_ch * kh * kw   (quirk)
+  * Linear           -> fan_in = in_features
   * Embedding        -> fan_in = embedding_dim
 
-Dispatch mirrors ``pgx``: every padding-1 3x3 conv that is not preceded by
-a fused upsample runs kernel C (conv + bias + pixel-norm + lrelu in one
-pass); the epilogue after ``equal_conv2d_up2x`` runs kernel A when it
-pixel-normalizes.  Each kernel wrapper takes its plain version for CPU
-tensors only.  cuDNN/cuBLAS carry the work ``pgx`` leaves to XLA: the
-latent projection, the 1x1 to_rgb convs and the upsample + conv.
+Dispatch mirrors ``pgx``: with ``fused=True`` (the generator) every
+padding-1 3x3 conv that is not preceded by a fused upsample runs kernel C
+(conv + bias + pixel-norm + lrelu in one pass); the epilogue after
+``equal_conv2d_up2x`` runs kernel A when it pixel-normalizes.  Kernel C is
+differentiable once only, so the discriminator, which sits under the
+gradient penalty's double backward, passes ``fused=False``: its convs are
+cuDNN's and their epilogues kernel A, which differentiates twice.  Each
+kernel wrapper takes its plain version for CPU tensors only.  cuDNN/cuBLAS
+carry the work ``pgx`` leaves to XLA: the latent projection, the 1x1
+to_rgb/from_rgb convs, the upsample + conv and every conv of the
+discriminator.
 """
 
 from __future__ import annotations
@@ -25,13 +31,13 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
+from pgx_torch.ops.conv2d_gradfix import conv2d
 from pgx_torch.ops.kernels import (bias_pixelnorm_lrelu, conv3x3_epilogue)
 from pgx_torch.ops.resize import upsample2x
 
 # ---------------------------------------------------------------------------
-# PixelNorm / LeakyReLU
+# PixelNorm / LeakyReLU / minibatch stddev
 # ---------------------------------------------------------------------------
 
 
@@ -45,6 +51,28 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
 
 
+def minibatch_stddev(x: torch.Tensor, eps: float = 1e-8,
+                     groups: int = 1) -> torch.Tensor:
+    """Append the minibatch-stddev feature map as one extra channel.
+
+    Biased variance over the batch per (H, W, C) position, sqrt(var + eps),
+    averaged to a scalar, broadcast to (B, H, W, 1) and concatenated.
+
+    ``groups > 1`` takes the statistic independently per contiguous batch
+    slice of size ``B / groups``, so one forward over
+    ``cat([real, fake, x_hat])`` scores each slice exactly as separate
+    calls would (``TrainConfig.d_concat``)."""
+    b, h, w, c = x.shape
+    if b % groups:
+        raise ValueError(f"batch {b} not divisible by groups={groups}")
+    xg = x.reshape(groups, b // groups, h, w, c)
+    var = torch.var(xg, dim=1, correction=0)               # (G, H, W, C)
+    mean_std = torch.sqrt(var + eps).mean(dim=(1, 2, 3))   # (G,)
+    feat = mean_std.to(x.dtype).reshape(groups, 1, 1, 1, 1).expand(
+        groups, b // groups, h, w, 1).reshape(b, h, w, 1)
+    return torch.cat([x, feat], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Equalized conv / transposed conv / embedding
 # ---------------------------------------------------------------------------
@@ -56,8 +84,7 @@ def _he_scaled(w: torch.Tensor, fan_in: int, dtype) -> torch.Tensor:
 
 def _conv_nhwc(x: torch.Tensor, w_hwio: torch.Tensor,
                padding: int) -> torch.Tensor:
-    y = F.conv2d(x.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1),
-                 padding=padding)
+    y = conv2d(x.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1), padding)
     return y.permute(0, 2, 3, 1)
 
 
@@ -67,7 +94,7 @@ def equal_conv2d(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     kh, kw, in_ch, _ = w.shape
     y = _conv_nhwc(x, _he_scaled(w, in_ch * kh * kw, x.dtype), padding)
     if not bias:
-        return y
+        return y.contiguous()   # the caller's epilogue kernel takes NHWC rows
     return (y + b.to(x.dtype)).contiguous()
 
 
@@ -98,6 +125,13 @@ def latent_to_4x4(w: torch.Tensor, b: torch.Tensor,
     return y + b.to(z.dtype)
 
 
+def equal_linear(w: torch.Tensor, b: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """EqualLinear with the raw (in, out) weight ``w``."""
+    y = x @ _he_scaled(w, w.shape[0], x.dtype)
+    return y + b.to(x.dtype)
+
+
 def embedding(w: torch.Tensor, labels: torch.Tensor, equalized: bool = False,
               dtype=torch.float32) -> torch.Tensor:
     """Label embedding lookup; ``equalized`` applies sqrt(2 / dim)."""
@@ -124,6 +158,15 @@ class EqualConvTranspose2d(nn.Module):
         self.b = nn.Parameter(torch.zeros(out_ch))
 
 
+class EqualLinear(nn.Module):
+    """Raw (in, out) weight ``w`` ~ N(0,1) and bias ``b``."""
+
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(in_dim, out_dim))
+        self.b = nn.Parameter(torch.zeros(out_dim))
+
+
 class Embedding(nn.Module):
     def __init__(self, num_embeddings: int, dim: int):
         super().__init__()
@@ -145,11 +188,14 @@ def conv_epilogue(y: torch.Tensor, b: torch.Tensor, use_pixel_norm: bool,
 
 
 def _conv_step(conv: EqualConv2d, x: torch.Tensor, padding: int,
-               use_pixel_norm: bool, slope: float) -> torch.Tensor:
-    """One conv + epilogue: kernel C for a padding-1 3x3 conv (where pgx's
-    ``_maybe_fused_conv_step`` applies), else conv then epilogue."""
+               use_pixel_norm: bool, slope: float,
+               fused: bool = True) -> torch.Tensor:
+    """One conv + epilogue.  ``fused``: kernel C for a padding-1 3x3 conv
+    (where pgx's ``_maybe_fused_conv_step`` applies).  Otherwise, and for
+    every other conv, cuDNN's conv then the epilogue (kernel A), which is
+    the only form that may sit under a double backward."""
     kh, kw, in_ch, _ = conv.w.shape
-    if padding == 1 and (kh, kw) == (3, 3):
+    if fused and padding == 1 and (kh, kw) == (3, 3):
         w = conv.w * math.sqrt(2.0 / (in_ch * kh * kw))
         return conv3x3_epilogue(x, w, conv.b, use_pixel_norm=use_pixel_norm,
                                 slope=slope)
@@ -179,23 +225,25 @@ class SingleConvBlock(nn.Module):
 
 def conv_block(p: ConvBlock, x: torch.Tensor, padding1: int = 1,
                padding2: Optional[int] = None, use_pixel_norm: bool = True,
-               slope: float = 0.2, upsample_first: bool = False
-               ) -> torch.Tensor:
+               slope: float = 0.2, upsample_first: bool = False,
+               fused: bool = True) -> torch.Tensor:
     """``upsample_first`` runs a bilinear upsample2x before conv1 — the
-    caller passes the LOW-res input."""
+    caller passes the LOW-res input.  ``fused=False`` keeps kernel C out
+    (see ``_conv_step``)."""
     padding2 = padding1 if padding2 is None else padding2
     if upsample_first:
         x = equal_conv2d_up2x(p.conv1.w, p.conv1.b, x, bias=False)
         x = conv_epilogue(x, p.conv1.b, use_pixel_norm, slope)
     else:
-        x = _conv_step(p.conv1, x, padding1, use_pixel_norm, slope)
-    return _conv_step(p.conv2, x, padding2, use_pixel_norm, slope)
+        x = _conv_step(p.conv1, x, padding1, use_pixel_norm, slope, fused)
+    return _conv_step(p.conv2, x, padding2, use_pixel_norm, slope, fused)
 
 
 def single_conv_block(p: SingleConvBlock, x: torch.Tensor, padding: int = 1,
                       use_pixel_norm: bool = True, slope: float = 0.2,
-                      upsample_first: bool = False) -> torch.Tensor:
+                      upsample_first: bool = False,
+                      fused: bool = True) -> torch.Tensor:
     if upsample_first:
         x = equal_conv2d_up2x(p.conv1.w, p.conv1.b, x, bias=False)
         return conv_epilogue(x, p.conv1.b, use_pixel_norm, slope)
-    return _conv_step(p.conv1, x, padding, use_pixel_norm, slope)
+    return _conv_step(p.conv1, x, padding, use_pixel_norm, slope, fused)

@@ -1,6 +1,14 @@
-"""Generator config, factories and module of the port."""
+"""Model configs, factories and modules of the port."""
 
-from pgx_torch.models.config import GeneratorConfig  # noqa: F401
+from pgx_torch.models.config import (  # noqa: F401
+    DiscriminatorConfig,
+    GeneratorConfig,
+)
+from pgx_torch.models.discriminator import (  # noqa: F401
+    Discriminator,
+    discriminator_apply,
+    init_discriminator,
+)
 from pgx_torch.models.generator import (  # noqa: F401
     Generator,
     generator_apply,

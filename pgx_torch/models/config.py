@@ -1,4 +1,5 @@
-"""Generator configuration, field for field the one of ``pgx.models.config``.
+"""Generator and discriminator configurations, field for field those of
+``pgx.models.config``.
 
 Stage numbering: stage ``k`` lives at resolution ``4 * 2**k``; stage 0 is
 the 4x4 block.  The ``legacy`` arch outputs stage ``step`` at ``step``; the
@@ -79,3 +80,63 @@ class GeneratorConfig:
 
     def resolution(self, step: int) -> int:
         return 4 * 2 ** self.out_stage(step)
+
+
+@dataclasses.dataclass(frozen=True)
+class DiscriminatorConfig:
+    """Unified discriminator config.
+
+    stage_in[k] / stage_out[k] are the conv-block channel counts of stage k
+    (stage 0 = the final 4x4 block; its true input is stage_in[0] + 1 for
+    the minibatch-stddev channel, added internally).
+    """
+
+    stage_in: Tuple[int, ...] = (128,) * 7
+    stage_out: Tuple[int, ...] = (128,) * 7
+    img_channels: int = 3
+    arch: str = "legacy"              # entry stage: step / step-1 (proper)
+    block_type: str = "double"        # stages > 0; stage 0 is always double
+    conditioning: str = "none"        # 'none' | 'label_plane' | 'projection'
+    num_classes: int = 0
+    equal_embed: bool = False         # equalized label planes
+    max_step: int = 6
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        def check(cond, msg):
+            if not cond:
+                raise ValueError(f"DiscriminatorConfig: {msg}")
+
+        check(len(self.stage_in) == len(self.stage_out),
+              "stage_in and stage_out differ in length")
+        check(self.arch in ("legacy", "proper"), f"arch {self.arch!r}")
+        check(self.block_type in ("double", "single"),
+              f"block_type {self.block_type!r}")
+        check(self.conditioning in ("none", "label_plane", "projection"),
+              f"conditioning {self.conditioning!r}")
+        if self.conditioning != "none":
+            check(self.num_classes > 0, "conditioning needs num_classes > 0")
+        need = self.max_step + 1 if self.arch == "legacy" else self.max_step
+        check(len(self.stage_in) >= need,
+              f"max_step={self.max_step} ({self.arch}) needs >= {need} "
+              f"stages, stage_in has {len(self.stage_in)}")
+        for k in range(1, len(self.stage_in)):
+            check(self.stage_out[k] == self.stage_in[k - 1],
+                  f"stage {k} out={self.stage_out[k]} must feed "
+                  f"stage {k-1} in={self.stage_in[k-1]}")
+
+    @property
+    def num_stages(self) -> int:
+        return len(self.stage_in)
+
+    @property
+    def feat_dim(self) -> int:
+        return self.stage_out[0]
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return resolve_dtype(self.dtype)
+
+    def entry_stage(self, step: int) -> int:
+        step = min(step, self.max_step)
+        return step if self.arch == "legacy" else step - 1

@@ -3,8 +3,9 @@
 ``Generator`` holds the parameters under ``pgx``'s key names and layouts, so
 a ``pgx`` params tree (numpy arrays, as ``load_params`` or
 ``jax.device_get(init_generator(...))`` returns them) loads by name:
-``Generator.from_jax_params(cfg, tree)``.  This slice is forward-only: the
-parameters do not require grad.
+``Generator.from_jax_params(cfg, tree)``.  Parameters are frozen unless the
+caller asks for a trainable module (the serving path keeps them frozen; the
+train state asks).
 """
 
 from __future__ import annotations
@@ -78,8 +79,16 @@ def _state_dict_of(tree: Params, prefix: str = "") -> Dict[str, torch.Tensor]:
         if isinstance(v, dict):
             out.update(_state_dict_of(v, f"{prefix}{k}."))
         else:
-            out[prefix + k] = torch.from_numpy(np.array(v, np.float32))
+            out[prefix + k] = torch.from_numpy(np.array(v))
     return out
+
+
+def load_params_tree(module: nn.Module, tree: Params) -> nn.Module:
+    """Load a pgx params tree into ``module`` by name, strictly.  The
+    parameters take the arrays' own dtype (an f64 tree stays f64) and keep
+    the module's ``requires_grad``."""
+    module.load_state_dict(_state_dict_of(tree), strict=True, assign=True)
+    return module
 
 
 class Generator(nn.Module):
@@ -87,7 +96,7 @@ class Generator(nn.Module):
     ``embedding.w``, ``input.{w,b}``, ``blocks.<res>.conv<i>.{w,b}``,
     ``to_rgb.<res>.{w,b}`` (res = 4 * 2**stage)."""
 
-    def __init__(self, cfg: GeneratorConfig):
+    def __init__(self, cfg: GeneratorConfig, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         if cfg.conditioning != "none":
@@ -111,17 +120,17 @@ class Generator(nn.Module):
             str(4 * 2 ** k): L.EqualConv2d(cfg.channels[k], cfg.img_channels,
                                            1)
             for k in range(first_rgb, cfg.num_stages)})
-        self.requires_grad_(False)
+        self.requires_grad_(trainable)
 
     @classmethod
     def from_jax_params(cls, cfg: GeneratorConfig, tree: Params,
-                        device="cuda") -> "Generator":
+                        device="cuda", trainable: bool = False
+                        ) -> "Generator":
         """Carry ``pgx`` generator params (a nested dict of numpy arrays in
-        ``pgx``'s layout) over into the module, on ``device``."""
+        ``pgx``'s layout) over into the module, on ``device``, in the
+        arrays' own dtype."""
         dev = resolve_device(device)
-        gen = cls(cfg)
-        gen.load_state_dict(_state_dict_of(tree), strict=True)
-        return gen.to(dev)
+        return load_params_tree(cls(cfg, trainable), tree).to(dev)
 
     def forward(self, z: torch.Tensor, labels: Optional[torch.Tensor] = None,
                 *, step: int, alpha=1.0, fading: bool = False) -> torch.Tensor:

@@ -1,3 +1,7 @@
 """Tensor ops of the port: resampling and the CUDA kernels."""
 
-from pgx_torch.ops.resize import UP_FIR, upsample2x  # noqa: F401
+from pgx_torch.ops.resize import (  # noqa: F401
+    UP_FIR,
+    downsample2x,
+    upsample2x,
+)

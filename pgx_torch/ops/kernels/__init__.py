@@ -14,6 +14,7 @@ from pgx_torch.ops.kernels.build import (  # noqa: F401
 from pgx_torch.ops.kernels.conv_epilogue import (  # noqa: F401
     conv3x3_epilogue,
     conv3x3_epilogue_ref,
+    conv3x3_epilogue_with_r,
 )
 from pgx_torch.ops.kernels.epilogue import (  # noqa: F401
     bias_pixelnorm_lrelu,

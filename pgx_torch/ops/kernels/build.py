@@ -93,8 +93,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pgx_pixel_norm_lrelu.argtypes = [p, p, i64, i, i, f, f, p]
     lib.pgx_conv3x3_epilogue.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f,
                                          f, p]
+    # the residual-emitting entry: (x, w, b, out, r, nb, h, wd, cin, cout,
+    # dtype, slope, eps, stream); always pixel-normalizes
+    lib.pgx_conv3x3_epilogue_r.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                           f, f, p]
     for fn in (lib.pgx_bias_pixelnorm_lrelu, lib.pgx_pixel_norm_lrelu,
-               lib.pgx_conv3x3_epilogue):
+               lib.pgx_conv3x3_epilogue, lib.pgx_conv3x3_epilogue_r):
         fn.restype = ctypes.c_int
     lib.pgx_conv3x3_cout_pad.argtypes = [i]
     lib.pgx_conv3x3_cout_pad.restype = ctypes.c_int
@@ -132,13 +136,15 @@ def check(status: int, name: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# What every wrapper shares: launch counts and the forward-only guard
+# What every wrapper shares: launch counts and input checks
 # ---------------------------------------------------------------------------
 
 # kernel name -> launches in this process; a wrapper adds one where it
-# launches its kernel and nowhere else
+# launches its kernel and nowhere else.  Kernel C counts its two entries
+# apart: "conv3x3_epilogue" is the plain launch, "conv3x3_epilogue_r" the
+# differentiated forward that also writes the pixel-norm scale r.
 LAUNCHES = {"bias_pixelnorm_lrelu": 0, "pixel_norm_lrelu": 0,
-            "conv3x3_epilogue": 0}
+            "conv3x3_epilogue": 0, "conv3x3_epilogue_r": 0}
 
 
 def launch_counts() -> dict:
@@ -148,16 +154,6 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def forbid_autograd(name: str, *tensors) -> None:
-    """The kernels are forward-only: refuse to be recorded for autograd
-    rather than return a result whose gradient would be silently wrong."""
-    import torch
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} is forward-only: call it under torch.no_grad() or "
-            f"torch.inference_mode(), or on tensors that do not require grad")
 
 
 def check_cuda_input(name: str, t) -> None:

@@ -28,6 +28,13 @@
 //   channels l + 32j; K steps of 16 input channels double-buffered with
 //   cp.async.  Weights come as [9][Cin][Cout].
 //
+// Both kernels take an optional `rout`: when it is not null (the
+// differentiated forward, conv3x3_epilogue_fwd(..., emit_r=True)) the
+// pixel-norm scale r = rsqrt(mean_c(a^2) + eps) of every output pixel is also
+// written, as (nb, h, wd, 1) f32.  It is the only residual the backward needs
+// beside the output itself.  In the clustered kernel every CTA of a cluster
+// holds the summed statistic after the reduction; rank 0 alone writes r.
+//
 // wgmma/TMA are left for a later change.
 #include <cooperative_groups.h>
 
@@ -98,8 +105,8 @@ template <int CPT>
 __global__ void __launch_bounds__(256, 1)
 conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias, float* __restrict__ out,
-                   int nb, int h, int wd, int cin, int cout, int use_pn,
-                   float slope, float eps) {
+                   float* __restrict__ rout, int nb, int h, int wd, int cin,
+                   int cout, int use_pn, float slope, float eps) {
   constexpr int CP = 32 * CPT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* As = reinterpret_cast<float*>(smem_raw);    // [2][BM][LDA]
@@ -200,6 +207,7 @@ conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
     ssq = pgx::warp_sum(ssq);
     const float r = use_pn ? rsqrtf(ssq * (1.f / cout) + eps) : 1.f;
     if (m < M) {
+      if (rout != nullptr && lane == 0) rout[m] = r;
 #pragma unroll
       for (int j = 0; j < CPT; ++j) {
         const int n = lane + 32 * j;
@@ -209,9 +217,9 @@ conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-int launch_fma(const void* x, const void* w, const void* b, void* out, int nb,
-               int h, int wd, int cin, int cout, int use_pn, float slope,
-               float eps, cudaStream_t stream) {
+int launch_fma(const void* x, const void* w, const void* b, void* out,
+               float* rout, int nb, int h, int wd, int cin, int cout,
+               int use_pn, float slope, float eps, cudaStream_t stream) {
   const int64_t M = (int64_t)nb * h * wd;
   const unsigned grid = (unsigned)((M + kFmaBM - 1) / kFmaBM);
   const int cpt = (cout + 31) / 32;
@@ -223,8 +231,8 @@ int launch_fma(const void* x, const void* w, const void* b, void* out, int nb,
         smem);                                                               \
     if (e != cudaSuccess) return (int)e;                                     \
     conv3x3_fma_kernel<N><<<grid, 256, smem, stream>>>(                      \
-        (const float*)x, (const float*)w, (const float*)b, (float*)out, nb,  \
-        h, wd, cin, cout, use_pn, slope, eps);                               \
+        (const float*)x, (const float*)w, (const float*)b, (float*)out,      \
+        rout, nb, h, wd, cin, cout, use_pn, slope, eps);                     \
     return (int)cudaGetLastError();                                          \
   }
   PGX_FMA_CASE(1)
@@ -276,8 +284,8 @@ template <int NC>
 __global__ void __cluster_dims__(NC, 1, 1) __launch_bounds__(kCtaThreads, 2)
 conv3x3_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
                    const bf16* __restrict__ bias, bf16* __restrict__ out,
-                   int nb, int h, int wd, int cin, int cout, int use_pn,
-                   float slope, float eps) {
+                   float* __restrict__ rout, int nb, int h, int wd, int cin,
+                   int cout, int use_pn, float slope, float eps) {
   constexpr int CP = kBN * NC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);   // [stages][BM+BN][LDS]
@@ -412,7 +420,10 @@ conv3x3_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
     float ssq = 0.f;
 #pragma unroll
     for (int q = 0; q < NC; ++q) ssq += cluster.map_shared_rank(part, q)[tid];
-    red[tid] = use_pn ? rsqrtf(ssq * (1.f / cout) + eps) : 1.f;
+    const float r = use_pn ? rsqrtf(ssq * (1.f / cout) + eps) : 1.f;
+    red[tid] = r;
+    // every rank holds the same r; one of them stores it
+    if (rout != nullptr && rank == 0 && m0 + tid < M) rout[m0 + tid] = r;
   }
   cluster.sync();  // no CTA leaves while another still reads its `part`
 #pragma unroll
@@ -436,9 +447,9 @@ conv3x3_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
     }
 }
 
-int launch_mma(const void* x, const void* w, const void* b, void* out, int nb,
-               int h, int wd, int cin, int cout, int use_pn, float slope,
-               float eps, cudaStream_t stream) {
+int launch_mma(const void* x, const void* w, const void* b, void* out,
+               float* rout, int nb, int h, int wd, int cin, int cout,
+               int use_pn, float slope, float eps, cudaStream_t stream) {
   const int64_t M = (int64_t)nb * h * wd;
   const int nc = mma_cout_pad(cout) / kBN;
   const int64_t tiles = (M + kBM - 1) / kBM;
@@ -450,14 +461,30 @@ int launch_mma(const void* x, const void* w, const void* b, void* out, int nb,
     if (e != cudaSuccess) return (int)e;                                     \
     conv3x3_mma_kernel<NC><<<(unsigned)(tiles * NC), kCtaThreads, kSmem,     \
                              stream>>>(                                      \
-        (const bf16*)x, (const bf16*)w, (const bf16*)b, (bf16*)out, nb, h,   \
-        wd, cin, cout, use_pn, slope, eps);                                  \
+        (const bf16*)x, (const bf16*)w, (const bf16*)b, (bf16*)out, rout,    \
+        nb, h, wd, cin, cout, use_pn, slope, eps);                           \
     return (int)cudaGetLastError();                                          \
   }
   PGX_MMA_CASE(1)
   PGX_MMA_CASE(2)
   PGX_MMA_CASE(4)
 #undef PGX_MMA_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch(const void* x, const void* w, const void* b, void* out,
+             float* rout, int nb, int h, int wd, int cin, int cout, int dtype,
+             int use_pn, float slope, float eps, void* stream) {
+  if (cin <= 0 || cin % 8 != 0 || cout <= 0 || cout % 8 != 0 || cout > 512)
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)nb * h * wd == 0) return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == pgx::kFloat32)
+    return launch_fma(x, w, b, out, rout, nb, h, wd, cin, cout, use_pn, slope,
+                      eps, s);
+  if (dtype == pgx::kBFloat16)
+    return launch_mma(x, w, b, out, rout, nb, h, wd, cin, cout, use_pn, slope,
+                      eps, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -474,15 +501,18 @@ extern "C" int pgx_conv3x3_epilogue(const void* x, const void* w,
                                     int wd, int cin, int cout, int dtype,
                                     int use_pn, float slope, float eps,
                                     void* stream) {
-  if (cin <= 0 || cin % 8 != 0 || cout <= 0 || cout % 8 != 0 || cout > 512)
-    return (int)cudaErrorInvalidValue;
-  if ((int64_t)nb * h * wd == 0) return (int)cudaSuccess;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == pgx::kFloat32)
-    return launch_fma(x, w, b, out, nb, h, wd, cin, cout, use_pn, slope,
-                      eps, s);
-  if (dtype == pgx::kBFloat16)
-    return launch_mma(x, w, b, out, nb, h, wd, cin, cout, use_pn, slope, eps,
-                      s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(x, w, b, out, nullptr, nb, h, wd, cin, cout, dtype, use_pn,
+                  slope, eps, stream);
+}
+
+// The differentiated forward: the same conv + bias + pixel-norm + lrelu,
+// and r: (nb, h, wd, 1) f32, the pixel-norm scale of each output pixel.
+extern "C" int pgx_conv3x3_epilogue_r(const void* x, const void* w,
+                                      const void* b, void* out, void* r,
+                                      int nb, int h, int wd, int cin,
+                                      int cout, int dtype, float slope,
+                                      float eps, void* stream) {
+  if (r == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch(x, w, b, out, (float*)r, nb, h, wd, cin, cout, dtype, 1,
+                  slope, eps, stream);
 }

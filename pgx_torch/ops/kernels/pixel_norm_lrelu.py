@@ -3,11 +3,15 @@ layer, after the latent -> 4x4 projection).
 
 Replaces ``pgx/ops/pallas/kernels.py:pixel_norm_lrelu_pallas`` (body
 ``_pn_lrelu_kernel``): ``x * rsqrt(mean_c(x^2) + eps)`` then lrelu(slope),
-the mean over the true C.  Statistics are taken in f32.
+the mean over the true C.  Statistics are taken in f32 (f64 for f64).
 
 Bound: bytes (one read and one write of x).  It shares kernel A's source
 (``csrc/epilogue.cu``: one warp per row, the row held in registers) with the
 bias pointer left null, and keeps its own entry and launch count.
+
+Differentiable like kernel A: an ``autograd.Function`` whose forward
+launches the kernel and whose backward is plain torch ops on the saved
+input (the generator's input layer sits under grad in the G step).
 """
 
 from __future__ import annotations
@@ -15,29 +19,19 @@ from __future__ import annotations
 import torch
 
 from pgx_torch.ops.kernels import build
+from pgx_torch.ops.kernels.epilogue import (rownorm_lrelu_backward,
+                                            rownorm_lrelu_ref, stat_dtype)
 
 NAME = "pixel_norm_lrelu"
 
 
 def pixel_norm_lrelu_ref(x: torch.Tensor, slope: float = 0.2,
                          eps: float = 1e-8) -> torch.Tensor:
-    """Plain PyTorch version, statistics in f32."""
-    a = x.float()
-    r = torch.rsqrt(torch.sum(a * a, dim=-1, keepdim=True)
-                    * (1.0 / x.shape[-1]) + eps)
-    out = a * r
-    return torch.where(out < 0, slope * out, out).to(x.dtype)
+    """Plain PyTorch version, statistics in f32 (f64 for an f64 input)."""
+    return rownorm_lrelu_ref(x.to(stat_dtype(x.dtype)), slope, eps, x.dtype)
 
 
-def pixel_norm_lrelu(x: torch.Tensor, slope: float = 0.2,
-                     eps: float = 1e-8) -> torch.Tensor:
-    """``lrelu(pixel_norm(x), slope)`` over the last axis of NHWC ``x``.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32/bfloat16, contiguous, C a multiple of 8 and at most 512)."""
-    build.forbid_autograd(NAME, x)
-    if x.device.type == "cpu":
-        return pixel_norm_lrelu_ref(x, slope, eps)
+def _launch(x: torch.Tensor, slope: float, eps: float) -> torch.Tensor:
     build.check_cuda_input(NAME, x)
     c = x.shape[-1]
     if c % 8 or c > 512:
@@ -49,3 +43,30 @@ def pixel_norm_lrelu(x: torch.Tensor, slope: float = 0.2,
         float(slope), float(eps), build.stream_ptr()), NAME)
     build.LAUNCHES[NAME] += 1
     return out
+
+
+class _PixelNormLrelu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, slope, eps):
+        ctx.save_for_backward(x)
+        ctx.slope, ctx.eps = slope, eps
+        if x.device.type == "cpu":
+            return pixel_norm_lrelu_ref(x, slope, eps)
+        return _launch(x, slope, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        acc = stat_dtype(x.dtype)
+        dx = rownorm_lrelu_backward(x.to(acc), g.to(acc), ctx.slope, ctx.eps)
+        return dx.to(x.dtype), None, None
+
+
+def pixel_norm_lrelu(x: torch.Tensor, slope: float = 0.2,
+                     eps: float = 1e-8) -> torch.Tensor:
+    """``lrelu(pixel_norm(x), slope)`` over the last axis of NHWC ``x``,
+    differentiable in ``x``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (float32/bfloat16, contiguous, C a multiple of 8 and at most 512)."""
+    return _PixelNormLrelu.apply(x, slope, eps)

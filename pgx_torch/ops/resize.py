@@ -1,4 +1,5 @@
-"""Bilinear 2x upsampling with exact ``F.interpolate`` parity, NHWC.
+"""Bilinear 2x up- and downsampling with exact ``F.interpolate`` parity,
+NHWC.
 
 Counterpart of ``pgx/ops/resize.py``.  With half-pixel centres the source
 coordinate of output pixel ``i`` is ``i/2 - 0.25``; with edge clamping that
@@ -30,3 +31,14 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
                       mode="bilinear", align_corners=False)
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def downsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Exact ``F.interpolate(x, scale_factor=0.5, mode='bilinear',
+    align_corners=False)`` for even sizes: the 2x2 sum times 0.25, taken in
+    ``x``'s dtype.  NHWC in and out; odd sizes raise."""
+    b, h, w, c = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"downsample2x needs even H and W, got {h}x{w}")
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c)
+    return x.sum(dim=(2, 4), dtype=x.dtype) * 0.25

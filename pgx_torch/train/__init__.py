@@ -1,4 +1,4 @@
-"""Growth schedules and the sampling function of the port."""
+"""Growth schedules, the train step and the sampling function of the port."""
 
 from pgx_torch.train.schedule import (  # noqa: F401
     LegacySchedule,
@@ -6,4 +6,11 @@ from pgx_torch.train.schedule import (  # noqa: F401
     ScheduleState,
     schedule_from_dict,
 )
-from pgx_torch.train.wgan import make_eval_generate  # noqa: F401
+from pgx_torch.train.wgan import (  # noqa: F401
+    TrainConfig,
+    draw_z_eps,
+    init_train_state,
+    make_eval_generate,
+    make_train_step,
+    train_state_from_jax,
+)

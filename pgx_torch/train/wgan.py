@@ -1,12 +1,346 @@
-"""Sampling from the (EMA) generator — the serving half of
-``pgx/train/wgan.py``.  The training step comes in a later slice."""
+"""WGAN-GP training engine of the port: one stage-specialized train step,
+and sampling from the (EMA) generator.
+
+Counterpart of ``pgx/train/wgan.py``.  One iteration reproduces the
+reference's math exactly:
+
+  D loss   = -E[D(real)] + 0.001*E[D(real)^2]          (drift penalty)
+             + E[D(fake)]
+             + 10 * E[(||grad_{x_hat} D(x_hat)||_2 - 1)^2]   (WGAN-GP)
+  with x_hat = eps*real + (1-eps)*fake, eps ~ U[0,1) per sample, the fake
+  detached.
+  G loss   = -E[D_updated(G(z))] with the SAME z as the D step and the
+             freshly updated D.
+  EMA      : g_ema = 0.999*g_ema + 0.001*g after every G update.
+  Optimizers: two Adam(lr, betas=(0.0, 0.99), eps=1e-8), as optax computes
+             them: one step count per optimizer, a parameter off the graph
+             sees a zero gradient (its second moment decays, the shared
+             count advances), eps outside the square root.
+
+The gradient penalty's second-order term is a double backward:
+``torch.autograd.grad(sum(D(x_hat)), x_hat, create_graph=True)`` and then
+the gradient of the loss.  The discriminator's conv epilogues (kernel A)
+differentiate twice; the generator's fused convs (kernel C) only once, and
+only the generator runs them.
+
+The random draws ``z`` and ``eps`` are inputs of the step: the caller draws
+them from an explicit ``torch.Generator`` (``draw_z_eps``), and a parity
+test feeds the draws of another implementation.
+
+The state holds ``nn.Module``s and is updated in place: the step returns the
+same dict it was given.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+from typing import Any, Dict, List, Tuple
+
 import torch
 
-from pgx_torch.models.config import GeneratorConfig
-from pgx_torch.models.generator import generator_apply
+from pgx_torch.models.config import DiscriminatorConfig, GeneratorConfig
+from pgx_torch.models.discriminator import Discriminator, init_discriminator
+from pgx_torch.models.generator import (Generator, _state_dict_of,
+                                        generator_apply, init_generator)
+from pgx_torch.utils import resolve_device
+
+METRICS = ("d_loss", "grad_penalty", "real_score", "fake_score", "d_total",
+           "ada_p", "ada_r", "g_loss")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Hyperparameters of the WGAN-GP loop (reference defaults); the fields
+    of ``pgx.train.TrainConfig``.  Values whose code path is not ported yet
+    (``gp_mode='jvp'``, ``remat=True``, ``weights_cast='once'``) raise
+    ``NotImplementedError`` here, at construction."""
+
+    learning_rate: float = 1e-3
+    beta1: float = 0.0
+    beta2: float = 0.99
+    adam_eps: float = 1e-8
+    lambda_gp: float = 10.0
+    drift: float = 1e-3
+    ema_decay: float = 0.999
+    n_critic: int = 1
+    gp_every: int = 1      # lazy regularization: the penalty every N
+                           # iterations with lambda scaled by N
+    gp_mode: str = "reverse"    # 'reverse': the double backward; 'jvp':
+                                # the forward-over-reverse surrogate
+    remat: bool = False
+    remat_policy: str = "full"
+    weights_cast: str = "site"
+    fused_g: bool = False
+    # One joint gradient pass through D(G(z)) yields the D gradient and,
+    # negated, the G gradient.  G is then scored by the PRE-update D, and
+    # the logged g_loss is minus the D step's fake score.
+    d_concat: bool = False
+    # One D forward over cat([real, fake, x_hat]) (3B; 2B when the penalty
+    # is skipped) with the minibatch-stddev statistic per B-slice, so each
+    # slice scores as a separate call would.  Reverse GP only; incompatible
+    # with fused_g.
+
+    def __post_init__(self):
+        if self.gp_mode not in ("reverse", "jvp"):
+            raise ValueError(f"gp_mode must be 'reverse' or 'jvp', "
+                             f"got {self.gp_mode!r}")
+        if self.weights_cast not in ("site", "once"):
+            raise ValueError(f"weights_cast must be 'site' or 'once', "
+                             f"got {self.weights_cast!r}")
+        if self.remat_policy not in ("full", "convs", "d_only"):
+            raise ValueError(f"remat_policy must be 'full', 'convs' or "
+                             f"'d_only', got {self.remat_policy!r}")
+        if self.gp_every < 1 or self.n_critic < 1:
+            raise ValueError("gp_every and n_critic must be >= 1")
+        if self.d_concat and self.gp_mode != "reverse":
+            raise ValueError("d_concat requires gp_mode='reverse'")
+        if self.d_concat and self.fused_g:
+            raise ValueError("d_concat is incompatible with fused_g")
+        for field, value in (("gp_mode", "jvp"), ("remat", True),
+                             ("weights_cast", "once")):
+            if getattr(self, field) == value:
+                raise NotImplementedError(
+                    f"TrainConfig.{field}={value!r} is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Train state
+# ---------------------------------------------------------------------------
+
+def _adam_init(module: torch.nn.Module) -> Dict[str, Any]:
+    named = dict(module.named_parameters())
+    return {"count": 0,
+            "mu": {n: torch.zeros_like(p) for n, p in named.items()},
+            "nu": {n: torch.zeros_like(p) for n, p in named.items()}}
+
+
+def _build_state(g: Generator, d: Discriminator, g_ema: Generator,
+                 iteration: int = 0) -> Dict[str, Any]:
+    return {"g": g, "d": d, "g_ema": g_ema, "opt_g": _adam_init(g),
+            "opt_d": _adam_init(d), "iteration": iteration}
+
+
+def init_train_state(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
+                     tc: TrainConfig, seed: int = 0,
+                     device="cuda") -> Dict[str, Any]:
+    """The full training state on ``device``: trainable ``g`` and ``d``,
+    the frozen EMA copy ``g_ema`` (an exact copy of ``g``), zeroed Adam
+    moments and counts, ``iteration`` 0.  Weights come from
+    ``init_generator(gcfg, seed)`` and ``init_discriminator(dcfg,
+    seed + 1)``."""
+    del tc   # the optimizer's state does not depend on its hyperparameters
+    g_tree = init_generator(gcfg, seed)
+    return _build_state(
+        Generator.from_jax_params(gcfg, g_tree, device, trainable=True),
+        Discriminator.from_jax_params(dcfg, init_discriminator(dcfg,
+                                                               seed + 1),
+                                      device),
+        Generator.from_jax_params(gcfg, g_tree, device))
+
+
+def train_state_from_jax(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
+                         tc: TrainConfig, state: Dict[str, Any],
+                         device="cuda") -> Dict[str, Any]:
+    """Carry a ``jax.device_get`` of pgx's train state across: ``g``, ``d``,
+    ``g_ema``, optax's Adam state (``count``, ``mu``, ``nu`` of ``opt_g``
+    and ``opt_d``) and ``iteration``, each in the arrays' own dtype.
+    ``rng`` and ``ada`` are not carried: the port's step takes its draws as
+    inputs and has no ADA yet."""
+    del tc
+    dev = resolve_device(device)
+    out = _build_state(
+        Generator.from_jax_params(gcfg, state["g"], dev, trainable=True),
+        Discriminator.from_jax_params(dcfg, state["d"], dev),
+        Generator.from_jax_params(gcfg, state["g_ema"], dev),
+        int(state["iteration"]))
+    for key in ("opt_g", "opt_d"):
+        adam = state[key][0]        # optax.adam: (ScaleByAdamState, Empty)
+        opt = out[key]
+        opt["count"] = int(adam.count)
+        for moment in ("mu", "nu"):
+            flat = _state_dict_of(getattr(adam, moment))
+            if flat.keys() != opt[moment].keys():
+                raise ValueError(f"{key}.{moment} does not match the "
+                                 f"parameters: {sorted(flat)}")
+            opt[moment] = {n: flat[n].to(dev) for n in opt[moment]}
+    return out
+
+
+def draw_z_eps(gcfg: GeneratorConfig, batch: int, rng: torch.Generator,
+               dtype: torch.dtype = torch.float32
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step's draws on ``rng``'s device: z ~ N(0, 1) of (batch, z_dim)
+    in f32 and the interpolation weights eps ~ U[0, 1) of (batch, 1, 1, 1)
+    in ``dtype`` (the real batch's)."""
+    z = torch.randn(batch, gcfg.z_dim, generator=rng, device=rng.device)
+    eps = torch.rand(batch, 1, 1, 1, generator=rng, device=rng.device,
+                     dtype=dtype)
+    return z, eps
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+
+def _grads_of(loss: torch.Tensor,
+              params: List[torch.Tensor]) -> List[torch.Tensor]:
+    """d loss / d params; a parameter off the graph gets zeros, as optax
+    sees it."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
+@torch.no_grad()
+def _adam_update(module: torch.nn.Module, grads: List[torch.Tensor],
+                 opt: Dict[str, Any], tc: TrainConfig) -> None:
+    """optax.adam's update, in place: bias-corrected moments on one shared
+    step count, eps outside the square root."""
+    names = [n for n, _ in module.named_parameters()]
+    params = list(module.parameters())
+    mu = [opt["mu"][n] for n in names]
+    nu = [opt["nu"][n] for n in names]
+    opt["count"] += 1
+    torch._foreach_mul_(mu, tc.beta1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - tc.beta1)
+    torch._foreach_mul_(nu, tc.beta2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - tc.beta2)
+    bc1 = 1.0 - tc.beta1 ** opt["count"]
+    bc2 = 1.0 - tc.beta2 ** opt["count"]
+    denom = torch._foreach_div(nu, bc2)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, tc.adam_eps)
+    torch._foreach_addcdiv_(params, mu, denom, value=-tc.learning_rate / bc1)
+
+
+@contextlib.contextmanager
+def _frozen(module: torch.nn.Module):
+    """``module``'s parameters out of the graph for the enclosed forward:
+    no gradient is computed or kept for them."""
+    module.requires_grad_(False)
+    try:
+        yield
+    finally:
+        module.requires_grad_(True)
+
+
+def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
+                    tc: TrainConfig, *, step: int, fading: bool,
+                    update_g: bool = True, apply_gp: bool = True):
+    """The train step for one (stage, fade phase):
+    ``fn(state, real, labels, alpha, *, z, eps) -> (state, metrics)``.
+
+    ``real`` is NHWC in [-1, 1] at this stage's resolution; ``labels`` may
+    be None for unconditional configs; ``alpha`` is the fade weight; ``z``
+    (B, z_dim) and ``eps`` (B, 1, 1, 1) are this step's draws
+    (``draw_z_eps``).  ``update_g=False`` is a D-only iteration of the
+    ``n_critic`` cadence; ``apply_gp=False`` skips the penalty (lazy
+    regularization, ``gp_every > 1``).  The state is updated in place and
+    returned; ``metrics`` maps ``METRICS`` to 0-d tensors on the device (no
+    host synchronization happens in the step)."""
+    conditional = gcfg.conditioning != "none"
+    fused = bool(tc.fused_g) and update_g
+    lam = tc.lambda_gp * tc.gp_every
+
+    def train_step(state, real, labels, alpha, *, z, eps):
+        gen, disc = state["g"], state["d"]
+        lab = labels if conditional else None
+        bsz = real.shape[0]
+
+        def g_fwd(gen_):
+            return generator_apply(gen_, z, lab, step=step, alpha=alpha,
+                                   fading=fading)
+
+        def d_fwd(img, groups=1):
+            lab_c = None if lab is None else torch.cat([lab] * groups)
+            return disc(img, lab_c, step=step, alpha=alpha, fading=fading,
+                        stddev_groups=groups).reshape(-1)
+
+        def penalty(grad_x):
+            acc = torch.promote_types(grad_x.dtype, torch.float32)
+            norms = torch.sqrt(torch.sum(torch.square(grad_x.to(acc)),
+                                         dim=(1, 2, 3)))
+            return lam * torch.mean(torch.square(norms - 1.0))
+
+        def d_loss_with(fake_live):
+            # fake_live carries G's graph in fused mode; x_hat never does:
+            # the reference interpolates against a detached fake
+            x_hat = eps * real + (1.0 - eps) * fake_live.detach()
+            gp = torch.zeros((), dtype=torch.float32, device=real.device)
+            if tc.d_concat:
+                # one batched forward with per-slice stddev; the hat
+                # slice's input gradient comes from the same graph
+                parts = [real, fake_live]
+                if apply_gp:
+                    parts.append(x_hat.requires_grad_(True))
+                scores = d_fwd(torch.cat(parts, dim=0), len(parts))
+                real_scores = scores[:bsz]
+                fake_scores = scores[bsz:2 * bsz]
+                if apply_gp:
+                    grad_x, = torch.autograd.grad(
+                        scores[2 * bsz:].sum(), x_hat, create_graph=True)
+                    gp = penalty(grad_x)
+            else:
+                real_scores = d_fwd(real)
+                fake_scores = d_fwd(fake_live)
+                if apply_gp:
+                    x_hat.requires_grad_(True)
+                    grad_x, = torch.autograd.grad(
+                        d_fwd(x_hat).sum(), x_hat, create_graph=True)
+                    gp = penalty(grad_x)
+            real_drifted = (torch.mean(real_scores) - tc.drift
+                            * torch.mean(torch.square(real_scores)))
+            loss = -real_drifted + torch.mean(fake_scores) + gp
+            aux = {"d_loss": real_drifted - torch.mean(fake_scores),
+                   "grad_penalty": gp,
+                   "real_score": torch.mean(real_scores),
+                   "fake_score": torch.mean(fake_scores),
+                   "d_total": loss,
+                   "ada_r": torch.mean(torch.sign(real_scores))}
+            return loss, {k: v.detach() for k, v in aux.items()}
+
+        # --- D update (its graph dies with this function's locals) --------
+        def d_step():
+            d_params = list(disc.parameters())
+            if fused:
+                g_params = list(gen.parameters())
+                loss, aux = d_loss_with(g_fwd(gen))
+                grads = _grads_of(loss, d_params + g_params)
+                return (grads[:len(d_params)],
+                        [-g for g in grads[len(d_params):]], aux)
+            with torch.no_grad():
+                fake = g_fwd(gen)
+            loss, aux = d_loss_with(fake)
+            return _grads_of(loss, d_params), None, aux
+
+        d_grads, g_grads, metrics = d_step()
+        _adam_update(disc, d_grads, state["opt_d"], tc)
+        del d_grads
+        metrics["ada_p"] = torch.zeros((), device=real.device)
+        metrics["g_loss"] = torch.zeros((), device=real.device)
+
+        # --- G update: same z, the updated D (fused: the joint pass's
+        # negated gradient against the pre-update D) -----------------------
+        if update_g:
+            if fused:
+                metrics["g_loss"] = -metrics["fake_score"]
+            else:
+                with _frozen(disc):
+                    g_loss = -torch.mean(d_fwd(g_fwd(gen)))
+                    g_grads = _grads_of(g_loss, list(gen.parameters()))
+                metrics["g_loss"] = g_loss.detach()
+                del g_loss
+            _adam_update(gen, g_grads, state["opt_g"], tc)
+            with torch.no_grad():
+                ema = list(state["g_ema"].parameters())
+                torch._foreach_mul_(ema, tc.ema_decay)
+                torch._foreach_add_(ema, list(gen.parameters()),
+                                    alpha=1.0 - tc.ema_decay)
+        state["iteration"] += 1
+        return state, metrics
+
+    return train_step
 
 
 def make_eval_generate(gcfg: GeneratorConfig, *, step: int,

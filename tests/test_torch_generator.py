@@ -7,6 +7,7 @@ draws fed to both.  f32, every step, fading off and on with alpha in
 convs and norms summed in another order.
 """
 
+import os
 import sys
 import subprocess
 
@@ -100,6 +101,32 @@ def test_step_is_clamped_to_max_step(models):
         assert gen(z, step=9).shape == gen(z, step=jc.max_step).shape
 
 
+def test_from_jax_params_keeps_f64_and_trainable_flag():
+    """An f64 tree stays f64 (a train state carried across for an f64
+    parity test); serving keeps the parameters frozen, training asks for
+    trainable ones."""
+    kw = dict(CONFIGS["cond_proper"], dtype="float64")
+    cfg = tcfg.GeneratorConfig(**kw)
+    tree = init_generator(cfg, seed=0)
+    f64 = lambda t: {k: (f64(v) if isinstance(v, dict)
+                         else v.astype(np.float64) + 1e-12)
+                     for k, v in t.items()}
+    tree64 = f64(tree)
+    gen = Generator.from_jax_params(cfg, tree64, "cpu", trainable=True)
+    assert all(p.dtype == torch.float64 and p.requires_grad
+               for p in gen.parameters())
+    np.testing.assert_array_equal(
+        gen.blocks["8"].conv1.w.detach().numpy(),
+        tree64["blocks"]["8"]["conv1"]["w"])      # not rounded through f32
+    frozen = Generator.from_jax_params(tcfg.GeneratorConfig(
+        **CONFIGS["cond_proper"]), tree, "cpu")
+    assert all(p.dtype == torch.float32 and not p.requires_grad
+               for p in frozen.parameters())
+    z = torch.zeros(2, cfg.z_dim, dtype=torch.float64)
+    out = gen(z, torch.tensor([0, 1]), step=2)
+    assert out.dtype == torch.float64 and out.requires_grad
+
+
 def test_init_generator_layout_matches_pgx():
     """The port's numpy init has pgx's keys, shapes and distribution."""
     kw = dict(jzoo.conditional_correct_generator(
@@ -132,7 +159,7 @@ def test_zoo_factories_match_pgx():
                                             channel=512, max_step=6)),
         (tzoo.correct_generator(), jzoo.correct_generator()),
         (tzoo.mnist_generator(channel=8), jzoo.mnist_generator(channel=8)),
-        (tzoo.conditional_correct_grown(8),
+        (tzoo.conditional_correct_grown(8)[0],
          jzoo.conditional_correct_grown(8)[0]),
     ]
     for t, j in pairs:
@@ -143,11 +170,13 @@ def test_zoo_factories_match_pgx():
 
 def test_import_leaves_jax_and_pgx_out():
     code = ("import sys, pgx_torch, pgx_torch.serve, pgx_torch.cli.serve, "
-            "pgx_torch.ops.kernels\n"
+            "pgx_torch.ops.kernels, pgx_torch.models.discriminator, "
+            "pgx_torch.train.wgan, chip_smoke\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'pgx' or "
             "m.startswith('pgx.')]\n"
             "assert not bad, bad\nprint('ok')")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=120)
+                       text=True, timeout=120, cwd=root)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr

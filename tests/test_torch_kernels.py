@@ -7,6 +7,14 @@ same f32 arithmetic summed in another order.  Where pgx's conv kernel gates
 a shape out (W below its sublane tile, e.g. the 4x4 stage) the plain version
 is held against pgx's XLA reference ``conv3x3_epilogue_ref`` instead.
 
+Gradients: each wrapper is a ``torch.autograd.Function`` whose backward is
+written by hand; on the CPU its forward takes the plain version, so the
+same backward the card uses is held against ``jax.grad`` of the pgx
+function (f32, atol/rtol 1e-5 of order-1 gradients), kernel A also to
+second order against ``jax.grad`` of a gradient-penalty-shaped function of
+``jax.grad``, and against finite differences in f64
+(``gradcheck``/``gradgradcheck``).
+
 The ``gpu`` cases hold each CUDA kernel against its plain version on the
 card; they skip without one.  JAX is imported inside the fixtures, so the
 file also runs where only torch is installed:
@@ -112,15 +120,203 @@ def test_conv3x3_epilogue_matches_xla_ref(pallas_interpret, shape, cout, pn):
 
 
 def test_wrappers_refuse_autograd():
-    x = torch.zeros(1, 4, 4, 8, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        K.pixel_norm_lrelu(x)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        K.bias_pixelnorm_lrelu(x, torch.zeros(8))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        K.conv3x3_epilogue(x, torch.zeros(3, 3, 8, 8), torch.zeros(8))
+    """What is still refused: kernel C differentiates once only, so a
+    double backward through it raises rather than return a wrong second
+    derivative.  A and B record a graph; under ``no_grad`` none does."""
+    x = torch.randn(1, 4, 4, 8, requires_grad=True)
+    w = torch.randn(3, 3, 8, 8, requires_grad=True)
+    b = torch.zeros(8, requires_grad=True)
+    y = K.conv3x3_epilogue(x, w, b)
+    with pytest.raises(RuntimeError, match="differentiable once only"):
+        torch.autograd.grad(y.sum(), x, create_graph=True)
+    gx, = torch.autograd.grad(y.sum(), x)          # first order is fine
+    assert gx.shape == x.shape and not gx.requires_grad
+    assert K.pixel_norm_lrelu(x).requires_grad
+    assert K.bias_pixelnorm_lrelu(x, b).requires_grad
     with torch.no_grad():
-        assert K.pixel_norm_lrelu(x).shape == x.shape
+        assert not K.pixel_norm_lrelu(x).requires_grad
+        assert not K.bias_pixelnorm_lrelu(x, b).requires_grad
+        assert not K.conv3x3_epilogue(x, w, b).requires_grad
+
+
+# ---------------------------------------------------------------------------
+# Gradients: the hand-written backwards against jax.grad of the pgx function
+# ---------------------------------------------------------------------------
+
+def _leaf(arr, dtype=None):
+    t = torch.from_numpy(arr)
+    return (t.to(dtype) if dtype else t).requires_grad_(True)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 4, 128), (1, 8, 8, 256)])
+def test_bias_pixelnorm_lrelu_grads_match_pgx(pallas_interpret, shape):
+    import jax
+    import jax.numpy as jnp
+    E = pallas_interpret["epilogue"]
+    y, b, g = _rand(shape, 1), _rand(shape[-1:], 2), _rand(shape, 3)
+
+    def j_loss(y_, b_):
+        return jnp.sum(E.bias_pixelnorm_lrelu(y_, b_, 0.2) * g)
+
+    want_y, want_b = jax.grad(j_loss, argnums=(0, 1))(jnp.asarray(y),
+                                                      jnp.asarray(b))
+    ty, tb = _leaf(y), _leaf(b)
+    out = K.bias_pixelnorm_lrelu(ty, tb, 0.2)
+    got_y, got_b = torch.autograd.grad((out * torch.from_numpy(g)).sum(),
+                                       (ty, tb))
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y),
+                               atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got_b.numpy(), np.asarray(want_b),
+                               atol=1e-4, rtol=1e-4)   # a sum over rows
+
+
+def test_bias_pixelnorm_lrelu_second_order_matches_pgx(pallas_interpret):
+    """The gradient penalty's shape: a function of the input gradient,
+    differentiated again with respect to y and b."""
+    import jax
+    import jax.numpy as jnp
+    E = pallas_interpret["epilogue"]
+    shape = (2, 4, 4, 128)
+    y, b, g = _rand(shape, 1), _rand(shape[-1:], 2), _rand(shape, 3)
+
+    def j_penalty(y_, b_):
+        gy = jax.grad(lambda v: jnp.sum(
+            E.bias_pixelnorm_lrelu(v, b_, 0.2) * g))(y_)
+        norms = jnp.sqrt(jnp.sum(jnp.square(gy), axis=(1, 2, 3)))
+        return jnp.mean(jnp.square(norms - 1.0))
+
+    want_y, want_b = jax.grad(j_penalty, argnums=(0, 1))(jnp.asarray(y),
+                                                         jnp.asarray(b))
+    ty, tb = _leaf(y), _leaf(b)
+    out = K.bias_pixelnorm_lrelu(ty, tb, 0.2)
+    gy, = torch.autograd.grad((out * torch.from_numpy(g)).sum(), ty,
+                              create_graph=True)
+    norms = gy.square().sum(dim=(1, 2, 3)).sqrt()
+    got_y, got_b = torch.autograd.grad(((norms - 1.0) ** 2).mean(), (ty, tb))
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y),
+                               atol=ATOL, rtol=1e-4)
+    np.testing.assert_allclose(got_b.numpy(), np.asarray(want_b),
+                               atol=ATOL, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape,slope", [((2, 4, 4, 128), 0.2),
+                                         ((3, 4, 4, 64), 0.1)])
+def test_pixel_norm_lrelu_grad_matches_pgx(shape, slope):
+    """pgx's kernel B has no differentiation rule; its generator
+    differentiates the XLA composition, which is the reference here."""
+    import jax
+    import jax.numpy as jnp
+    from pgx.core import layers as JL
+    x, g = _rand(shape, 3), _rand(shape, 4)
+    want = jax.grad(lambda v: jnp.sum(
+        JL.leaky_relu(JL.pixel_norm(v), slope) * g))(jnp.asarray(x))
+    tx = _leaf(x)
+    got, = torch.autograd.grad(
+        (K.pixel_norm_lrelu(tx, slope) * torch.from_numpy(g)).sum(), tx)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("shape,cout,pn", [((2, 8, 8, 128), 128, True),
+                                           ((1, 8, 16, 128), 256, True),
+                                           ((2, 8, 8, 128), 128, False)])
+def test_conv3x3_epilogue_grads_match_pgx(pallas_interpret, shape, cout, pn):
+    import jax
+    import jax.numpy as jnp
+    C = pallas_interpret["conv_epilogue"]
+    x = _rand(shape, 4)
+    w = _rand((3, 3, shape[-1], cout), 5, np.sqrt(2.0 / (9 * shape[-1])))
+    b = _rand((cout,), 6, 0.1)
+    g = _rand(shape[:3] + (cout,), 7)
+    op = C.make_conv3x3_epilogue(use_pixel_norm=pn)
+    want = jax.grad(lambda *a: jnp.sum(op(*a) * g), argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    tx, tw, tb = _leaf(x), _leaf(w), _leaf(b)
+    out = K.conv3x3_epilogue(tx, tw, tb, use_pixel_norm=pn)
+    got = torch.autograd.grad((out * torch.from_numpy(g)).sum(),
+                              (tx, tw, tb))
+    for name, a, e in zip("xwb", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(e), atol=1e-4,
+                                   rtol=1e-4, err_msg=name)
+
+
+def test_conv3x3_epilogue_r_matches_pallas_emit_r(pallas_interpret):
+    import jax.numpy as jnp
+    C = pallas_interpret["conv_epilogue"]
+    shape, cout = (2, 8, 8, 128), 256
+    x = _rand(shape, 4)
+    w = _rand((3, 3, shape[-1], cout), 5, np.sqrt(2.0 / (9 * shape[-1])))
+    b = _rand((cout,), 6, 0.1)
+    want_y, want_r = C.conv3x3_epilogue_fwd(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), interpret=True,
+        emit_r=True)
+    got_y, got_r = K.conv3x3_epilogue_with_r(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
+    assert got_r.shape == (2, 8, 8, 1) and got_r.dtype == torch.float32
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r), atol=ATOL,
+                               rtol=RTOL)
+    y2, r2 = K.conv3x3_epilogue_ref(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b),
+        return_r=True)
+    assert torch.equal(y2, got_y) and torch.equal(r2, got_r)
+    with pytest.raises(ValueError, match="pixel-norm"):
+        K.conv3x3_epilogue_ref(torch.from_numpy(x), torch.from_numpy(w),
+                               torch.from_numpy(b), use_pixel_norm=False,
+                               return_r=True)
+
+
+def _f64(shape, seed, scale=1.0):
+    return torch.from_numpy(
+        np.random.RandomState(seed).randn(*shape) * scale).requires_grad_(
+            True)
+
+
+def test_gradcheck_f64_rownorm_functions():
+    """Finite differences in f64, first and second order, through the
+    Functions of kernels A and B (their plain forward on the CPU)."""
+    y, b, x = _f64((2, 2, 3, 8), 1), _f64((8,), 2, 0.3), _f64((2, 3, 8), 3)
+    fa = lambda y_, b_: K.bias_pixelnorm_lrelu(y_, b_, 0.2)
+    fb = lambda x_: K.pixel_norm_lrelu(x_, 0.1)
+    assert torch.autograd.gradcheck(fa, (y, b))
+    assert torch.autograd.gradgradcheck(fa, (y, b))
+    assert torch.autograd.gradcheck(fb, (x,))
+    assert torch.autograd.gradgradcheck(fb, (x,))
+
+
+@pytest.mark.parametrize("pn", [True, False])
+def test_gradcheck_f64_conv3x3_epilogue(pn):
+    x, w, b = _f64((1, 3, 4, 8), 1), _f64((3, 3, 8, 8), 2, 0.2), _f64(
+        (8,), 3, 0.3)
+    f = lambda *a: K.conv3x3_epilogue(*a, use_pixel_norm=pn)
+    assert f(x, w, b).dtype == torch.float64
+    assert torch.autograd.gradcheck(f, (x, w, b))
+
+
+def test_plain_versions_keep_f64_statistics():
+    """An f64 input is normalized with f64 statistics (no pass through
+    f32): the plain versions agree with numpy's f64 to 1e-13."""
+    rng = np.random.RandomState(0)
+    y, b = rng.randn(2, 3, 3, 16), rng.randn(16) * 0.3
+    a = y + b
+    want = a / np.sqrt((a * a).mean(-1, keepdims=True) + 1e-8)
+    want = np.where(want < 0, 0.2 * want, want)
+    ty, tb = torch.from_numpy(y), torch.from_numpy(b)
+    got = K.bias_pixelnorm_lrelu_ref(ty, tb)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-13, rtol=0)
+    got_b = K.pixel_norm_lrelu_ref(ty + tb)
+    np.testing.assert_allclose(got_b.numpy(), want, atol=1e-13, rtol=0)
+    x = torch.from_numpy(rng.randn(1, 4, 4, 8))
+    w = torch.from_numpy(rng.randn(3, 3, 8, 16) * 0.2)
+    pre = K.conv3x3_epilogue_ref(x, w, tb, use_pixel_norm=False, slope=1.0)
+    got_c, r = K.conv3x3_epilogue_ref(x, w, tb, return_r=True)
+    assert got_c.dtype == r.dtype == torch.float64
+    pre = pre.numpy()
+    want_c = pre / np.sqrt((pre * pre).mean(-1, keepdims=True) + 1e-8)
+    want_c = np.where(want_c < 0, 0.2 * want_c, want_c)
+    np.testing.assert_allclose(got_c.numpy(), want_c, atol=1e-13, rtol=0)
 
 
 def test_cpu_calls_do_not_count_launches():
@@ -204,3 +400,88 @@ def test_gpu_wrappers_reject_bad_inputs(cuda):
             K.conv3x3_epilogue(torch.zeros(1, 4, 4, 8, device=cuda),
                                torch.zeros(3, 3, 8, 520, device=cuda),
                                torch.zeros(520, device=cuda))
+
+
+# bf16 gradients: the Function's backward takes its statistics from bf16
+# inputs in f32 and rounds the result to bf16 once; autograd through the
+# plain version rounds at every op.  Gradients here are of order 1.
+GPU_GRAD_TOL = {torch.float32: 2e-4, torch.bfloat16: 0.06}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cout", [((32, 4, 4, 512), 512),
+                                        ((4, 32, 32, 512), 512),
+                                        ((2, 64, 64, 256), 256),
+                                        ((1, 128, 128, 128), 128),
+                                        ((3, 5, 7, 24), 40)])
+def test_gpu_conv3x3_epilogue_r_matches_plain(cuda, dtype, shape, cout):
+    x = _on(_rand(shape, 4), cuda, dtype)
+    w = _on(_rand((3, 3, shape[-1], cout), 5,
+                  np.sqrt(2.0 / (9 * shape[-1]))), cuda, torch.float32)
+    b = _on(_rand((cout,), 6, 0.1), cuda, torch.float32)
+    before = K.launch_counts()
+    got_y, got_r = K.conv3x3_epilogue_with_r(x, w, b)
+    after = K.launch_counts()
+    want_y, want_r = K.conv3x3_epilogue_ref(x, w, b, return_r=True)
+    torch.cuda.synchronize()
+    assert after["conv3x3_epilogue_r"] == before["conv3x3_epilogue_r"] + 1
+    assert after["conv3x3_epilogue"] == before["conv3x3_epilogue"]
+    assert got_r.shape == shape[:3] + (1,) and got_r.dtype == torch.float32
+    assert (got_y.float() - want_y.float()).abs().max().item() \
+        <= GPU_TOL[dtype]
+    # r against the plain version's: relative, since r = 1/rms(a); in bf16
+    # the plain version takes its statistics from a conv output rounded to
+    # bf16 (2^-9 relative per term)
+    rel = ((got_r - want_r.float()).abs() / want_r.float()).max().item()
+    assert rel <= (1e-4 if dtype == torch.float32 else 4e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_function_gradients_match_plain(cuda, dtype):
+    tol = GPU_GRAD_TOL[dtype]
+
+    def grads(fn, inputs, g):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad((fn(*leaves).float() * g).sum(), leaves)
+
+    y = _on(_rand((4, 16, 16, 256), 1), cuda, dtype)
+    b = _on(_rand((256,), 2, 0.1), cuda, torch.float32)
+    g = _on(_rand((4, 16, 16, 256), 3), cuda, torch.float32)
+    for got, want in zip(grads(K.bias_pixelnorm_lrelu, (y, b), g),
+                         grads(K.bias_pixelnorm_lrelu_ref, (y, b), g)):
+        scale = max(want.float().abs().max().item(), 1.0)
+        assert (got.float() - want.float()).abs().max().item() <= tol * scale
+    for got, want in zip(grads(K.pixel_norm_lrelu, (y,), g),
+                         grads(K.pixel_norm_lrelu_ref, (y,), g)):
+        assert (got.float() - want.float()).abs().max().item() <= tol
+    x = _on(_rand((4, 16, 16, 128), 4), cuda, dtype)
+    w = _on(_rand((3, 3, 128, 256), 5, np.sqrt(2.0 / (9 * 128))), cuda,
+            torch.float32)
+    before = K.launch_counts()["conv3x3_epilogue_r"]
+    got_c = grads(K.conv3x3_epilogue, (x, w, b), g)
+    assert K.launch_counts()["conv3x3_epilogue_r"] == before + 1
+    for got, want in zip(got_c, grads(K.conv3x3_epilogue_ref, (x, w, b), g)):
+        scale = max(want.float().abs().max().item(), 1.0)
+        assert (got.float() - want.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.gpu
+def test_gpu_kernel_a_second_derivative_matches_plain(cuda):
+    y = _on(_rand((4, 8, 8, 128), 1), cuda, torch.float32)
+    b = _on(_rand((128,), 2, 0.1), cuda, torch.float32)
+    g = _on(_rand((4, 8, 8, 128), 3), cuda, torch.float32)
+
+    def penalty_grads(fn):
+        ty = y.clone().requires_grad_(True)
+        tb = b.clone().requires_grad_(True)
+        gy, = torch.autograd.grad((fn(ty, tb) * g).sum(), ty,
+                                  create_graph=True)
+        norms = gy.square().sum(dim=(1, 2, 3)).sqrt()
+        return torch.autograd.grad(((norms - 1.0) ** 2).mean(), (ty, tb))
+
+    for got, want in zip(penalty_grads(K.bias_pixelnorm_lrelu),
+                         penalty_grads(K.bias_pixelnorm_lrelu_ref)):
+        scale = max(want.abs().max().item(), 1e-6)
+        assert (got - want).abs().max().item() <= 1e-4 * scale

@@ -170,3 +170,117 @@ def test_single_conv_block_matches(pn, upsample_first, slope):
                                    use_pixel_norm=pn, slope=slope,
                                    upsample_first=upsample_first)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("groups,shape", [(1, (4, 4, 4, 8)),
+                                          (3, (6, 4, 4, 8)),
+                                          (2, (4, 2, 2, 16))])
+def test_minibatch_stddev_matches(groups, shape):
+    x = _rand(shape, 20)
+    want = np.asarray(JL.minibatch_stddev(jnp.asarray(x), groups=groups))
+    got = TL.minibatch_stddev(torch.from_numpy(x), groups=groups)
+    assert got.shape == shape[:3] + (shape[3] + 1,)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if groups > 1:      # each slice scores as a separate call would
+        n = shape[0] // groups
+        parts = torch.cat([TL.minibatch_stddev(torch.from_numpy(x[i:i + n]))
+                           for i in range(0, shape[0], n)])
+        np.testing.assert_allclose(got.numpy(), parts.numpy(), **TOL)
+
+
+def test_minibatch_stddev_is_the_biased_variance_and_checks_groups():
+    x = _rand((4, 2, 2, 3), 21)
+    want = np.sqrt(x.var(axis=0) + 1e-8).mean()       # numpy: ddof = 0
+    got = TL.minibatch_stddev(torch.from_numpy(x))[..., -1]
+    np.testing.assert_allclose(got.numpy(), np.full((4, 2, 2), want), **TOL)
+    with pytest.raises(ValueError, match="divisible"):
+        TL.minibatch_stddev(torch.from_numpy(x), groups=3)
+
+
+def test_equal_linear_matches():
+    p = {"w": _rand((24, 5), 22), "b": _rand((5,), 23, 0.1)}
+    x = _rand((3, 24), 24)
+    want = np.asarray(JL.equal_linear(_jp(p), jnp.asarray(x)))
+    lin = _module(TL.EqualLinear(24, 5), p)
+    got = TL.equal_linear(lin.w, lin.b, torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 4, 3), (1, 8, 6, 5)])
+def test_downsample2x_matches(shape):
+    from pgx.ops.resize import downsample2x as j_downsample2x
+    from pgx_torch.ops.resize import downsample2x as t_downsample2x
+    x = _rand(shape, 25)
+    want = np.asarray(j_downsample2x(jnp.asarray(x)))
+    got = t_downsample2x(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    ref = torch.nn.functional.interpolate(
+        torch.from_numpy(x).permute(0, 3, 1, 2), scale_factor=0.5,
+        mode="bilinear", align_corners=False).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), **TOL)
+    assert t_downsample2x(torch.from_numpy(x).bfloat16()).dtype \
+        == torch.bfloat16
+
+
+def test_downsample2x_refuses_odd_sizes():
+    from pgx_torch.ops.resize import downsample2x as t_downsample2x
+    with pytest.raises(ValueError, match="even"):
+        t_downsample2x(torch.zeros(1, 5, 4, 3))
+    with pytest.raises(ValueError, match="even"):
+        t_downsample2x(torch.zeros(1, 4, 7, 3))
+
+
+@pytest.mark.parametrize("padding2", [1, 0])
+def test_conv_block_unfused_equals_fused_on_cpu(padding2):
+    """``fused=False`` (the discriminator's form: conv, then kernel A) and
+    ``fused=True`` (kernel C) compute the same block; on the CPU both take
+    plain versions.  With grad, both give the same gradients, and only the
+    unfused form differentiates twice."""
+    p = {"conv1": _conv(16, 8, 3, 26), "conv2": _conv(8, 8, 3, 27)}
+    blk = _module(TL.ConvBlock(16, 8), p)
+    x = torch.from_numpy(_rand((2, 6, 6, 16), 28)).requires_grad_(True)
+    outs, grads = [], []
+    for fused in (True, False):
+        y = TL.conv_block(blk, x, padding2=padding2, fused=fused)
+        outs.append(y.detach())
+        grads.append(torch.autograd.grad(y.square().sum(),
+                                         [x, *blk.parameters()]))
+    np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(), **TOL)
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4,
+                                   rtol=1e-4)
+    y = TL.conv_block(blk, x, padding2=padding2, fused=False)
+    gx, = torch.autograd.grad(y.sum(), x, create_graph=True)
+    gw, = torch.autograd.grad(gx.square().sum(), blk.conv1.w)
+    assert torch.isfinite(gw).all() and float(gw.abs().max()) > 0
+    y = TL.conv_block(blk, x, padding2=padding2, fused=True)
+    with pytest.raises(RuntimeError, match="differentiable once only"):
+        torch.autograd.grad(y.sum(), x, create_graph=True)
+
+
+@pytest.mark.parametrize("padding,k", [(1, 3), (0, 4), (0, 1)])
+def test_conv2d_gradfix_matches_native_conv_to_second_order(padding, k):
+    """The conv whose backward is written in forward ops: same values and
+    first derivatives as ``F.conv2d``, the same gradient-penalty-shaped
+    second derivatives, and finite differences agree in f64."""
+    from pgx_torch.ops.conv2d_gradfix import conv2d
+    F = torch.nn.functional
+    rng = np.random.RandomState(30)
+    x = torch.from_numpy(rng.randn(2, 3, 5, 5)).requires_grad_(True)
+    w = torch.from_numpy(rng.randn(4, 3, k, k)).requires_grad_(True)
+    ours = lambda x_, w_: conv2d(x_, w_, padding)
+    native = lambda x_, w_: F.conv2d(x_, w_, padding=padding)
+    torch.testing.assert_close(ours(x, w), native(x, w), rtol=1e-12,
+                               atol=1e-12)
+    with torch.no_grad():
+        assert not ours(x, w).requires_grad
+    assert torch.autograd.gradcheck(ours, (x, w))
+    assert torch.autograd.gradgradcheck(ours, (x, w))
+
+    def penalty_grads(conv):
+        gx, = torch.autograd.grad((conv(x, w) ** 3).sum(), x,
+                                  create_graph=True)
+        return torch.autograd.grad(gx.square().sum(), (x, w))
+
+    for a, b in zip(penalty_grads(ours), penalty_grads(native)):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-10)
