@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
 
+Every result is a printed line; ``python3 chip_smoke.py | tee FILE`` keeps
+them.
+
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. build   — build the CUDA kernel library from pgx_torch/ops/kernels/csrc.
@@ -29,7 +32,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    and EMA, and launch counts per iteration as the configs imply (kernel C
    never from the discriminator); then ms per iteration, img/s, peak
    memory and a torch.profiler split of one iteration by part.
-5. card    — nvidia-smi's name and power limit.
+5. ada     — kernels F (shift_1d), D (upfirdn2d) and E (bias_act): the
+   launches of one bf16 ADA iteration at 128px, batch 32, are recorded
+   for the shear warp (F) and for the gather warp (D); each kernel is
+   held against its plain version there in f32 and bf16 and timed, F also
+   at the 256px and 512px extents (batch 2, both axes), E for all nine
+   activations with and without clamp at [32,128,128,256]; gradients of
+   F and D (their backward launches the kernel) and of E (first and
+   second order) against autograd through the plain versions.  Then the
+   ops layer through its public functions (conv2d_resample with a
+   separable filter -> bias_act) with launch counts from 0; the shear
+   pipe in f32 against the same pipe with the plain versions swapped in;
+   bf16 ADA iterations of the flagship (bgc policy, adaptive controller,
+   shear warp) with launch counts per iteration asserted, finite metrics,
+   the controller's state moving as ada_update implies, ms per iteration,
+   img/s, peak memory, the pipe's own time and a torch.profiler split;
+   and one iteration with the gather warp, which launches kernel D.
+6. card    — nvidia-smi's name and power limit.
 
 Prints JSON lines; the last two lines before the final one are the
 kernels table and the card, the last line is
@@ -59,6 +78,7 @@ F32_ELEMENTWISE_OPS = 67e12
 
 A, B, C, C_R = ("bias_pixelnorm_lrelu", "pixel_norm_lrelu",
                 "conv3x3_epilogue", "conv3x3_epilogue_r")
+F_, D_, E_ = "shift_1d", "upfirdn2d", "bias_act"
 SOURCES = {
     A: ("pgx_torch/ops/kernels/csrc/epilogue.cu",
         "pgx/ops/pallas/epilogue.py:97"),
@@ -69,6 +89,13 @@ SOURCES = {
     # the same pallas_call, its emit_r=True variant (:133-138)
     C_R: ("pgx_torch/ops/kernels/csrc/conv_epilogue.cu",
           "pgx/ops/pallas/conv_epilogue.py:139"),
+    # axis 3 at :125, axis 2 at :148: one CUDA kernel serves both
+    F_: ("pgx_torch/ops/kernels/csrc/shear.cu",
+         "pgx/ops/pallas/shear.py:125"),
+    D_: ("pgx_torch/ops/kernels/csrc/upfirdn2d.cu",
+         "pgx/ops/pallas/kernels.py:70"),
+    E_: ("pgx_torch/ops/kernels/csrc/bias_act.cu",
+         "pgx/ops/pallas/kernels.py:227"),
 }
 PER_FORWARD = {A: 2, B: 1, C: 9}
 DEVICE = "cuda"           # every phase runs on the card
@@ -129,10 +156,29 @@ def swap_path_kernels(wrap):
 
 
 def plain_versions():
-    """The path with the kernels' plain versions (a comparison on the card;
-    the port itself has no such switch)."""
+    """The paths with the kernels' plain versions (a comparison on the
+    card; the port itself has no such switch): A, B, C where the models
+    call them, F, D, E where the warp and the ops layer call them."""
+    import importlib
     from pgx_torch.ops import kernels as K
-    return swap_path_kernels(lambda name, fn: getattr(K, name + "_ref"))
+    from pgx_torch.ops import warp
+    # the package exports functions of these names: take the modules
+    ops_bias_act = importlib.import_module("pgx_torch.ops.bias_act")
+    ops_upfirdn2d = importlib.import_module("pgx_torch.ops.upfirdn2d")
+
+    def bias_act_plain(x, b, act, alpha, gain, clamp):
+        return K.bias_act_ref(x, b, -1, act, alpha, gain,
+                              clamp if clamp >= 0 else None)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(swap_path_kernels(
+        lambda name, fn: getattr(K, name + "_ref")))
+    for mod, name, plain in (
+            (warp, "shift_1d", K.shift_1d_ref),
+            (ops_upfirdn2d, "upfirdn2d_separable", K.upfirdn2d_ref),
+            (ops_bias_act, "bias_act_channel_last", bias_act_plain)):
+        stack.enter_context(mock.patch.object(mod, name, plain))
+    return stack
 
 
 def record_calls(torch, run):
@@ -441,16 +487,23 @@ def g_calls_per_forward(cfg, step: int) -> dict:
     return counts
 
 
-def calls_per_iteration(gcfg, dcfg, step: int) -> dict:
+def calls_per_iteration(gcfg, dcfg, step: int, warp=None) -> dict:
     """Kernel launches of one training iteration, from the configs: four
     discriminator forwards (real, fake, x_hat; the G step's) of two convs
     per stage, each conv followed by kernel A, never kernel C; two
     generator forwards, the D step's without grad (C's plain entry) and
-    the G step's under grad (C's residual-emitting entry)."""
+    the G step's under grad (C's residual-emitting entry).  With ADA the
+    pipe runs three times (reals, the D step's fakes, the G step's fakes)
+    and the G step differentiates its call: the shear warp launches F
+    twice per call and twice in the backward (8); the gather warp launches
+    D twice per upsample2d and twice per downsample2d, forward and
+    backward (16).  Kernel E is not on the training path."""
     g = g_calls_per_forward(gcfg, step)
     d_convs = sum(2 if (k == 0 or dcfg.block_type == "double") else 1
                   for k in range(dcfg.entry_stage(step) + 1))
-    return {A: 4 * d_convs + 2 * g[A], B: 2 * g[B], C: g[C], C_R: g[C]}
+    return {A: 4 * d_convs + 2 * g[A], B: 2 * g[B], C: g[C], C_R: g[C],
+            F_: 8 if warp == "shear" else 0,
+            D_: 16 if warp == "gather" else 0, E_: 0}
 
 
 def flagship(torch):
@@ -576,7 +629,8 @@ def drive_service(torch, cfg, params):
                             f"output {img.dtype} {img.shape} for n={n}")
                     require(int(img.max()) > int(img.min()),
                             "constant image")
-                for name, per in PER_FORWARD.items():
+                for name in launches:
+                    per = PER_FORWARD.get(name, 0)
                     require(launches[name] == per * forwards,
                             f"{name}: {launches[name]} launches for "
                             f"{forwards} forwards (expect {per} each)")
@@ -655,8 +709,8 @@ def record_train_calls(torch, gcfg, dcfg):
     calls = record_calls(
         torch, lambda: step(state, real, labels, 1.0, z=z, eps=eps))
     want = calls_per_iteration(g, d, TRAIN_STEP)
-    require(count_calls(calls) == want,
-            f"kernel calls per iteration {count_calls(calls)} != {want}")
+    got = {k: count_calls(calls).get(k, 0) for k in want}
+    require(got == want, f"kernel calls per iteration {got} != {want}")
     return calls
 
 
@@ -911,7 +965,7 @@ def train_phase(torch, gcfg, dcfg):
     torch.cuda.synchronize()
     d_alone = K.launch_counts()
     d_convs = (want[A] - 2 * PER_FORWARD[A]) // 4
-    require(d_alone == {A: d_convs, B: 0, C: 0, C_R: 0},
+    require(d_alone == {A: d_convs, B: 0, C: 0, C_R: 0, F_: 0, D_: 0, E_: 0},
             f"a discriminator forward launched {d_alone}")
     require(scores.shape == (TRAIN_BATCH, 1), f"D output {scores.shape}")
 
@@ -940,6 +994,566 @@ def train_phase(torch, gcfg, dcfg):
             "host_wall_ms_per_iteration": host_ms,
             "img_per_s": TRAIN_BATCH / ms * 1e3,
             "peak_memory_bytes": peak, "profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: ADA, the ops layer, kernels F, D and E
+# ---------------------------------------------------------------------------
+
+ADA_P0 = 0.6              # the controller's p at the start of the ADA run
+OPS_SHAPE = (TRAIN_BATCH, 128, 128, 256)     # a flagship 128px activation
+
+
+def record_launches(torch, run):
+    """Every launch of kernels F, D and E that ``run()`` makes, forward and
+    backward alike, as (kernel, input shape, arguments): recorded where the
+    wrappers launch (a call of D's is two kernel launches, H pass and W
+    pass)."""
+    from pgx_torch.ops.kernels import bias_act, shear, upfirdn2d
+    calls = []
+
+    def rec(mod, name, describe):
+        inner = mod._launch
+
+        def wrapped(x, *args):
+            calls.append((name, tuple(x.shape),
+                          json.dumps(describe(*args), sort_keys=True)))
+            return inner(x, *args)
+        return mock.patch.object(mod, "_launch", wrapped)
+
+    with rec(shear, F_, lambda shift, axis: {"axis": axis}), \
+            rec(upfirdn2d, D_, lambda taps, up, down, pads, flip: {
+                "taps": list(taps), "up": up, "down": down,
+                "pads": list(pads), "flip_filter": flip}), \
+            rec(bias_act, E_, lambda b, spec, alpha, gain, clamp: {
+                "act": next(k for k, v in bias_act.activation_funcs.items()
+                            if v is spec),
+                "alpha": alpha, "gain": gain, "clamp": clamp,
+                "bias": b is not None}):
+        run()
+        torch.cuda.synchronize()
+    return calls
+
+
+def fde_case(torch, name, shape, opts, dt, rng):
+    """Inputs at one recorded launch and what to run there: (kernel, plain
+    version, one PyTorch call computing the same function or None, bytes
+    moved, operations)."""
+    import numpy as np
+    from pgx_torch.ops import kernels as K
+    es = torch.finfo(dt).bits // 8
+    x = (torch.randn(*shape, generator=rng, device=DEVICE)).to(dt)
+    numel = x.numel()
+    if name == F_:
+        axis = opts["axis"]
+        b, _, r, n = shape
+        lines, length = (r, n) if axis == 3 else (n, r)
+        # as the warp makes them: one slope per sample, |slope| <= 1, times
+        # the centred line coordinate
+        slope = torch.rand(b, 1, generator=rng, device=DEVICE) * 2 - 1
+        shift = slope * (torch.arange(lines, device=DEVICE)
+                         - (lines / 2 - 0.5))
+        return (lambda: K.shift_1d(x, shift, axis),
+                lambda: K.shift_1d_ref(x, shift, axis), None,
+                2 * numel * es + shift.numel() * 4, 3.0 * numel)
+    if name == D_:
+        taps, up, down = opts["taps"], opts["up"], opts["down"]
+        pads, flip = tuple(opts["pads"]), opts["flip_filter"]
+        px0, px1, py0, py1 = pads
+        b, h, w, c = shape
+        n = len(taps)
+        oh = K.upfirdn2d.out_len(h, n, up, down, py0, py1)
+        ow = K.upfirdn2d.out_len(w, n, up, down, px0, px1)
+        ops = 2.0 * (n / up) * b * c * (oh * w + oh * ow)
+        nbytes = (numel + b * oh * ow * c) * es
+        t = np.asarray(taps, np.float32)
+        w2d = torch.from_numpy(np.outer(t, t) if flip else
+                               np.outer(t[::-1], t[::-1]).copy()).to(
+            device=DEVICE, dtype=dt)[None, None].expand(c, 1, n, n)
+        xn = x.permute(0, 3, 1, 2)
+        library = None
+        # a depthwise convolution is the same function where the padding
+        # fits one call's arguments: the gather path's two calls
+        if (up, down) == (2, 1) and px1 == px0 - 1 and py1 == py0 - 1 \
+                and px0 == py0 <= n - 1:
+            w2t = w2d.flip(2, 3)
+            library = lambda: torch.nn.functional.conv_transpose2d(
+                xn, w2t, stride=2, padding=n - 1 - px0, groups=c)
+        elif up == 1 and max(pads) <= 0:
+            xc = xn[:, :, -py0:h + py1, -px0:w + px1]
+            library = lambda: torch.nn.functional.conv2d(
+                xc, w2d, stride=down, groups=c)
+        return (lambda: K.upfirdn2d_separable(x, taps, up, down, pads, flip),
+                lambda: K.upfirdn2d_ref(x, taps, up, down, pads, flip),
+                library, nbytes, ops)
+    act, clamp = opts["act"], opts["clamp"]
+    b = (torch.randn(shape[-1], generator=rng, device=DEVICE) * 0.5
+         if opts["bias"] else None)
+    return (lambda: K.bias_act_channel_last(x, b, act, opts["alpha"],
+                                            opts["gain"], clamp),
+            lambda: K.bias_act_ref(x, b, -1, act, opts["alpha"],
+                                   opts["gain"], clamp if clamp >= 0
+                                   else None),
+            None, 2 * numel * es + shape[-1] * es, 10.0 * numel)
+
+
+def fde_phase(torch, calls, per: str, reps: int = 5, sums=None):
+    """Hold kernels F, D and E against their plain versions at every
+    distinct launch of ``calls``, in bf16 and f32, and time kernel, plain
+    version and library call.  Tolerance: both sides compute in f32 and
+    round once, so f32 agrees to 1e-5 (sums in another order) and bf16 to
+    one bf16 step at the largest output.  Adds the sums over the calls by
+    (kernel, dtype) to ``sums`` and returns it."""
+    import math
+    rng = torch.Generator(device=DEVICE).manual_seed(7)
+    uniq = {}
+    for c in calls:
+        uniq[c] = uniq.get(c, 0) + 1
+    sums = {} if sums is None else sums
+    for (name, shape, opts_s), mult in uniq.items():
+        opts = json.loads(opts_s)
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            kern, plain, library, nbytes, ops = fde_case(
+                torch, name, shape, opts, dt, rng)
+            with torch.inference_mode():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ref_max = want.float().abs().max().item()
+                tol = (bf16_tol(ref_max) / 2 if dt_name == "bfloat16"
+                       else 1e-5 * max(ref_max, 1.0))
+                require(got.shape == want.shape and got.dtype == dt,
+                        f"{name} {shape} {dt_name}: shape/dtype mismatch")
+                require(math.isfinite(err) and err <= tol and ref_max > 0,
+                        f"{name} {shape} {opts} {dt_name}: max abs err "
+                        f"{err} > tol {tol}")
+                lib_ms = None
+                if library is not None:
+                    lib = library().permute(0, 2, 3, 1)
+                    lib_err = (lib.float() - want.float()).abs().max().item()
+                    require(lib.shape == want.shape and lib_err <= 4 * tol,
+                            f"{name} {shape}: library call differs "
+                            f"({lib_err})")
+                    del lib
+                del got, want
+                ms = cuda_ms(torch, kern, reps)
+                plain_ms = cuda_ms(torch, plain, reps)
+                if library is not None:
+                    lib_ms = cuda_ms(torch, library, reps)
+            t_ops = ops / F32_ELEMENTWISE_OPS * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            small = {k: v for k, v in opts.items() if k != "taps"}
+            emit({"phase": "kernel_shape", "kernel": name,
+                  "shape": list(shape), "dtype": dt_name, "calls": mult,
+                  "per": per, **small, "max_abs_err": err, "tol": tol,
+                  "ms": ms, "plain_ms": plain_ms,
+                  "bound_ms": max(t_ops, t_bytes),
+                  "bound_by": "operations" if t_ops > t_bytes else "bytes",
+                  "library_ms": lib_ms})
+            agg = sums.setdefault((name, dt_name), {
+                "ms": 0.0, "plain_ms": 0.0, "t_ops": 0.0, "t_bytes": 0.0,
+                "err": 0.0, "tol": 0.0, "lib_ms": 0.0, "lib_calls": 0,
+                "calls": 0})
+            agg["ms"] += mult * ms
+            agg["plain_ms"] += mult * plain_ms
+            agg["t_ops"] += mult * t_ops
+            agg["t_bytes"] += mult * t_bytes
+            agg["calls"] += mult
+            if lib_ms is not None:
+                agg["lib_ms"] += mult * lib_ms
+                agg["lib_calls"] += mult
+            if err >= agg["err"]:
+                agg["err"], agg["tol"] = err, tol
+    return sums
+
+
+def fde_gradient_phase(torch):
+    """Gradients of F and D (their backward launches the kernel again) and
+    of E (plain-op backward, first and second order) against autograd
+    through the plain versions, f32, relative to each gradient's largest
+    entry: 1e-5 for the linear F and D, 2e-4 for E."""
+    import math
+    from pgx_torch.ops import kernels as K
+    rng = torch.Generator(device=DEVICE).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=rng, device=DEVICE) * scale
+
+    def rel(got, want):
+        return max(((a - e).abs().max()
+                    / e.abs().max().clamp_min(1e-12)).item()
+                   for a, e in zip(got, want))
+
+    def first(fn, x, g):
+        leaf = x.clone().requires_grad_(True)
+        return torch.autograd.grad((fn(leaf) * g).sum(), leaf)
+
+    out = {}
+    img, g = randn(4, 3, 144, 224), randn(4, 3, 144, 224)
+    for axis, lines in ((3, 144), (2, 224)):
+        shift = randn(4, lines, scale=30.0)
+        before = K.launch_counts()[F_]
+        got = first(lambda v: K.shift_1d(v, shift, axis), img, g)
+        require(K.launch_counts()[F_] == before + 2,
+                f"{F_} axis {axis}: the backward did not launch the kernel")
+        out[f"{F_}_axis{axis}"] = rel(got, first(
+            lambda v: K.shift_1d_ref(v, shift, axis), img, g))
+    taps = (torch.rand(12, generator=rng, device=DEVICE) / 3).tolist()
+    x = randn(4, 96, 96, 3)
+    for up, down, pads, flip in ((2, 1, (6, 5, 6, 5), False),
+                                 (1, 2, (-1, -1, -1, -1), True)):
+        fn = lambda v: K.upfirdn2d_separable(v, taps, up, down, pads, flip)
+        gy = torch.randn_like(fn(x))
+        before = K.launch_counts()[D_]
+        got = first(fn, x, gy)
+        require(K.launch_counts()[D_] == before + 4,
+                f"{D_} up={up} down={down}: the backward did not launch "
+                f"the kernel")
+        out[f"{D_}_up{up}_down{down}"] = rel(got, first(
+            lambda v: K.upfirdn2d_ref(v, taps, up, down, pads, flip), x, gy))
+    for name, err in out.items():
+        require(math.isfinite(err) and err <= 1e-5,
+                f"{name}: gradient max rel err {err} > 1e-5")
+
+    x, b, g = randn(8, 16, 16, 256), randn(256, scale=0.5), randn(
+        8, 16, 16, 256)
+
+    def both_orders(fn):
+        tx, tb = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        one = torch.autograd.grad((fn(tx, tb) * g).sum(), (tx, tb),
+                                  create_graph=True)
+        pen = (one[0].square() * (1.0 + g)).sum()
+        return [*one, *torch.autograd.grad(pen, (tx, tb))]
+
+    for act in ("tanh", "swish", "softplus", "selu"):
+        got = both_orders(lambda x_, b_: K.bias_act_channel_last(
+            x_, b_, act, 0.0, 1.3, 1.5))
+        want = both_orders(lambda x_, b_: K.bias_act_ref(
+            x_, b_, -1, act, 0.0, 1.3, 1.5))
+        for order, sl in (("first", slice(0, 2)), ("second", slice(2, 4))):
+            err = rel(got[sl], want[sl])
+            require(math.isfinite(err) and err <= 2e-4,
+                    f"{E_} {act}: {order}-order gradient max rel err {err}")
+            out[f"{E_}_{act}_{order}_order"] = err
+    torch.cuda.synchronize()
+    return {"max_rel_err": out, "tol": {F_: 1e-5, D_: 1e-5, E_: 2e-4}}
+
+
+def ops_layer_phase(torch):
+    """The ops layer through its public functions, at a flagship-sized
+    activation: conv2d_resample with a separable filter (upsample by 2,
+    kernel D, then a 3x3 conv) followed by bias_act (kernel E).  Launch
+    counts from 0; the result against the same calls with the plain
+    versions swapped in."""
+    from pgx_torch.ops import (bias_act, conv2d_resample, kernels as K,
+                               setup_filter)
+    rng = torch.Generator(device=DEVICE).manual_seed(13)
+    b, h, w, c = OPS_SHAPE
+    x = torch.randn(b, h // 2, w // 2, 64, generator=rng,
+                    device=DEVICE).to(torch.bfloat16)
+    wt = torch.randn(3, 3, 64, c, generator=rng, device=DEVICE) * (
+        2.0 / (9 * 64)) ** 0.5
+    bias = torch.randn(c, generator=rng, device=DEVICE) * 0.1
+    f = setup_filter([1, 3, 3, 1], separable=True)
+
+    def block():
+        y = conv2d_resample(x, wt, f, up=2, padding=1)
+        return bias_act(y, bias, act="lrelu", clamp=256.0)
+
+    # ---- the ops layer's path: counts from 0 to what it launched ----
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        got = block()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    # -----------------------------------------------------------------
+    want_counts = {k: 0 for k in launches}
+    want_counts.update({D_: 2, E_: 1})
+    require(launches == want_counts, f"ops layer launched {launches}")
+    with plain_versions(), torch.inference_mode():
+        want = block()
+    torch.cuda.synchronize()
+    require(got.shape == OPS_SHAPE and got.dtype == torch.bfloat16
+            and bool(torch.isfinite(got.float()).all()),
+            f"ops layer output {got.shape} {got.dtype}")
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 2 * bf16_tol(want.float().abs().max().item())
+    require(err <= tol, f"ops layer vs plain versions: {err} > {tol}")
+    with torch.inference_mode():
+        ms = cuda_ms(torch, block, reps=5)
+    calls = record_launches(torch, lambda: block())
+    return {"shape": list(OPS_SHAPE), "launches": launches,
+            "max_abs_err": err, "tol": tol, "block_ms": ms}, calls
+
+
+def shear_pipe_f32_check(torch, res: int):
+    """The shear pipe through kernel F against the same pipe with the
+    plain versions swapped in, f32, the same seeded draws, with its
+    gradient.  Tolerance 1e-4 of the largest output: the blend's
+    multiply-add contracts differently, and sums downstream reorder."""
+    from pgx_torch.augment import TorchDraws, augment_pipe, bgc_config
+    rng = torch.Generator(device=DEVICE).manual_seed(17)
+    x = torch.randn(8, res, res, 3, generator=rng,
+                    device=DEVICE).clamp_(-1.0, 1.0)
+    g = torch.randn(8, res, res, 3, generator=rng, device=DEVICE)
+
+    def run():
+        leaf = x.clone().requires_grad_(True)
+        draws = TorchDraws(torch.Generator(device=DEVICE).manual_seed(19))
+        out = augment_pipe(draws, leaf, bgc_config(), 0.9)
+        return out.detach(), torch.autograd.grad((out * g).sum(), leaf)[0]
+
+    out_k, grad_k = run()
+    with plain_versions():
+        out_p, grad_p = run()
+    torch.cuda.synchronize()
+    report = {}
+    for what, a, e in (("output", out_k, out_p), ("gradient", grad_k,
+                                                  grad_p)):
+        scale = e.abs().max().item()
+        err = (a - e).abs().max().item()
+        require(scale > 0 and err <= 1e-4 * scale,
+                f"shear pipe {what}, kernels vs plain: {err} at {scale}")
+        report[what] = {"max_abs_err": err, "ref_max_abs": scale}
+    require((out_k - x).abs().max().item() > 1e-2, "the pipe did nothing")
+    return report
+
+
+def new_ada_step(gcfg, dcfg, warp: str):
+    """A bf16 flagship state with the controller at ``ADA_P0`` and its ADA
+    train step (bgc policy, adaptive controller)."""
+    from pgx_torch.augment import AdaConfig, bgc_config, init_ada_state
+    from pgx_torch.train import make_train_step
+    g, d, tc, state = new_train_state(gcfg, dcfg, "bfloat16")
+    # as a resumed run sets it: the constructor's default device is the card
+    state["ada"] = init_ada_state(ADA_P0)
+    require(all(v.device.type == DEVICE for v in state["ada"].values()),
+            "init_ada_state() did not land on the card")
+    step = make_train_step(g, d, tc, step=TRAIN_STEP, fading=False,
+                           augment_cfg=bgc_config(warp_impl=warp),
+                           ada_cfg=AdaConfig())
+    return g, d, state, step
+
+
+def ada_batch(torch, gcfg, seed: int):
+    from pgx_torch.train import draw_augment_sources
+    real, labels, z, eps = train_batch(torch, gcfg, seed)
+    rng = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    return real, labels, dict(z=z, eps=eps,
+                              aug_draws=draw_augment_sources(rng))
+
+
+def record_ada_launches(torch, gcfg, dcfg, warp: str):
+    """The launches of F, D and E in one bf16 ADA iteration, batch 32."""
+    g, d, state, step = new_ada_step(gcfg, dcfg, warp)
+    real, labels, draws = ada_batch(torch, g, seed=500)
+    calls = record_launches(
+        torch, lambda: step(state, real, labels, 1.0, **draws))
+    want = calls_per_iteration(g, d, TRAIN_STEP, warp)
+    got = count_calls(calls)
+    # a recorded call of D's is two kernel launches
+    require(got == {k: v for k, v in ((F_, want[F_]), (D_, want[D_] // 2))
+                    if v}, f"{warp} ADA iteration recorded {got}")
+    return calls
+
+
+def profile_ada_iteration(torch, run, reps: int = 2):
+    """Device time of one bf16 ADA iteration by part (torch.profiler,
+    kernels classified by name), with the forward calls of the pipe as a
+    labelled range (its backward runs inside autograd's and is not in the
+    range; kernel F's launches are counted by name in both)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from pgx_torch.train import wgan
+    inner = wgan.augment_pipe
+
+    def labelled(*args, **kw):
+        with record_function("augment_pipe_forward"):
+            return inner(*args, **kw)
+
+    with mock.patch.object(wgan, "augment_pipe", labelled):
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+    parts = {"kernel F": ("shift_kernel",),
+             "kernel C (plain + emit-r)": ("conv3x3_mma_kernel",
+                                           "conv3x3_fma_kernel"),
+             "kernels A+B": ("rownorm_kernel",),
+             "cuDNN gradient convs (dgrad, wgrad)": ("dgrad", "wgrad"),
+             "cuDNN/cuBLAS forward convs and matmuls (also the pipe's "
+             "einsums)": ("fprop", "xmma", "cudnn", "cutlass", "gemm"),
+             "optimizer + EMA (foreach)": ("multi_tensor_apply",),
+             "upsample / interpolate": ("upsample_bilinear",)}
+    by_part = {k: 0.0 for k in [*parts, "elementwise, reductions, copies",
+                                "other"]}
+    pipe_ms = 0.0
+    pipe_ranges = [(ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA
+                   and ev.name == "augment_pipe_forward"]
+    pipe_kernels, pipe_busy_ms = 0, 0.0
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        ms = ev.time_range.elapsed_us() / 1e3 / reps
+        if ev.name == "augment_pipe_forward":
+            pipe_ms += ms
+            continue
+        if any(lo <= ev.time_range.start <= hi for lo, hi in pipe_ranges):
+            pipe_kernels += 1
+            pipe_busy_ms += ms
+        name = ev.name.lower()
+        part = next((k for k, pats in parts.items()
+                     if any(pat in name for pat in pats)), None)
+        if part is None:
+            part = ("elementwise, reductions, copies"
+                    if any(w in name for w in ("elementwise", "reduce",
+                                               "cat", "copy", "index",
+                                               "gather", "pad"))
+                    else "other")
+        by_part[part] += ms
+    total = sum(by_part.values())
+    require(total > 0 and by_part["kernel F"] > 0 and pipe_ms > 0
+            and pipe_kernels > 0,
+            "profiler saw no device time for kernel F or the pipe")
+    return {"device_ms_per_iteration": total, "by_part_ms": by_part,
+            "augment_pipe_forward_3_calls_ms": pipe_ms,
+            "augment_pipe_forward_3_calls_busy_ms": pipe_busy_ms,
+            "augment_pipe_forward_kernels_per_call":
+                pipe_kernels / max(len(pipe_ranges), 1),
+            "note": "augment_pipe_forward_3_calls_ms spans the three "
+                    "forward calls of the pipe on the device's timeline, "
+                    "..._busy_ms is the time of the device kernels and "
+                    "copies that start inside those spans, "
+                    "..._kernels_per_call their number per call; the "
+                    "pipe's kernels are also counted in by_part_ms"}
+
+
+def ada_train_phase(torch, gcfg, dcfg):
+    """The slice's main path: bf16 ADA iterations of the flagship at 128px,
+    batch 32, shear warp, launch counts from 0 per iteration; then one
+    iteration with the gather warp; then time, memory and the profile."""
+    import math
+    from pgx_torch.augment import (AdaConfig, TorchDraws, augment_pipe,
+                                   bgc_config)
+    from pgx_torch.ops import kernels as K
+
+    g, d, state, step = new_ada_step(gcfg, dcfg, "shear")
+    want = calls_per_iteration(g, d, TRAIN_STEP, "shear")
+    acfg = AdaConfig()
+    before = [p.detach().clone() for p in state["g"].parameters()]
+
+    # ---- the main path: counts from 0 to what each iteration launched ----
+    launches = {k: 0 for k in want}
+    history = []
+    sign_sum, p_now = 0.0, ADA_P0
+    for i in range(acfg.interval_batches + 1):
+        real, labels, draws = ada_batch(torch, g, seed=600 + 2 * i)
+        K.reset_launch_counts()
+        _, metrics = step(state, real, labels, 1.0, **draws)
+        torch.cuda.synchronize()
+        got = K.launch_counts()
+        require(got == want, f"ADA iteration {i + 1}: launches {got} != "
+                             f"{want}")
+        for k in launches:
+            launches[k] += got[k]
+        vals = {k: float(v) for k, v in metrics.items()}
+        require(all(math.isfinite(v) for v in vals.values()),
+                f"ADA iteration {i + 1}: metrics {vals}")
+        # the controller, replayed on the host from the logged r_t
+        sign_sum += vals["ada_r"] * TRAIN_BATCH
+        count = TRAIN_BATCH * ((i % acfg.interval_batches) + 1)
+        if count > TRAIN_BATCH * acfg.interval_batches - 1:
+            direction = 1.0 if sign_sum / count > acfg.ada_target else -1.0
+            p_now = min(max(p_now + direction * TRAIN_BATCH
+                            / acfg.ada_length * count, 0.0), 1.0)
+            sign_sum, count = 0.0, 0
+        ada = {k: float(v) for k, v in state["ada"].items()}
+        require(abs(ada["p"] - p_now) <= 1e-6 and ada["count"] == count
+                and abs(ada["sign_sum"] - sign_sum) <= 1e-3
+                and abs(vals["ada_p"] - p_now) <= 1e-6,
+                f"ADA iteration {i + 1}: controller {ada}, metric "
+                f"{vals['ada_p']}, expected p {p_now}, count {count}, "
+                f"sign_sum {sign_sum}")
+        history.append({**vals, "ada_state": ada})
+    # ----------------------------------------------------------------------
+    require(p_now != ADA_P0, "the controller never updated p")
+    moved = sum((p.detach() - o).abs().max().item() > 0
+                for p, o in zip(state["g"].parameters(), before))
+    require(moved > 0, "the generator did not move under ADA")
+
+    # ---- one iteration with the gather warp: kernel D, counts from 0 ----
+    g2, d2, state2, step2 = new_ada_step(gcfg, dcfg, "gather")
+    want2 = calls_per_iteration(g2, d2, TRAIN_STEP, "gather")
+    real, labels, draws = ada_batch(torch, g2, seed=700)
+    K.reset_launch_counts()
+    _, metrics2 = step2(state2, real, labels, 1.0, **draws)
+    torch.cuda.synchronize()
+    got2 = K.launch_counts()
+    require(got2 == want2, f"gather ADA iteration: launches {got2} != "
+                           f"{want2}")
+    vals2 = {k: float(v) for k, v in metrics2.items()}
+    require(all(math.isfinite(v) for v in vals2.values()),
+            f"gather ADA iteration: metrics {vals2}")
+    gather_ms = cuda_ms(
+        torch, lambda: step2(state2, real, labels, 1.0, **draws), reps=3,
+        warmup=0)
+    del state2, step2
+
+    # ---- time, memory, profile (after the counted runs) ----
+    real, labels, draws = ada_batch(torch, g, seed=800)
+
+    def run():
+        step(state, real, labels, 1.0, **draws)
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(torch, run, reps=7, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with plain_versions():
+        plain_ms = cuda_ms(torch, run, reps=3, warmup=1)
+
+    # the pipe alone at the iteration's shapes, forward and with backward
+    fake = torch.randn(TRAIN_BATCH, 128, 128, 3, device=DEVICE).clamp_(
+        -1, 1).to(torch.bfloat16)
+    pipe_draws = TorchDraws(torch.Generator(device=DEVICE).manual_seed(23))
+
+    def pipe_forward():
+        with torch.no_grad():
+            augment_pipe(pipe_draws, fake, bgc_config(), 0.6)
+
+    def pipe_both():
+        leaf = fake.clone().requires_grad_(True)
+        augment_pipe(pipe_draws, leaf, bgc_config(), 0.6).sum().backward()
+
+    pipe_fwd_ms = cuda_ms(torch, pipe_forward, reps=5)
+    pipe_both_ms = cuda_ms(torch, pipe_both, reps=5)
+    prof = profile_ada_iteration(torch, run)
+    return {"resolution": 128, "batch": TRAIN_BATCH, "dtype": "bfloat16",
+            "augment": "bgc_config(), AdaConfig(), warp_impl='shear', "
+                       f"p from {ADA_P0}",
+            "iterations_counted": len(history), "launches": launches,
+            "launches_per_iteration": want, "history": history,
+            "generator_tensors_moved": moved,
+            "gather_iteration": {"launches": got2, "metrics": vals2,
+                                 "device_ms_per_iteration": gather_ms},
+            "device_ms_per_iteration": ms,
+            "plain_path_device_ms_per_iteration": plain_ms,
+            "host_wall_ms_per_iteration": host_ms,
+            "img_per_s": TRAIN_BATCH / ms * 1e3,
+            "peak_memory_bytes": peak,
+            "pipe_alone_b32_bf16": {"forward_ms": pipe_fwd_ms,
+                                    "forward_backward_ms": pipe_both_ms},
+            "profile": prof}
 
 
 def main() -> int:
@@ -987,6 +1601,40 @@ def main() -> int:
           "gp_mode=reverse, gp_every=1", **trained,
           "total_s": time.monotonic() - t_start})
 
+    # 5. ADA and the ops layer: kernels F, D and E
+    from pgx_torch.ops.kernels.bias_act import activation_funcs
+    shear_calls = record_ada_launches(torch, cfg, dcfg, "shear")
+    gather_calls = record_ada_launches(torch, cfg, dcfg, "gather")
+    ops_report, ops_calls = ops_layer_phase(torch)
+    emit({"phase": "ops_layer", **ops_report})
+    fde = fde_phase(torch, shear_calls,
+                    "bf16 ADA iteration (shear warp), batch 32")
+    fde = fde_phase(torch, gather_calls,
+                    "bf16 ADA iteration (gather warp), batch 32", sums=fde)
+    fde = fde_phase(torch, [c for c in ops_calls if c[0] == E_],
+                    "ops-layer block, batch 32", sums=fde)
+    fde_phase(torch, [c for c in ops_calls if c[0] == D_],
+              "ops-layer block, batch 32")
+    fde_phase(torch, [(F_, shape, json.dumps({"axis": axis}))
+                      for shape, axis in (((2, 3, 1088, 1664), 3),
+                                          ((2, 3, 1088, 524), 2),
+                                          ((2, 3, 2112, 3200), 3),
+                                          ((2, 3, 2112, 1036), 2))],
+              "the warp's extents at 256px and 512px, batch 2", reps=3)
+    fde_phase(torch, [(E_, OPS_SHAPE, json.dumps(
+        {"act": act, "alpha": spec.def_alpha, "gain": spec.def_gain,
+         "clamp": clamp, "bias": True}, sort_keys=True))
+        for act, spec in activation_funcs.items() for clamp in (-1.0, 1.5)],
+        "every activation, with and without clamp", reps=3)
+    emit({"phase": "kernel_gradients_fde", **fde_gradient_phase(torch)})
+    emit({"phase": "shear_pipe_f32_check",
+          **shear_pipe_f32_check(torch, cfg.resolution(TRAIN_STEP))})
+    ada = ada_train_phase(torch, cfg, dcfg)
+    emit({"phase": "train_ada", "config": "the train phase's flagship pair, "
+          "step 6 (128px), batch 32, augment_cfg=bgc_config(), "
+          "ada_cfg=AdaConfig()", **ada,
+          "total_s": time.monotonic() - t_start})
+
     def summed(agg):
         return {"launches": agg["calls"], "max_abs_err": agg["err"],
                 "tol": agg["tol"], "ms": agg["ms"],
@@ -994,10 +1642,11 @@ def main() -> int:
                 "bound_ms": max(agg["t_ops"], agg["t_bytes"]),
                 "bound_by": ("operations" if agg["t_ops"] > agg["t_bytes"]
                              else "bytes"),
-                "cudnn_conv_bias_ms": agg["conv_ms"] or None}
+                "cudnn_conv_bias_ms": agg.get("conv_ms") or None}
 
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
+    for name in (A, B, C, C_R):
+        source, replaces = SOURCES[name]
         # the headline numbers: per serving forward for the kernels the
         # serving path runs, per training iteration for the entry only
         # training runs
@@ -1005,13 +1654,19 @@ def main() -> int:
         head = per_kernel if on_serve else per_kernel_train
         serve_launches = served["launches"].get(name, 0)
         train_launches = trained["launches"][name]
-        require(train_launches > 0 and (serve_launches > 0 or not on_serve),
+        ada_launches = ada["launches"][name]
+        require(train_launches > 0 and ada_launches > 0
+                and (serve_launches > 0 or not on_serve),
                 f"{name}: not launched on its main path")
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
-                 "launches": serve_launches + train_launches,
+                 "launches": serve_launches + train_launches + ada_launches,
                  "launches_serve": serve_launches,
                  "launches_train": train_launches,
+                 "launches_train_ada": ada_launches,
+                 # the launches of one run of the path named in "per": ms,
+                 # plain_ms and bound_ms are sums over these
+                 "launches_per_path_run": head[(name, "bfloat16")]["calls"],
                  **{k: v for k, v in summed(head[(name, "bfloat16")]).items()
                     if k != "launches"},
                  "library_ms": None,
@@ -1026,7 +1681,44 @@ def main() -> int:
                                                            "float32")])}}
         kernels.append(entry)
 
-    # 5. the card
+    # F, D, E: launches from the counted runs of their paths (F the shear
+    # ADA iterations; D the gather ADA iteration and the ops-layer block; E
+    # the ops-layer block); times summed over one run of the path
+    gather_launches = ada["gather_iteration"]["launches"]
+    for name, per, per_run, launches in (
+            (F_, "one bf16 ADA iteration (shear warp) at batch 32: 6 "
+                 "forward and 2 backward launches",
+             ada["launches_per_iteration"][F_], {
+                 "launches_train_ada": ada["launches"][F_]}),
+            (D_, "one bf16 ADA iteration (gather warp) at batch 32: 12 "
+                 "forward and 4 backward launches", gather_launches[D_], {
+                     "launches_train_ada_gather": gather_launches[D_],
+                     "launches_ops_layer": ops_report["launches"][D_]}),
+            (E_, "the ops-layer block (conv2d_resample -> bias_act lrelu, "
+                 "clamp) at [32,128,128,256], bf16",
+             ops_report["launches"][E_], {
+                 "launches_ops_layer": ops_report["launches"][E_]})):
+        source, replaces = SOURCES[name]
+        require(all(v > 0 for v in launches.values()),
+                f"{name}: not launched on its main path ({launches})")
+        agg = fde[(name, "bfloat16")]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": sum(launches.values()),
+                 # the launches of one run of the path named in "per": ms,
+                 # plain_ms and bound_ms are sums over these
+                 **launches, "launches_per_path_run": per_run,
+                 **{k: v for k, v in summed(agg).items()
+                    if k not in ("launches", "cudnn_conv_bias_ms")},
+                 "library_ms": agg["lib_ms"] if agg["lib_calls"] else None,
+                 "library_covers_calls": f"{agg['lib_calls']} of "
+                                         f"{agg['calls']}",
+                 "f32": {k: v for k, v in
+                         summed(fde[(name, "float32")]).items()
+                         if k != "cudnn_conv_bias_ms"},
+                 "per": per}
+        kernels.append(entry)
+
+    # 6. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -6,6 +6,9 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; the
 hot work goes through hand-written CUDA kernels (``pgx_torch.ops.kernels``)
 whose plain PyTorch versions serve CPU tensors and the tests.
 
-This slice carries the serving path: ``GeneratorService``
-(``pgx_torch.serve``) over the EMA generator's forward.
+Ported so far: the serving path (``GeneratorService`` in
+``pgx_torch.serve`` over the EMA generator's forward), one WGAN-GP training
+iteration (``pgx_torch.train.make_train_step``), the ADA augmentation
+pipeline and its controller (``pgx_torch.augment``) and the ops layer
+(``pgx_torch.ops``).
 """

@@ -6,6 +6,11 @@ switch that sends a CUDA tensor to the plain version.  The library is built
 from ``csrc/`` on first launch (``build.py``), never at import.
 """
 
+from pgx_torch.ops.kernels.bias_act import (  # noqa: F401
+    activation_funcs,
+    bias_act_channel_last,
+    bias_act_ref,
+)
 from pgx_torch.ops.kernels.build import (  # noqa: F401
     launch_counts,
     load_library,
@@ -23,4 +28,12 @@ from pgx_torch.ops.kernels.epilogue import (  # noqa: F401
 from pgx_torch.ops.kernels.pixel_norm_lrelu import (  # noqa: F401
     pixel_norm_lrelu,
     pixel_norm_lrelu_ref,
+)
+from pgx_torch.ops.kernels.shear import (  # noqa: F401
+    shift_1d,
+    shift_1d_ref,
+)
+from pgx_torch.ops.kernels.upfirdn2d import (  # noqa: F401
+    upfirdn2d_ref,
+    upfirdn2d_separable,
 )

@@ -97,9 +97,20 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # dtype, slope, eps, stream); always pixel-normalizes
     lib.pgx_conv3x3_epilogue_r.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                            f, f, p]
+    # (img, shift, out, b, c, r, n, axis, dtype, stream)
+    lib.pgx_shift_1d.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    # (x, out, taps, ntaps, outer, len, n_out, inner, up, down, pad0, dtype,
+    # stream); taps is a host array of floats
+    lib.pgx_upfirdn_1d.argtypes = [p, p, ctypes.POINTER(f), i, i64, i, i, i,
+                                   i, i, i, i, p]
+    # (x, b, out, n, c, act, alpha, gain, clamp, dtype, stream)
+    lib.pgx_bias_act.argtypes = [p, p, p, i64, i, i, f, f, f, i, p]
     for fn in (lib.pgx_bias_pixelnorm_lrelu, lib.pgx_pixel_norm_lrelu,
-               lib.pgx_conv3x3_epilogue, lib.pgx_conv3x3_epilogue_r):
+               lib.pgx_conv3x3_epilogue, lib.pgx_conv3x3_epilogue_r,
+               lib.pgx_shift_1d, lib.pgx_upfirdn_1d, lib.pgx_bias_act):
         fn.restype = ctypes.c_int
+    lib.pgx_upfirdn_max_taps.argtypes = []
+    lib.pgx_upfirdn_max_taps.restype = ctypes.c_int
     lib.pgx_conv3x3_cout_pad.argtypes = [i]
     lib.pgx_conv3x3_cout_pad.restype = ctypes.c_int
     lib.pgx_error_string.argtypes = [i]
@@ -142,9 +153,11 @@ def check(status: int, name: str) -> None:
 # kernel name -> launches in this process; a wrapper adds one where it
 # launches its kernel and nowhere else.  Kernel C counts its two entries
 # apart: "conv3x3_epilogue" is the plain launch, "conv3x3_epilogue_r" the
-# differentiated forward that also writes the pixel-norm scale r.
+# differentiated forward that also writes the pixel-norm scale r.  Kernel D
+# ("upfirdn2d") counts one launch per 1-D pass, two per separable call.
 LAUNCHES = {"bias_pixelnorm_lrelu": 0, "pixel_norm_lrelu": 0,
-            "conv3x3_epilogue": 0, "conv3x3_epilogue_r": 0}
+            "conv3x3_epilogue": 0, "conv3x3_epilogue_r": 0,
+            "shift_1d": 0, "upfirdn2d": 0, "bias_act": 0}
 
 
 def launch_counts() -> dict:

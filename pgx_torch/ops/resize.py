@@ -42,3 +42,8 @@ def downsample2x(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"downsample2x needs even H and W, got {h}x{w}")
     x = x.reshape(b, h // 2, 2, w // 2, 2, c)
     return x.sum(dim=(2, 4), dtype=x.dtype) * 0.25
+
+
+def avg_pool2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pooling: identical to ``downsample2x``."""
+    return downsample2x(x)

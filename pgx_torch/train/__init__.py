@@ -8,6 +8,7 @@ from pgx_torch.train.schedule import (  # noqa: F401
 )
 from pgx_torch.train.wgan import (  # noqa: F401
     TrainConfig,
+    draw_augment_sources,
     draw_z_eps,
     init_train_state,
     make_eval_generate,

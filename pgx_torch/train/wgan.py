@@ -23,9 +23,18 @@ the gradient of the loss.  The discriminator's conv epilogues (kernel A)
 differentiate twice; the generator's fused convs (kernel C) only once, and
 only the generator runs them.
 
-The random draws ``z`` and ``eps`` are inputs of the step: the caller draws
-them from an explicit ``torch.Generator`` (``draw_z_eps``), and a parity
-test feeds the draws of another implementation.
+With ``augment_cfg`` the ADA pipeline (``pgx_torch.augment``) augments every
+image D sees: the reals once, the D step's fake pass and the G step's fake
+pass each with a fresh draw, ``x_hat`` built from the augmented endpoints.
+The penalty's gradient is taken with respect to ``x_hat``, so the pipe sits
+outside the double backward and needs a first-order gradient only (the G
+step, and the joint pass of ``fused_g``).  With ``ada_cfg`` the adaptive
+controller drives the probability from the detached real logits.
+
+The random draws ``z`` and ``eps`` and the three augmentation draw sources
+are inputs of the step: the caller makes them from an explicit
+``torch.Generator`` (``draw_z_eps``, ``draw_augment_sources``), and a
+parity test feeds the draws of another implementation.
 
 The state holds ``nn.Module``s and is updated in place: the step returns the
 same dict it was given.
@@ -35,10 +44,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from pgx_torch.augment.adaptive import AdaConfig, ada_update, init_ada_state
+from pgx_torch.augment.pipe import AugmentConfig, TorchDraws, augment_pipe
 from pgx_torch.models.config import DiscriminatorConfig, GeneratorConfig
 from pgx_torch.models.discriminator import Discriminator, init_discriminator
 from pgx_torch.models.generator import (Generator, _state_dict_of,
@@ -117,8 +128,10 @@ def _adam_init(module: torch.nn.Module) -> Dict[str, Any]:
 
 def _build_state(g: Generator, d: Discriminator, g_ema: Generator,
                  iteration: int = 0) -> Dict[str, Any]:
+    device = next(g.parameters()).device
     return {"g": g, "d": d, "g_ema": g_ema, "opt_g": _adam_init(g),
-            "opt_d": _adam_init(d), "iteration": iteration}
+            "opt_d": _adam_init(d), "iteration": iteration,
+            "ada": init_ada_state(0.0, device)}
 
 
 def init_train_state(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
@@ -126,7 +139,8 @@ def init_train_state(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                      device="cuda") -> Dict[str, Any]:
     """The full training state on ``device``: trainable ``g`` and ``d``,
     the frozen EMA copy ``g_ema`` (an exact copy of ``g``), zeroed Adam
-    moments and counts, ``iteration`` 0.  Weights come from
+    moments and counts, ``iteration`` 0, the ADA controller's state at
+    ``p = 0``.  Weights come from
     ``init_generator(gcfg, seed)`` and ``init_discriminator(dcfg,
     seed + 1)``."""
     del tc   # the optimizer's state does not depend on its hyperparameters
@@ -144,9 +158,9 @@ def train_state_from_jax(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                          device="cuda") -> Dict[str, Any]:
     """Carry a ``jax.device_get`` of pgx's train state across: ``g``, ``d``,
     ``g_ema``, optax's Adam state (``count``, ``mu``, ``nu`` of ``opt_g``
-    and ``opt_d``) and ``iteration``, each in the arrays' own dtype.
-    ``rng`` and ``ada`` are not carried: the port's step takes its draws as
-    inputs and has no ADA yet."""
+    and ``opt_d``), ``iteration`` and the ADA controller's ``ada`` (``p``,
+    ``sign_sum``, ``count``), each in the arrays' own dtype.  ``rng`` is not
+    carried: the port's step takes its draws as inputs."""
     del tc
     dev = resolve_device(device)
     out = _build_state(
@@ -164,6 +178,10 @@ def train_state_from_jax(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 raise ValueError(f"{key}.{moment} does not match the "
                                  f"parameters: {sorted(flat)}")
             opt[moment] = {n: flat[n].to(dev) for n in opt[moment]}
+    if state["ada"].keys() != out["ada"].keys():
+        raise ValueError(f"ada state has keys {sorted(state['ada'])}")
+    out["ada"] = {k: torch.tensor(float(v), dtype=torch.float32, device=dev)
+                  for k, v in state["ada"].items()}
     return out
 
 
@@ -177,6 +195,14 @@ def draw_z_eps(gcfg: GeneratorConfig, batch: int, rng: torch.Generator,
     eps = torch.rand(batch, 1, 1, 1, generator=rng, device=rng.device,
                      dtype=dtype)
     return z, eps
+
+
+def draw_augment_sources(rng: torch.Generator
+                         ) -> Tuple[TorchDraws, TorchDraws, TorchDraws]:
+    """One step's three augmentation draw sources (reals, the D step's
+    fakes, the G step's fakes) over ``rng``.  They share the generator's
+    stream, so each pipe call consumes fresh numbers in call order."""
+    return TorchDraws(rng), TorchDraws(rng), TorchDraws(rng)
 
 
 # ---------------------------------------------------------------------------
@@ -227,9 +253,13 @@ def _frozen(module: torch.nn.Module):
 
 def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                     tc: TrainConfig, *, step: int, fading: bool,
-                    update_g: bool = True, apply_gp: bool = True):
+                    update_g: bool = True, apply_gp: bool = True,
+                    augment_cfg: Optional[AugmentConfig] = None,
+                    ada_cfg: Optional[AdaConfig] = None,
+                    augment_p: float = 1.0):
     """The train step for one (stage, fade phase):
-    ``fn(state, real, labels, alpha, *, z, eps) -> (state, metrics)``.
+    ``fn(state, real, labels, alpha, *, z, eps, aug_draws=None)
+    -> (state, metrics)``.
 
     ``real`` is NHWC in [-1, 1] at this stage's resolution; ``labels`` may
     be None for unconditional configs; ``alpha`` is the fade weight; ``z``
@@ -238,15 +268,44 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     ``n_critic`` cadence; ``apply_gp=False`` skips the penalty (lazy
     regularization, ``gp_every > 1``).  The state is updated in place and
     returned; ``metrics`` maps ``METRICS`` to 0-d tensors on the device (no
-    host synchronization happens in the step)."""
+    host synchronization happens in the step).
+
+    When ``augment_cfg`` is given, the ADA pipeline augments every image D
+    sees, differentiable through to G, and the step needs ``aug_draws``:
+    three draw sources for the reals, the D step's fakes and the G step's
+    fakes (``draw_augment_sources``).  With ``ada_cfg`` the controller in
+    ``state["ada"]`` drives the probability from the real logits; without
+    it the fixed ``augment_p`` applies (the controller's p starts at 0,
+    which would make ``augment_cfg`` alone do nothing).  With ``fused_g``
+    G's gradient sees the D step's draw, as in pgx."""
     conditional = gcfg.conditioning != "none"
     fused = bool(tc.fused_g) and update_g
     lam = tc.lambda_gp * tc.gp_every
 
-    def train_step(state, real, labels, alpha, *, z, eps):
+    def train_step(state, real, labels, alpha, *, z, eps, aug_draws=None):
         gen, disc = state["g"], state["d"]
         lab = labels if conditional else None
         bsz = real.shape[0]
+
+        if augment_cfg is not None:
+            if aug_draws is None or len(aug_draws) != 3:
+                raise ValueError("augment_cfg needs aug_draws: three draw "
+                                 "sources (draw_augment_sources)")
+            ada_p = (state["ada"]["p"] if ada_cfg is not None
+                     else torch.full((), augment_p, dtype=torch.float32,
+                                     device=real.device))
+            draws_real, draws_d_fake, draws_g_fake = aug_draws
+            with torch.no_grad():
+                real = augment_pipe(draws_real, real, augment_cfg, ada_p)
+            # every application of the pipe draws fresh transforms: the G
+            # step redraws rather than optimize G against the one transform
+            # D happened to see
+            aug_d_fake = lambda img: augment_pipe(draws_d_fake, img,
+                                                  augment_cfg, ada_p)
+            aug_g_fake = lambda img: augment_pipe(draws_g_fake, img,
+                                                  augment_cfg, ada_p)
+        else:
+            aug_d_fake = aug_g_fake = lambda img: img
 
         def g_fwd(gen_):
             return generator_apply(gen_, z, lab, step=step, alpha=alpha,
@@ -298,26 +357,35 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                    "fake_score": torch.mean(fake_scores),
                    "d_total": loss,
                    "ada_r": torch.mean(torch.sign(real_scores))}
-            return loss, {k: v.detach() for k, v in aux.items()}
+            return (loss, {k: v.detach() for k, v in aux.items()},
+                    real_scores.detach())
 
         # --- D update (its graph dies with this function's locals) --------
         def d_step():
             d_params = list(disc.parameters())
             if fused:
                 g_params = list(gen.parameters())
-                loss, aux = d_loss_with(g_fwd(gen))
+                loss, aux, logits = d_loss_with(aug_d_fake(g_fwd(gen)))
                 grads = _grads_of(loss, d_params + g_params)
                 return (grads[:len(d_params)],
-                        [-g for g in grads[len(d_params):]], aux)
+                        [-g for g in grads[len(d_params):]], aux, logits)
             with torch.no_grad():
-                fake = g_fwd(gen)
-            loss, aux = d_loss_with(fake)
-            return _grads_of(loss, d_params), None, aux
+                fake = aug_d_fake(g_fwd(gen))
+            loss, aux, logits = d_loss_with(fake)
+            return _grads_of(loss, d_params), None, aux, logits
 
-        d_grads, g_grads, metrics = d_step()
+        d_grads, g_grads, metrics, real_logits = d_step()
         _adam_update(disc, d_grads, state["opt_d"], tc)
         del d_grads
-        metrics["ada_p"] = torch.zeros((), device=real.device)
+
+        if augment_cfg is not None and ada_cfg is not None:
+            state["ada"] = ada_update(state["ada"], real_logits, ada_cfg,
+                                      bsz)
+        # the probability actually applied: the controller's when ADA drives
+        # it, the fixed augment_p when augmentation runs without a
+        # controller (whose p stays 0 there)
+        metrics["ada_p"] = (ada_p if augment_cfg is not None
+                            and ada_cfg is None else state["ada"]["p"])
         metrics["g_loss"] = torch.zeros((), device=real.device)
 
         # --- G update: same z, the updated D (fused: the joint pass's
@@ -327,7 +395,7 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 metrics["g_loss"] = -metrics["fake_score"]
             else:
                 with _frozen(disc):
-                    g_loss = -torch.mean(d_fwd(g_fwd(gen)))
+                    g_loss = -torch.mean(d_fwd(aug_g_fake(g_fwd(gen))))
                     g_grads = _grads_of(g_loss, list(gen.parameters()))
                 metrics["g_loss"] = g_loss.detach()
                 del g_loss

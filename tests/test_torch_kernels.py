@@ -1,4 +1,6 @@
-"""pgx_torch's kernels A/B/C against pgx's Pallas kernels.
+"""pgx_torch's kernels A/B/C against pgx's Pallas kernels, and the card
+cases of all six kernels (F, D and E are held against pgx on the CPU in
+tests/test_torch_shear.py and tests/test_torch_ops.py).
 
 On the CPU the wrappers take their plain PyTorch versions, which are held
 against pgx's Pallas kernels run in interpret mode (as pgx's own tests run
@@ -485,3 +487,185 @@ def test_gpu_kernel_a_second_derivative_matches_plain(cuda):
                          penalty_grads(K.bias_pixelnorm_lrelu_ref)):
         scale = max(want.abs().max().item(), 1e-6)
         assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# On the card: kernels F (shift_1d), D (upfirdn2d) and E (bias_act)
+# ---------------------------------------------------------------------------
+
+# one bf16 step at outputs of O(1..4): the kernels and their plain versions
+# both compute in f32 and round once, so they differ by at most one rounding
+# of a value whose f32 sums ran in another order
+FDE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,axis,scale", [
+    ((2, 3, 64, 128), 3, 40.0), ((2, 3, 64, 128), 2, 40.0),
+    ((2, 3, 52, 130), 3, 30.0), ((1, 2, 64, 101), 2, 20.0),
+    ((2, 3, 576, 896), 3, 200.0), ((2, 3, 576, 268), 2, 200.0),   # 128px
+    ((1, 3, 1088, 524), 2, 400.0), ((1, 3, 2112, 1036), 2, 3000.0),
+    ((1, 1, 7, 5), 3, 0.0)])
+def test_gpu_shift_1d_matches_plain(cuda, dtype, shape, axis, scale):
+    img = _on(_rand(shape, 1), cuda, dtype)
+    lines = shape[2] if axis == 3 else shape[3]
+    shift = _on(_rand((shape[0], lines), 2, scale), cuda, torch.float32)
+    before = K.launch_counts()["shift_1d"]
+    with torch.no_grad():
+        got = K.shift_1d(img, shift, axis)
+        want = K.shift_1d_ref(img, shift, axis)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["shift_1d"] == before + 1
+    assert got.dtype == dtype and got.shape == img.shape
+    assert (got.float() - want.float()).abs().max().item() <= FDE_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis", [2, 3])
+def test_gpu_shift_1d_backward_launches_the_kernel(cuda, axis):
+    img = _on(_rand((2, 3, 48, 64), 1), cuda, torch.float32)
+    lines = 48 if axis == 3 else 64
+    shift = _on(_rand((2, lines), 2, 15.0), cuda, torch.float32)
+    g = _on(_rand((2, 3, 48, 64), 3), cuda, torch.float32)
+    x = img.clone().requires_grad_(True)
+    before = K.launch_counts()["shift_1d"]
+    got, = torch.autograd.grad(K.shift_1d(x, shift, axis), x, g)
+    assert K.launch_counts()["shift_1d"] == before + 2     # forward, backward
+    x2 = img.clone().requires_grad_(True)
+    want, = torch.autograd.grad(K.shift_1d_ref(x2, shift, axis), x2, g)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,up,down,pads,flip", [
+    ((2, 16, 17, 3), 1, 1, (0, 0, 0, 0), False),
+    ((2, 8, 9, 3), 2, 1, (2, 1, 2, 1), False),
+    ((2, 17, 16, 3), 1, 2, (1, 2, 2, 1), True),
+    ((2, 8, 8, 5), 2, 2, (-1, 2, 0, -1), False),
+    ((2, 94, 94, 3), 2, 1, (6, 5, 6, 5), False),       # the gather path's
+    ((2, 76, 76, 3), 1, 2, (-7, -7, -7, -7), True),    # two calls, 32px
+    ((1, 20, 300, 1), 1, 2, (-2, -1, -2, -1), False)])
+def test_gpu_upfirdn2d_matches_plain(cuda, dtype, shape, up, down, pads,
+                                     flip):
+    taps = np.random.RandomState(0).rand(12) / 3.0
+    x = _on(_rand(shape, 4), cuda, dtype)
+    before = K.launch_counts()["upfirdn2d"]
+    with torch.no_grad():
+        got = K.upfirdn2d_separable(x, taps, up, down, pads, flip)
+        want = K.upfirdn2d_ref(x, taps, up, down, pads, flip)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["upfirdn2d"] == before + 2    # H pass, W pass
+    assert got.dtype == dtype and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= FDE_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("up,down,pads", [(2, 1, (6, 5, 6, 5)),
+                                          (1, 2, (-7, -7, -7, -7)),
+                                          (2, 2, (1, 2, 0, 3))])
+def test_gpu_upfirdn2d_backward_launches_the_kernel(cuda, up, down, pads):
+    taps = np.random.RandomState(0).rand(12) / 3.0
+    x = _on(_rand((2, 40, 42, 3), 4), cuda, torch.float32)
+    x1, x2 = (x.clone().requires_grad_(True) for _ in range(2))
+    y = K.upfirdn2d_separable(x1, taps, up, down, pads)
+    g = torch.randn_like(y)
+    before = K.launch_counts()["upfirdn2d"]
+    got, = torch.autograd.grad(y, x1, g)
+    assert K.launch_counts()["upfirdn2d"] == before + 2
+    want, = torch.autograd.grad(K.upfirdn2d_ref(x2, taps, up, down, pads),
+                                x2, g)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clamp", [None, 1.5])
+@pytest.mark.parametrize("act", ["linear", "relu", "lrelu", "tanh",
+                                 "sigmoid", "elu", "selu", "softplus",
+                                 "swish"])
+def test_gpu_bias_act_matches_plain(cuda, dtype, act, clamp):
+    from pgx_torch.ops import bias_act
+    for shape in ((4, 16, 16, 256), (3, 5, 7, 3), (1, 1, 1, 5)):
+        x = _on(_rand(shape, 5, 2.0), cuda, dtype)
+        b = _on(_rand(shape[-1:], 6), cuda, torch.float32)
+        before = K.launch_counts()["bias_act"]
+        with torch.no_grad():
+            got = bias_act(x, b, act=act, clamp=clamp)
+            want = K.bias_act_ref(x, b, act=act, clamp=clamp)
+            got0 = bias_act(x, None, act=act, alpha=0.3, gain=0.7)
+            want0 = K.bias_act_ref(x, None, act=act, alpha=0.3, gain=0.7)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["bias_act"] == before + 2
+        assert got.dtype == dtype and got.shape == x.shape
+        # outputs reach |x| * sqrt(2) ~ 12 here: three bf16 steps at 8..16
+        tol = 1e-5 if dtype == torch.float32 else 2 ** -4
+        assert (got.float() - want.float()).abs().max().item() <= tol
+        assert (got0.float() - want0.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["lrelu", "tanh", "swish", "softplus"])
+def test_gpu_bias_act_gradients_match_plain(cuda, act):
+    """First and second order: the Function's plain-op backward behind the
+    kernel's forward against autograd through the plain version."""
+    from pgx_torch.ops import bias_act
+    x = _on(_rand((4, 8, 8, 64), 7), cuda, torch.float32)
+    b = _on(_rand((64,), 8, 0.5), cuda, torch.float32)
+    g = _on(_rand((4, 8, 8, 64), 9), cuda, torch.float32)
+
+    def both_orders(fn):
+        tx, tb = x.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        first = torch.autograd.grad((fn(tx, tb) * g).sum(), (tx, tb),
+                                    create_graph=True)
+        pen = (first[0].square() * (1.0 + g)).sum()
+        second = (torch.autograd.grad(pen, (tx, tb)) if pen.requires_grad
+                  else ())
+        return [*first, *second]
+
+    got = both_orders(lambda x_, b_: bias_act(x_, b_, act=act, clamp=1.2))
+    want = both_orders(lambda x_, b_: K.bias_act_ref(x_, b_, act=act,
+                                                     clamp=1.2))
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for a, e in zip(got, want):
+        scale = max(e.abs().max().item(), 1.0)
+        assert (a - e).abs().max().item() <= 2e-4 * scale
+
+
+@pytest.mark.gpu
+def test_gpu_new_wrappers_reject_bad_inputs(cuda):
+    from pgx_torch.ops import bias_act, upfirdn2d
+    with torch.no_grad():
+        with pytest.raises(TypeError):
+            K.shift_1d(torch.zeros(1, 1, 4, 4, device=cuda,
+                                   dtype=torch.float64),
+                       torch.zeros(1, 4, device=cuda), 3)
+        with pytest.raises(TypeError):
+            bias_act(torch.zeros(2, 4, device=cuda, dtype=torch.float16))
+        with pytest.raises(ValueError, match="taps"):
+            upfirdn2d(torch.zeros(1, 80, 80, 1, device=cuda), np.ones(65))
+        with pytest.raises(ValueError, match="1 or 2"):
+            K.upfirdn2d_separable(torch.zeros(1, 8, 8, 1, device=cuda),
+                                  [1.0, 1.0], up=3)
+
+
+@pytest.mark.gpu
+def test_gpu_ada_state_defaults_to_the_card(cuda):
+    """``init_ada_state()`` with no device lands on the card, and updates
+    from CUDA logits keep every leaf there, across a trigger."""
+    from pgx_torch.augment import AdaConfig, ada_update, init_ada_state
+    state = init_ada_state()
+    assert all(v.device.type == "cuda" for v in state.values())
+    cfg = AdaConfig(ada_length=1000)
+    for _ in range(5):
+        state = ada_update(state, torch.ones(8, device=cuda), cfg, 8)
+        assert all(v.device.type == "cuda" and v.dtype == torch.float32
+                   for v in state.values())
+    assert state["p"].item() > 0.0 and state["count"].item() == 8.0
+    with pytest.raises(ValueError, match="is on cpu"):
+        ada_update(init_ada_state(device="cpu"),
+                   torch.ones(8, device=cuda), cfg, 8)
