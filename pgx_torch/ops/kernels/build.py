@@ -91,6 +91,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.c_float
     lib.pgx_bias_pixelnorm_lrelu.argtypes = [p, p, p, i64, i, i, f, f, p]
     lib.pgx_pixel_norm_lrelu.argtypes = [p, p, i64, i, i, f, f, p]
+    # (y, b, g, dy, db_partial, rows, c, dtype, slope, eps, stream)
+    lib.pgx_bias_pixelnorm_lrelu_bwd.argtypes = [p, p, p, p, p, i64, i, i, f,
+                                                 f, p]
+    lib.pgx_bias_pixelnorm_lrelu_bwd_blocks.argtypes = [i64]
+    lib.pgx_bias_pixelnorm_lrelu_bwd_blocks.restype = ctypes.c_int
     lib.pgx_conv3x3_epilogue.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f,
                                          f, p]
     # the residual-emitting entry: (x, w, b, out, r, nb, h, wd, cin, cout,
@@ -106,6 +111,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # (x, b, out, n, c, act, alpha, gain, clamp, dtype, stream)
     lib.pgx_bias_act.argtypes = [p, p, p, i64, i, i, f, f, f, i, p]
     for fn in (lib.pgx_bias_pixelnorm_lrelu, lib.pgx_pixel_norm_lrelu,
+               lib.pgx_bias_pixelnorm_lrelu_bwd,
                lib.pgx_conv3x3_epilogue, lib.pgx_conv3x3_epilogue_r,
                lib.pgx_shift_1d, lib.pgx_upfirdn_1d, lib.pgx_bias_act):
         fn.restype = ctypes.c_int
@@ -153,9 +159,11 @@ def check(status: int, name: str) -> None:
 # kernel name -> launches in this process; a wrapper adds one where it
 # launches its kernel and nowhere else.  Kernel C counts its two entries
 # apart: "conv3x3_epilogue" is the plain launch, "conv3x3_epilogue_r" the
-# differentiated forward that also writes the pixel-norm scale r.  Kernel D
-# ("upfirdn2d") counts one launch per 1-D pass, two per separable call.
-LAUNCHES = {"bias_pixelnorm_lrelu": 0, "pixel_norm_lrelu": 0,
+# differentiated forward that also writes the pixel-norm scale r.  Kernel
+# A's backward ("bias_pixelnorm_lrelu_bwd") counts its own launches.  Kernel
+# D ("upfirdn2d") counts one launch per 1-D pass, two per separable call.
+LAUNCHES = {"bias_pixelnorm_lrelu": 0, "bias_pixelnorm_lrelu_bwd": 0,
+            "pixel_norm_lrelu": 0,
             "conv3x3_epilogue": 0, "conv3x3_epilogue_r": 0,
             "shift_1d": 0, "upfirdn2d": 0, "bias_act": 0}
 

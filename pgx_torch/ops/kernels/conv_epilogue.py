@@ -8,10 +8,13 @@ accumulated in f32 and the pixel-norm statistics taken in f32.
 
 Bound: operations at the 16-32 px stages (C = 512), bytes at 4-8 px where the
 weights outweigh the activations.  The CUDA kernel (``csrc/conv_epilogue.cu``)
-is an implicit GEMM in which a thread-block cluster owns a tile of output
-pixels and every output channel, because the pixel norm reduces over all of
-C_out; the epilogue runs on the accumulators, so the pre-activation never
-reaches device memory.  bf16 runs on the tensor cores (mma.sync), f32 on
+is an implicit GEMM in which a CTA (for C_out = 512 a cluster of two, which
+split the channels) owns a tile of 128 output pixels and every output
+channel, because the pixel norm reduces over all of C_out; the epilogue
+runs on the accumulators, so the pre-activation never reaches device
+memory.  bf16 runs on Hopper's warpgroup MMA (wgmma) fed by TMA loads of the
+NHWC tensor itself (the copy's zero fill is the SAME padding; in a cluster
+the pixel tile is multicast to both CTAs), in persistent CTAs; f32 runs on
 CUDA-core FMA.
 
 Two launches, counted apart.  Without grad the plain entry runs
@@ -83,7 +86,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"{name}: x, w and b must share one device")
     lib = build.load_library()
     if x.dtype == torch.bfloat16:
-        # [9][C_out_pad][C_in]: K-contiguous for the tensor-core fragments
+        # [9][C_out_pad][C_in]: K-major tiles for wgmma, by 2-D TMA
         cpad = lib.pgx_conv3x3_cout_pad(cout)
         wk = w.to(x.dtype).permute(0, 1, 3, 2).reshape(9, cout, cin)
         wk = F.pad(wk, (0, 0, 0, cpad - cout)).contiguous()

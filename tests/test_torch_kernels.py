@@ -388,6 +388,72 @@ def test_gpu_conv3x3_epilogue_matches_plain(cuda, dtype, shape, cout, pn):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("emit_r", [False, True])
+@pytest.mark.parametrize("shape,cout", [
+    ((64, 4, 4, 512), 512), ((1, 4, 4, 512), 512),     # box (8, 4, 4)
+    ((13, 4, 4, 512), 256),
+    ((32, 8, 8, 512), 512), ((3, 8, 8, 256), 128),     # box (2, 8, 8)
+    ((2, 16, 16, 512), 256), ((1, 12, 20, 64), 512)])  # (1, 8, 16), ragged
+def test_gpu_conv3x3_epilogue_box_shapes_match_plain(cuda, shape, cout,
+                                                     emit_r):
+    """The bf16 kernel's pixel tile at the 4px and 8px stages: boxes that
+    span several images, run past the batch (a batch-1 request), or past
+    the image's edge, for every cluster size (C_out 128, 256, 512)."""
+    x = _on(_rand(shape, 4), cuda, torch.bfloat16)
+    w = _on(_rand((3, 3, shape[-1], cout), 5,
+                  np.sqrt(2.0 / (9 * shape[-1]))), cuda, torch.float32)
+    b = _on(_rand((cout,), 6, 0.1), cuda, torch.float32)
+    with torch.no_grad():
+        if emit_r:
+            got, got_r = K.conv3x3_epilogue_with_r(x, w, b)
+            want, want_r = K.conv3x3_epilogue_ref(x, w, b, return_r=True)
+        else:
+            got = K.conv3x3_epilogue(x, w, b)
+            want = K.conv3x3_epilogue_ref(x, w, b)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max().item() \
+        <= GPU_TOL[torch.bfloat16]
+    if emit_r:
+        rel = ((got_r - want_r.float()).abs() / want_r.float()).max().item()
+        assert rel <= 4e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(32, 4, 4, 512), (8, 64, 64, 256),
+                                   (2, 17, 3, 40), (9000, 1, 1, 64)])
+def test_gpu_kernel_a_backward_matches_plain(cuda, dtype, shape):
+    """A's backward kernel against its plain version: dy to one f32
+    rounding (f32) or two bf16 steps (bf16) at the largest entry; db, an
+    f32 sum over the rows in another order, to 1e-5 of its largest
+    entry."""
+    from pgx_torch.ops.kernels import epilogue as E
+    y = _on(_rand(shape, 1), cuda, dtype)
+    b = _on(_rand(shape[-1:], 2, 0.3), cuda, torch.float32)
+    g = _on(_rand(shape, 3), cuda, dtype)
+    before = K.launch_counts()["bias_pixelnorm_lrelu_bwd"]
+    with torch.no_grad():
+        got_dy, got_db = E._BiasPixelNormLreluGrad.apply(y, b, g, 0.2, 1e-8)
+        want_dy, want_db = E.bias_pixelnorm_lrelu_backward_ref(y, b, g)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bias_pixelnorm_lrelu_bwd"] == before + 1
+    assert got_dy.dtype == dtype and got_dy.shape == y.shape
+    assert got_db.dtype == torch.float32 and got_db.shape == b.shape
+    scale = want_dy.float().abs().max().item()
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    assert (got_dy.float() - want_dy.float()).abs().max().item() \
+        <= tol * scale
+    db_scale = want_db.abs().max().item()
+    assert (got_db - want_db).abs().max().item() <= 1e-5 * db_scale
+    # the same kernel from autograd: one launch per first-order backward
+    leaf = y.clone().requires_grad_(True)
+    before = K.launch_counts()["bias_pixelnorm_lrelu_bwd"]
+    torch.autograd.grad(K.bias_pixelnorm_lrelu(leaf, b), leaf, g)
+    assert K.launch_counts()["bias_pixelnorm_lrelu_bwd"] == before + 1
+
+
+@pytest.mark.gpu
 def test_gpu_wrappers_reject_bad_inputs(cuda):
     with torch.no_grad():
         with pytest.raises(ValueError, match="multiple of 8"):
