@@ -40,8 +40,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 5. ada     — kernels F (shift_1d), D (upfirdn2d) and E (bias_act): the
    launches of one bf16 ADA iteration at 128px, batch 32, are recorded
    for the shear warp (F) and for the gather warp (D); each kernel is
-   held against its plain version there in f32 and bf16 and timed, F also
-   at the 256px and 512px extents (batch 2, both axes), E for all nine
+   held against its plain version there in f32 and bf16 and timed (D
+   also by its own device time, replayed from a CUDA graph), F also
+   at the 256px and 512px extents (batch 2, both axes), D at the gather
+   warp's four calls at 256px and 512px (batch 1), E for all nine
    activations with and without clamp at [32,128,128,256]; gradients of
    F and D (their backward launches the kernel) and of E (first and
    second order) against autograd through the plain versions.  Then the
@@ -136,6 +138,27 @@ def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
         evs.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in evs)
+
+
+def graph_ms(torch, fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one fn() call: ``reps`` calls captured in one CUDA
+    graph, the graph replayed between CUDA events (median of ``replays``),
+    divided by ``reps``.  Every captured launch runs in every replay.  The
+    host's time to enqueue a call, which back-to-back events include where a
+    call is shorter than its enqueueing, is not in it; the graph's own
+    dispatch from one launch to the next is."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):         # first calls outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(torch, graph.replay, replays, warmup=1) / reps
+    del graph
+    return ms
 
 
 def bf16_tol(ref_max: float) -> float:
@@ -349,6 +372,9 @@ def kernel_phase(torch, calls, per: str, reps: int = 10):
                         f"tol {tol}")
                 del got, want
                 ms = cuda_ms(torch, kern, reps)
+                # B is one launch on a small tensor: back to back, the
+                # wrapper's host time shows; the graph leaves it out
+                device_ms = graph_ms(torch, kern) if name == B else None
                 plain_ms = cuda_ms(torch, plain, reps)
                 conv_ms = (cuda_ms(torch, conv_only, reps) if conv_only
                            else None)
@@ -358,6 +384,7 @@ def kernel_phase(torch, calls, per: str, reps: int = 10):
             row = {"kernel": name, "shape": list(shape), "dtype": dt_name,
                    "calls": mult, "per": per, **opts, **rate,
                    "max_abs_err": err, "tol": tol, "ms": ms,
+                   "device_ms": device_ms,
                    "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops > t_bytes else "bytes",
                    "cudnn_conv_bias_ms": conv_ms}
@@ -367,9 +394,11 @@ def kernel_phase(torch, calls, per: str, reps: int = 10):
                 row.update(db_max_rel_err=db_err, db_tol=1e-5)
             emit({"phase": "kernel_shape", **row})
             agg = per_kernel.setdefault((name, dt_name), {
-                "ms": 0.0, "plain_ms": 0.0, "t_ops": 0.0, "t_bytes": 0.0,
-                "err": 0.0, "tol": 0.0, "conv_ms": 0.0, "calls": 0})
+                "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "t_ops": 0.0,
+                "t_bytes": 0.0, "err": 0.0, "tol": 0.0, "conv_ms": 0.0,
+                "calls": 0})
             agg["ms"] += mult * ms
+            agg["device_ms"] += mult * (device_ms or 0.0)
             agg["plain_ms"] += mult * plain_ms
             agg["t_ops"] += mult * t_ops
             agg["t_bytes"] += mult * t_bytes
@@ -542,8 +571,8 @@ def calls_per_iteration(gcfg, dcfg, step: int, warp=None) -> dict:
     pipe runs three times (reals, the D step's fakes, the G step's fakes)
     and the G step differentiates its call: the shear warp launches F
     twice per call and twice in the backward (8); the gather warp launches
-    D twice per upsample2d and twice per downsample2d, forward and
-    backward (16).  Kernel E is not on the training path.
+    D once per upsample2d and once per downsample2d, forward and backward
+    (8).  Kernel E is not on the training path.
 
     Kernel A's backward runs wherever a first-order backward reaches A:
     the D step's real, fake and x_hat forwards and the G step's D forward
@@ -559,7 +588,7 @@ def calls_per_iteration(gcfg, dcfg, step: int, warp=None) -> dict:
             A_BWD: 4 * d_convs + g[A] + d_convs - 1,
             B: 2 * g[B], C: g[C], C_R: g[C],
             F_: 8 if warp == "shear" else 0,
-            D_: 16 if warp == "gather" else 0, E_: 0}
+            D_: 8 if warp == "gather" else 0, E_: 0}
 
 
 def flagship(torch):
@@ -1042,6 +1071,12 @@ def profile_iteration(torch, run, reps: int = 2):
             "top_kernels_ms": [[n[:90], t] for n, t in top],
             "kernel_a_backward_first_order_ms": span["kernel_a_backward"],
             "kernel_a_second_order_ms": span["kernel_a_second_order"],
+            # launches of A+B and of C that the trace holds per iteration:
+            # beside the counted launches (A 52 + B 2, C 9 + C emit-r 9)
+            # they show whether the trace is whole
+            "launches_traced_per_iteration": {
+                k: sum(k in ev.name for ev in device_events) / reps
+                for k in ("rownorm_kernel", "conv3x3_wgmma_kernel")},
             "note": "the two kernel_a ranges span the device work launched "
                     "inside them: the first order is mostly 'kernel A "
                     "backward', the second order 'elementwise and "
@@ -1148,8 +1183,7 @@ OPS_SHAPE = (TRAIN_BATCH, 128, 128, 256)     # a flagship 128px activation
 def record_launches(torch, run):
     """Every launch of kernels F, D and E that ``run()`` makes, forward and
     backward alike, as (kernel, input shape, arguments): recorded where the
-    wrappers launch (a call of D's is two kernel launches, H pass and W
-    pass)."""
+    wrappers launch (one kernel launch per call)."""
     from pgx_torch.ops.kernels import bias_act, shear, upfirdn2d
     calls = []
 
@@ -1173,6 +1207,32 @@ def record_launches(torch, run):
                 "bias": b is not None}):
         run()
         torch.cuda.synchronize()
+    return calls
+
+
+def gather_extent_calls(torch, res: int):
+    """Kernel D's launches in the gather warp's resampling at ``res``, batch
+    1, as augment_pipe makes them: upsample2d of the reflect-padded image
+    (``3*res - 2`` square), downsample2d of the grid-sampled one (``(res +
+    2*hz_pad) * 2`` square, ``padding=-2*hz_pad``, flipped), and the
+    backward of each."""
+    from pgx_torch.augment.pipe import _hz_geom
+    from pgx_torch.ops import downsample2d, upsample2d
+    hz = _hz_geom()
+    hz_pad = hz.shape[0] // 4
+
+    def run():
+        side = (res + 2 * hz_pad) * 2
+        x = torch.zeros(1, 3 * res - 2, 3 * res - 2, 3, device=DEVICE,
+                        requires_grad=True)
+        y = torch.zeros(1, side, side, 3, device=DEVICE, requires_grad=True)
+        up = upsample2d(x, hz, up=2)
+        down = downsample2d(y, hz, down=2, padding=-hz_pad * 2,
+                            flip_filter=True)
+        torch.autograd.grad((up.sum(), down.sum()), (x, y))
+
+    calls = record_launches(torch, run)
+    require(len(calls) == 4, f"gather resampling at {res}px: {calls}")
     return calls
 
 
@@ -1214,7 +1274,10 @@ def fde_case(torch, name, shape, opts, dt, rng):
         xn = x.permute(0, 3, 1, 2)
         library = None
         # a depthwise convolution is the same function where the padding
-        # fits one call's arguments: the gather path's two calls
+        # fits one call's arguments: the gather path's forward calls and
+        # the upsample's backward.  The downsample's backward (up 2, pads
+        # 12/11 for 12 taps) has none: its output is conv_transpose2d's
+        # with a border of zeros, which only a negative padding gives
         if (up, down) == (2, 1) and px1 == px0 - 1 and py1 == py0 - 1 \
                 and px0 == py0 <= n - 1:
             w2t = w2d.flip(2, 3)
@@ -1224,6 +1287,10 @@ def fde_case(torch, name, shape, opts, dt, rng):
             xc = xn[:, :, -py0:h + py1, -px0:w + px1]
             library = lambda: torch.nn.functional.conv2d(
                 xc, w2d, stride=down, groups=c)
+        elif up == 1 and px0 == px1 == py0 == py1 > 0:
+            # the upsample's backward
+            library = lambda: torch.nn.functional.conv2d(
+                xn, w2d, stride=down, padding=px0, groups=c)
         return (lambda: K.upfirdn2d_separable(x, taps, up, down, pads, flip),
                 lambda: K.upfirdn2d_ref(x, taps, up, down, pads, flip),
                 library, nbytes, ops)
@@ -1279,6 +1346,7 @@ def fde_phase(torch, calls, per: str, reps: int = 5, sums=None):
                     del lib
                 del got, want
                 ms = cuda_ms(torch, kern, reps)
+                device_ms = graph_ms(torch, kern) if name == D_ else None
                 plain_ms = cuda_ms(torch, plain, reps)
                 if library is not None:
                     lib_ms = cuda_ms(torch, library, reps)
@@ -1288,15 +1356,16 @@ def fde_phase(torch, calls, per: str, reps: int = 5, sums=None):
             emit({"phase": "kernel_shape", "kernel": name,
                   "shape": list(shape), "dtype": dt_name, "calls": mult,
                   "per": per, **small, "max_abs_err": err, "tol": tol,
-                  "ms": ms, "plain_ms": plain_ms,
+                  "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
                   "bound_ms": max(t_ops, t_bytes),
                   "bound_by": "operations" if t_ops > t_bytes else "bytes",
                   "library_ms": lib_ms})
             agg = sums.setdefault((name, dt_name), {
-                "ms": 0.0, "plain_ms": 0.0, "t_ops": 0.0, "t_bytes": 0.0,
-                "err": 0.0, "tol": 0.0, "lib_ms": 0.0, "lib_calls": 0,
-                "calls": 0})
+                "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "t_ops": 0.0,
+                "t_bytes": 0.0, "err": 0.0, "tol": 0.0, "lib_ms": 0.0,
+                "lib_calls": 0, "calls": 0})
             agg["ms"] += mult * ms
+            agg["device_ms"] += mult * (device_ms or 0.0)
             agg["plain_ms"] += mult * plain_ms
             agg["t_ops"] += mult * t_ops
             agg["t_bytes"] += mult * t_bytes
@@ -1348,7 +1417,7 @@ def fde_gradient_phase(torch):
         gy = torch.randn_like(fn(x))
         before = K.launch_counts()[D_]
         got = first(fn, x, gy)
-        require(K.launch_counts()[D_] == before + 4,
+        require(K.launch_counts()[D_] == before + 2,
                 f"{D_} up={up} down={down}: the backward did not launch "
                 f"the kernel")
         out[f"{D_}_up{up}_down{down}"] = rel(got, first(
@@ -1410,7 +1479,7 @@ def ops_layer_phase(torch):
     launches = K.launch_counts()
     # -----------------------------------------------------------------
     want_counts = {k: 0 for k in launches}
-    want_counts.update({D_: 2, E_: 1})
+    want_counts.update({D_: 1, E_: 1})
     require(launches == want_counts, f"ops layer launched {launches}")
     with plain_versions(), torch.inference_mode():
         want = block()
@@ -1493,9 +1562,8 @@ def record_ada_launches(torch, gcfg, dcfg, warp: str):
         torch, lambda: step(state, real, labels, 1.0, **draws))
     want = calls_per_iteration(g, d, TRAIN_STEP, warp)
     got = count_calls(calls)
-    # a recorded call of D's is two kernel launches
-    require(got == {k: v for k, v in ((F_, want[F_]), (D_, want[D_] // 2))
-                    if v}, f"{warp} ADA iteration recorded {got}")
+    require(got == {k: v for k, v in ((F_, want[F_]), (D_, want[D_])) if v},
+            f"{warp} ADA iteration recorded {got}")
     return calls
 
 
@@ -1765,6 +1833,10 @@ def main() -> int:
                                           ((2, 3, 2112, 3200), 3),
                                           ((2, 3, 2112, 1036), 2))],
               "the warp's extents at 256px and 512px, batch 2", reps=3)
+    fde_phase(torch, gather_extent_calls(torch, 256)
+              + gather_extent_calls(torch, 512),
+              "the gather warp's resampling at 256px and 512px, batch 1, "
+              "forward and backward", reps=3)
     fde_phase(torch, [(E_, OPS_SHAPE, json.dumps(
         {"act": act, "alpha": spec.def_alpha, "gain": spec.def_gain,
          "clamp": clamp, "bias": True}, sort_keys=True))
@@ -1823,6 +1895,12 @@ def main() -> int:
                            **summed(per_kernel_train[(name, "bfloat16")]),
                            "f32": summed(per_kernel_train[(name,
                                                            "float32")])}}
+        if name == B:
+            # "ms" times back-to-back launches, the wrapper's host time
+            # included; "device_ms" the kernel's own time (CUDA graph)
+            entry["device_ms"] = head[(name, "bfloat16")]["device_ms"]
+            entry["train"]["device_ms"] = per_kernel_train[
+                (name, "bfloat16")]["device_ms"]
         kernels.append(entry)
 
     # F, D, E: launches from the counted runs of their paths (F the shear
@@ -1834,8 +1912,8 @@ def main() -> int:
                  "forward and 2 backward launches",
              ada["launches_per_iteration"][F_], {
                  "launches_train_ada": ada["launches"][F_]}),
-            (D_, "one bf16 ADA iteration (gather warp) at batch 32: 12 "
-                 "forward and 4 backward launches", gather_launches[D_], {
+            (D_, "one bf16 ADA iteration (gather warp) at batch 32: 6 "
+                 "forward and 2 backward launches", gather_launches[D_], {
                      "launches_train_ada_gather": gather_launches[D_],
                      "launches_ops_layer": ops_report["launches"][D_]}),
             (E_, "the ops-layer block (conv2d_resample -> bias_act lrelu, "
@@ -1856,6 +1934,10 @@ def main() -> int:
                  "library_ms": agg["lib_ms"] if agg["lib_calls"] else None,
                  "library_covers_calls": f"{agg['lib_calls']} of "
                                          f"{agg['calls']}",
+                 # the kernel's own device time (CUDA graph): "ms" times
+                 # back-to-back calls, where the host's launch time shows
+                 # for the small ones
+                 **({"device_ms": agg["device_ms"]} if name == D_ else {}),
                  "f32": {k: v for k, v in
                          summed(fde[(name, "float32")]).items()
                          if k != "cudnn_conv_bias_ms"},

@@ -104,19 +104,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                            f, f, p]
     # (img, shift, out, b, c, r, n, axis, dtype, stream)
     lib.pgx_shift_1d.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    # (x, out, taps, ntaps, outer, len, n_out, inner, up, down, pad0, dtype,
-    # stream); taps is a host array of floats
-    lib.pgx_upfirdn_1d.argtypes = [p, p, ctypes.POINTER(f), i, i64, i, i, i,
-                                   i, i, i, i, p]
+    # (x, out, plan, dtype, stream); plan points at upfirdn2d.py's _PlanC
+    lib.pgx_upfirdn2d.argtypes = [p, p, p, i, p]
     # (x, b, out, n, c, act, alpha, gain, clamp, dtype, stream)
     lib.pgx_bias_act.argtypes = [p, p, p, i64, i, i, f, f, f, i, p]
     for fn in (lib.pgx_bias_pixelnorm_lrelu, lib.pgx_pixel_norm_lrelu,
                lib.pgx_bias_pixelnorm_lrelu_bwd,
                lib.pgx_conv3x3_epilogue, lib.pgx_conv3x3_epilogue_r,
-               lib.pgx_shift_1d, lib.pgx_upfirdn_1d, lib.pgx_bias_act):
+               lib.pgx_shift_1d, lib.pgx_upfirdn2d, lib.pgx_bias_act):
         fn.restype = ctypes.c_int
-    lib.pgx_upfirdn_max_taps.argtypes = []
-    lib.pgx_upfirdn_max_taps.restype = ctypes.c_int
+    lib.pgx_upfirdn2d_plan_bytes.argtypes = []
+    lib.pgx_upfirdn2d_plan_bytes.restype = ctypes.c_int
     lib.pgx_conv3x3_cout_pad.argtypes = [i]
     lib.pgx_conv3x3_cout_pad.restype = ctypes.c_int
     lib.pgx_error_string.argtypes = [i]
@@ -161,7 +159,7 @@ def check(status: int, name: str) -> None:
 # apart: "conv3x3_epilogue" is the plain launch, "conv3x3_epilogue_r" the
 # differentiated forward that also writes the pixel-norm scale r.  Kernel
 # A's backward ("bias_pixelnorm_lrelu_bwd") counts its own launches.  Kernel
-# D ("upfirdn2d") counts one launch per 1-D pass, two per separable call.
+# D ("upfirdn2d") is one launch per call.
 LAUNCHES = {"bias_pixelnorm_lrelu": 0, "bias_pixelnorm_lrelu_bwd": 0,
             "pixel_norm_lrelu": 0,
             "conv3x3_epilogue": 0, "conv3x3_epilogue_r": 0,

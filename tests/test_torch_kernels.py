@@ -604,26 +604,50 @@ def test_gpu_shift_1d_backward_launches_the_kernel(cuda, axis):
     assert (got - want).abs().max().item() <= 1e-5
 
 
+def _fir_taps(n):
+    """n random taps whose outputs stay O(1): 12 taps in [0, 1/3), the
+    spread scaled by sqrt(12 / n) for other counts."""
+    return np.random.RandomState(0).rand(n) / 3.0 * (12 / n) ** 0.5
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,up,down,pads,flip", [
-    ((2, 16, 17, 3), 1, 1, (0, 0, 0, 0), False),
-    ((2, 8, 9, 3), 2, 1, (2, 1, 2, 1), False),
-    ((2, 17, 16, 3), 1, 2, (1, 2, 2, 1), True),
-    ((2, 8, 8, 5), 2, 2, (-1, 2, 0, -1), False),
-    ((2, 94, 94, 3), 2, 1, (6, 5, 6, 5), False),       # the gather path's
-    ((2, 76, 76, 3), 1, 2, (-7, -7, -7, -7), True),    # two calls, 32px
-    ((1, 20, 300, 1), 1, 2, (-2, -1, -2, -1), False)])
-def test_gpu_upfirdn2d_matches_plain(cuda, dtype, shape, up, down, pads,
-                                     flip):
-    taps = np.random.RandomState(0).rand(12) / 3.0
+@pytest.mark.parametrize("shape,ntaps,up,down,pads,flip", [
+    ((2, 16, 17, 3), 12, 1, 1, (0, 0, 0, 0), False),
+    ((2, 8, 9, 3), 12, 2, 1, (2, 1, 2, 1), False),
+    ((2, 17, 16, 3), 12, 1, 2, (1, 2, 2, 1), True),
+    ((2, 8, 8, 5), 12, 2, 2, (-1, 2, 0, -1), False),
+    ((2, 94, 94, 3), 12, 2, 1, (6, 5, 6, 5), False),     # the gather path's
+    ((2, 76, 76, 3), 12, 1, 2, (-7, -7, -7, -7), True),  # two calls, 32px
+    ((1, 20, 300, 1), 12, 1, 2, (-2, -1, -2, -1), False),
+    # the gather path's two calls at 128px, batch 2, and their backward
+    ((2, 382, 382, 3), 12, 2, 1, (6, 5, 6, 5), False),
+    ((2, 268, 268, 3), 12, 1, 2, (-1, -1, -1, -1), True),
+    ((2, 764, 764, 3), 12, 1, 2, (5, 5, 5, 5), True),
+    ((2, 128, 128, 3), 12, 2, 1, (12, 11, 12, 11), False),
+    # the ops layer's block: 4 taps, C = 64, an odd leading pad; C split
+    ((2, 64, 64, 64), 4, 2, 1, (3, 2, 3, 2), False),
+    ((2, 130, 130, 64), 4, 1, 2, (1, 1, 1, 1), True),
+    ((1, 19, 23, 130), 4, 2, 1, (3, 2, 2, 3), False),
+    # C = 1 and 5; smaller than one tile; 7 and 64 taps; up = down = 2
+    ((2, 45, 37, 1), 12, 2, 1, (7, 4, 5, 6), False),
+    ((2, 41, 38, 5), 12, 1, 2, (-7, -3, -2, -9), True),
+    ((1, 3, 2, 3), 12, 2, 1, (6, 5, 6, 5), False),
+    ((2, 30, 29, 3), 7, 2, 1, (3, 3, 2, 4), False),
+    ((2, 19, 17, 5), 7, 2, 2, (3, -2, -3, 4), True),
+    ((1, 80, 72, 64), 64, 1, 2, (31, 32, 30, 33), False),
+    ((2, 40, 38, 3), 64, 2, 1, (33, 30, 32, 31), True),
+    ((2, 33, 31, 70), 4, 2, 2, (1, 2, 2, 1), False)])
+def test_gpu_upfirdn2d_matches_plain(cuda, dtype, shape, ntaps, up, down,
+                                     pads, flip):
+    taps = _fir_taps(ntaps)
     x = _on(_rand(shape, 4), cuda, dtype)
     before = K.launch_counts()["upfirdn2d"]
     with torch.no_grad():
         got = K.upfirdn2d_separable(x, taps, up, down, pads, flip)
         want = K.upfirdn2d_ref(x, taps, up, down, pads, flip)
     torch.cuda.synchronize()
-    assert K.launch_counts()["upfirdn2d"] == before + 2    # H pass, W pass
+    assert K.launch_counts()["upfirdn2d"] == before + 1    # one per call
     assert got.dtype == dtype and got.shape == want.shape
     assert (got.float() - want.float()).abs().max().item() <= FDE_TOL[dtype]
 
@@ -640,7 +664,7 @@ def test_gpu_upfirdn2d_backward_launches_the_kernel(cuda, up, down, pads):
     g = torch.randn_like(y)
     before = K.launch_counts()["upfirdn2d"]
     got, = torch.autograd.grad(y, x1, g)
-    assert K.launch_counts()["upfirdn2d"] == before + 2
+    assert K.launch_counts()["upfirdn2d"] == before + 1
     want, = torch.autograd.grad(K.upfirdn2d_ref(x2, taps, up, down, pads),
                                 x2, g)
     torch.cuda.synchronize()
