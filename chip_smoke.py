@@ -18,9 +18,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    for the residual-emitting entry both y and r, for A's backward dy and
    db) and
    time kernel, plain version and, where one PyTorch call computes the same
-   function, that call (CUDA events, median after warmup).  Then hold each
-   wrapper's gradients against autograd through its plain version at one
-   mid-size shape (kernel A also to second order, gradient-penalty shaped).
+   function, that call (CUDA events, median after warmup).  Kernel A's
+   second derivative (bias_pixelnorm_lrelu_bwd2) at each of its calls in
+   the iteration's penalty against its plain closed form, with its device
+   time from a CUDA graph and autograd through the plain backward beside
+   it.  Then hold each wrapper's gradients against autograd through its
+   plain version at one mid-size shape (kernel A also to second order,
+   gradient-penalty shaped); one misaligned input through every kernel
+   (copied, launched, held against the plain version); an empty kernel
+   through kernel B's graph harness (the launch floor); and one bf16
+   forward of legacy_generator(channel=16), whose 4-channel stages the
+   kernels do not take, with launch counts from the routing rules.
 3. serve   — write the full-width flagship (random weights, seed 0) as a
    trial directory, serve it in bf16 through GeneratorService and its HTTP
    front end, check the outputs and that every forward went through A, B
@@ -33,20 +41,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    iterations, one of them fading, with finite metrics, moving parameters
    and EMA, and launch counts per iteration as the configs imply (kernel C
    never from the discriminator; A's backward 61 times: 50 first-order
-   backwards and 11 repeats in the penalty's outer pass); then ms per
-   iteration, img/s, peak memory and a torch.profiler split of one
-   iteration by part, with A's backward and its second derivative as
-   labelled ranges.
+   backwards and 11 repeats in the penalty's outer pass; its second
+   derivative 12 times); then ms per iteration, img/s, peak memory (also
+   with the second derivative's plain closed form swapped in) and a
+   torch.profiler split of one iteration by part, with A's backward and
+   its second derivative as labelled ranges.
 5. ada     — kernels F (shift_1d), D (upfirdn2d) and E (bias_act): the
    launches of one bf16 ADA iteration at 128px, batch 32, are recorded
    for the shear warp (F) and for the gather warp (D); each kernel is
-   held against its plain version there in f32 and bf16 and timed (D
-   also by its own device time, replayed from a CUDA graph), F also
+   held against its plain version there in f32 and bf16 and timed (D and
+   F, per axis, also by their own device time, replayed from a CUDA
+   graph; F's y-shear on the column crop it reads in place), F also
    at the 256px and 512px extents (batch 2, both axes), D at the gather
    warp's four calls at 256px and 512px (batch 1), E for all nine
    activations with and without clamp at [32,128,128,256]; gradients of
    F and D (their backward launches the kernel) and of E (first and
-   second order) against autograd through the plain versions.  Then the
+   second order) against autograd through the plain versions; the crop
+   copy the y-shear no longer makes, timed against the kernel.  Then the
    ops layer through its public functions (conv2d_resample with a
    separable filter -> bias_act) with launch counts from 0; the shear
    pipe in f32 against the same pipe with the plain versions swapped in;
@@ -58,7 +69,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 6. card    — nvidia-smi's name and power limit.
 
 Prints JSON lines; the last two lines before the final one are the
-kernels table and the card, the last line is
+kernels table (nine entries) and the card, the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -86,12 +97,17 @@ F32_ELEMENTWISE_OPS = 67e12
 A, B, C, C_R = ("bias_pixelnorm_lrelu", "pixel_norm_lrelu",
                 "conv3x3_epilogue", "conv3x3_epilogue_r")
 A_BWD = "bias_pixelnorm_lrelu_bwd"
+A_BWD2 = "bias_pixelnorm_lrelu_bwd2"
 F_, D_, E_ = "shift_1d", "upfirdn2d", "bias_act"
 SOURCES = {
     A: ("pgx_torch/ops/kernels/csrc/epilogue.cu",
         "pgx/ops/pallas/epilogue.py:97"),
     A_BWD: ("pgx_torch/ops/kernels/csrc/epilogue.cu",
             "pgx/ops/pallas/epilogue.py:115-137 (transposed tangent rule)"),
+    # pgx differentiates the tangent rule itself (plain jnp)
+    A_BWD2: ("pgx_torch/ops/kernels/csrc/epilogue.cu",
+             "pgx/ops/pallas/epilogue.py:80-86 (second order of the "
+             "custom_jvp's tangent rule)"),
     B: ("pgx_torch/ops/kernels/csrc/epilogue.cu",
         "pgx/ops/pallas/kernels.py:266"),
     C: ("pgx_torch/ops/kernels/csrc/conv_epilogue.cu",
@@ -486,6 +502,233 @@ def gradient_phase(torch):
     return out
 
 
+def routed_g_calls(gen, step: int) -> dict:
+    """Kernel calls of one generator forward from its weights' shapes and
+    the kernels' ``supported`` rules: B on the input layer where it takes
+    the width; each padding-1 3x3 conv that no fused upsample precedes
+    goes to C where C takes (C_in, C_out); every other conv to cuDNN, its
+    epilogue to A where it pixel-normalizes and A takes C_out, else to the
+    torch ops ("torch_ops" counts those, and a refused input layer)."""
+    import torch
+    from pgx_torch.ops.kernels import conv_epilogue, epilogue
+    cfg = gen.cfg
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta", dtype=cfg.compute_dtype)
+    b_ok = epilogue.supported(meta(1, 4, 4, cfg.channels[0]))
+    counts = {A: 0, B: int(b_ok), C: 0, "torch_ops": int(not b_ok)}
+    for k in range(cfg.out_stage(step) + 1):
+        p = gen.blocks[str(4 * 2 ** k)]
+        pn = cfg.pixel_norm or (k == 0 and cfg.arch == "proper")
+        for i, conv in enumerate([p.conv1] + ([p.conv2] if hasattr(
+                p, "conv2") else [])):
+            cin, cout = conv.w.shape[2], conv.w.shape[3]
+            up_fused = (i == 0 and k > 0 and cfg.fuse_up_conv_min_size
+                        and 4 * 2 ** (k - 1) >= cfg.fuse_up_conv_min_size)
+            if not up_fused and conv_epilogue.supported(
+                    meta(1, 4, 4, cin), conv.w):
+                counts[C] += 1
+            elif pn and epilogue.supported(meta(1, 4, 4, cout)):
+                counts[A] += 1
+            else:
+                counts["torch_ops"] += 1
+    return counts
+
+
+def routing_phase(torch):
+    """One bf16 forward of legacy_generator(channel=16) at 256px, batch 8:
+    its widths end in 8, 4, 4, which kernels A, B and C do not take.
+    Launch counts from 0: what the weights' shapes and the kernels' rules
+    imply (C where it takes the widths, A where only its width fits, the
+    torch ops and cuDNN elsewhere); the output finite.  Held against the
+    forward through the plain versions in f32, to 1e-3 of the largest
+    output; in bf16 the mean error, to 2e-2 of it (a pixel norm over 4
+    channels in bf16 turns one rounding of a small pixel into a different
+    pixel, so single outputs differ by up to O(1))."""
+    from pgx_torch.models import zoo
+    from pgx_torch.models.generator import Generator, init_generator
+    from pgx_torch.ops import kernels as K
+    cfg = zoo.legacy_generator(z_dim=128, channel=16, dtype="bfloat16")
+    step = cfg.max_step
+    gen = Generator.from_jax_params(cfg, init_generator(cfg, seed=0),
+                                    DEVICE)
+    z = torch.randn(8, cfg.z_dim, generator=torch.Generator(
+        device=DEVICE).manual_seed(31), device=DEVICE)
+    routed = routed_g_calls(gen, step)
+    want_counts = {k: routed[k] for k in (A, B, C)}
+    require(want_counts[C] > 0 and routed["torch_ops"] > 0,
+            f"legacy_generator(channel=16) routes {routed}")
+    # ---- the routed path: counts from 0 to what it launched ----
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        got = gen(z, step=step)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    # -------------------------------------------------------------
+    require({k: launches[k] for k in want_counts} == want_counts
+            and sum(launches.values()) == sum(want_counts.values()),
+            f"legacy_generator(channel=16) launched {launches}, expected "
+            f"{want_counts}")
+    res = cfg.resolution(step)
+    got = got.float()
+    require(got.shape == (8, res, res, 3)
+            and bool(torch.isfinite(got).all()),
+            f"legacy_generator output {got.shape}")
+    with plain_versions(), torch.inference_mode():
+        want = gen(z, step=step).float()
+    err = (got - want).abs().mean().item()
+    tol = 2e-2 * want.abs().max().item()
+    require(err <= tol, f"legacy_generator bf16 vs plain versions: mean "
+                        f"abs err {err} > {tol}")
+    gen32 = Generator.from_jax_params(dataclasses.replace(
+        cfg, dtype="float32"), init_generator(cfg, seed=0), DEVICE)
+    with torch.inference_mode():
+        got32 = gen32(z, step=step)
+        with plain_versions():
+            want32 = gen32(z, step=step)
+    err32 = (got32 - want32).abs().max().item()
+    tol32 = 1e-3 * want32.abs().max().item()
+    require(err32 <= tol32, f"legacy_generator f32 vs plain versions: "
+                            f"{err32} > {tol32}")
+    # the flagship's counts from the same rule
+    fl = zoo.conditional_correct_generator(z_dim=512, num_classes=10,
+                                           channel=512, max_step=6,
+                                           dtype="bfloat16")
+    with torch.device("meta"):
+        fl_routed = routed_g_calls(Generator(fl), 6)
+    require(fl_routed == {**PER_FORWARD, "torch_ops": 0},
+            f"the routing rule gives the flagship {fl_routed}")
+    return {"config": "legacy_generator(z_dim=128, channel=16), bf16, "
+                      f"step {step} ({res}px), batch 8",
+            "widths": list(cfg.channels), "launches": launches,
+            "expected": routed, "bf16_mean_abs_err_vs_plain": err,
+            "bf16_tol": tol, "f32_max_abs_err_vs_plain": err32,
+            "f32_tol": tol32}
+
+
+def misaligned_phase(torch):
+    """One input per kernel whose data pointer is one element past a
+    16-byte boundary (a contiguous view into a larger buffer): each
+    wrapper copies it and launches; each result against the plain
+    version, bf16, two bf16 steps at the largest output."""
+    import math
+    from pgx_torch.ops import bias_act, kernels as K
+    from pgx_torch.ops.kernels import epilogue
+    rng = torch.Generator(device=DEVICE).manual_seed(37)
+    dt = torch.bfloat16
+
+    def misaligned(*shape):
+        flat = torch.randn(math.prod(shape) + 1, generator=rng,
+                           device=DEVICE).to(dt)
+        view = flat[1:].view(shape)
+        require(view.is_contiguous() and view.data_ptr() % 16 != 0,
+                "misaligned view")
+        return view
+    y, g, u = (misaligned(TRAIN_BATCH, 16, 16, 256) for _ in range(3))
+    x = misaligned(TRAIN_BATCH, 16, 16, 128)
+    img = misaligned(TRAIN_BATCH, 3, 576, 268)
+    b = torch.randn(256, generator=rng, device=DEVICE) * 0.1
+    w = torch.randn(3, 3, 128, 256, generator=rng, device=DEVICE) * (
+        2.0 / (9 * 128)) ** 0.5
+    shift = torch.linspace(-100.0, 100.0, 268, device=DEVICE).expand(
+        TRAIN_BATCH, 268)
+    taps = [1.0 / 12] * 12
+    cases = {
+        A: (lambda: K.bias_pixelnorm_lrelu(y, b),
+            lambda: K.bias_pixelnorm_lrelu_ref(y, b)),
+        B: (lambda: K.pixel_norm_lrelu(y), lambda: K.pixel_norm_lrelu_ref(y)),
+        C: (lambda: K.conv3x3_epilogue(x, w, b),
+            lambda: K.conv3x3_epilogue_ref(x, w, b)),
+        C_R: (lambda: K.conv3x3_epilogue_with_r(x, w, b)[0],
+              lambda: K.conv3x3_epilogue_ref(x, w, b)),
+        A_BWD: (lambda: epilogue._launch_backward(y, b, g, 0.2, 1e-8)[0],
+                lambda: epilogue.bias_pixelnorm_lrelu_backward_ref(
+                    y, b, g)[0]),
+        A_BWD2: (lambda: epilogue._launch_second_order(
+                     y, b, g, u, None, 0.2, 1e-8, (True, True, True))[0],
+                 lambda: epilogue.second_order_ref(y, b, g, u, None)[0]),
+        F_: (lambda: K.shift_1d(img, shift, 2),
+             lambda: K.shift_1d_ref(img, shift, 2)),
+        D_: (lambda: K.upfirdn2d_separable(x, taps, 2, 1, (6, 5, 6, 5)),
+             lambda: K.upfirdn2d_ref(x, taps, 2, 1, (6, 5, 6, 5))),
+        E_: (lambda: bias_act(y, b, act="lrelu"),
+             lambda: K.bias_act_ref(y, b, -1, "lrelu")),
+    }
+    out = {}
+    for name, (kern, plain) in cases.items():
+        before = K.launch_counts()[name]
+        with torch.inference_mode():
+            got, want = kern(), plain()
+        torch.cuda.synchronize()
+        require(K.launch_counts()[name] == before + 1,
+                f"{name}: a misaligned input did not launch the kernel")
+        err = (got.float() - want.float()).abs().max().item()
+        tol = bf16_tol(want.float().abs().max().item())
+        require(got.shape == want.shape and err <= tol,
+                f"{name}: misaligned input, max abs err {err} > {tol}")
+        out[name] = {"max_abs_err": err, "tol": tol}
+    return out
+
+
+def launch_floor_phase(torch, b_device_ms: float) -> dict:
+    """An empty kernel launched through the same ctypes entry and the same
+    CUDA-graph harness that times kernel B on the device (20 launches in
+    one graph, replayed): the launch floor under B's time."""
+    from pgx_torch.ops.kernels import build
+    lib = build.load_library()
+
+    def noop():
+        build.check(lib.pgx_noop(build.stream_ptr()), "noop")
+    device_ms = graph_ms(torch, noop)
+    return {"empty_kernel_device_ms": device_ms,
+            "empty_kernel_back_to_back_ms": cuda_ms(torch, noop, reps=10),
+            "kernel_b_device_ms": b_device_ms,
+            "kernel_b_over_floor_ms": b_device_ms - device_ms}
+
+
+def crop_copy_phase(torch) -> dict:
+    """The copies kernel F no longer makes in the 128px warp, bf16, batch
+    32.  Before, shift_1d made each input contiguous first: the x-shear's,
+    the einsum's permuted [32, 576, 3, 896] output seen as [32, 3, 576,
+    896], and the y-shear's, the column crop ``v[..., 314:582]`` of the
+    x-shear's output.  Now the kernel reads both in place.  Device times
+    (CUDA graph): the copy, the kernel on the copy, the kernel on the
+    view."""
+    from pgx_torch.ops import kernels as K
+    rng = torch.Generator(device=DEVICE).manual_seed(41)
+    gamma = torch.rand(TRAIN_BATCH, 1, generator=rng, device=DEVICE) * 2 - 1
+    views = {
+        "x_shear_input": (torch.randn(
+            TRAIN_BATCH, 576, 3, 896, generator=rng, device=DEVICE).to(
+            torch.bfloat16).permute(0, 2, 1, 3), 3, 576),
+        "y_shear_crop": (torch.randn(
+            TRAIN_BATCH, 3, 576, 896, generator=rng, device=DEVICE).to(
+            torch.bfloat16)[..., 314:314 + 268], 2, 268)}
+    out = {"dtype": "bfloat16"}
+    for name, (view, axis, lines) in views.items():
+        shift = gamma * (torch.arange(lines, device=DEVICE)
+                         - (lines / 2 - 0.5))
+        copied = view.contiguous()
+        with torch.inference_mode():
+            got = K.shift_1d(view, shift, axis)
+            want = K.shift_1d(copied, shift, axis)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"{name}: F differs on the view")
+            copy_ms = graph_ms(torch, view.contiguous)
+            on_copy_ms = graph_ms(torch, lambda: K.shift_1d(copied, shift,
+                                                            axis))
+            on_view_ms = graph_ms(torch, lambda: K.shift_1d(view, shift,
+                                                            axis))
+        out[name] = {
+            "shape": list(view.shape), "strides": list(view.stride()),
+            "copy_device_ms": copy_ms,
+            "copy_bound_ms": 2 * view.numel() * 2 / HBM_BYTES_PER_S * 1e3,
+            "kernel_on_copy_device_ms": on_copy_ms,
+            "before_copy_plus_kernel_device_ms": copy_ms + on_copy_ms,
+            "after_kernel_on_view_device_ms": on_view_ms}
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving
 # ---------------------------------------------------------------------------
@@ -580,12 +823,13 @@ def calls_per_iteration(gcfg, dcfg, step: int, warp=None) -> dict:
     the penalty's outer pass, which differentiates the inner backward and
     so runs A's backward again for every A of the x_hat forward but the
     last, whose output reaches the score through linear layers only
-    (d_convs - 1)."""
+    (d_convs - 1).  That outer pass runs A's second derivative once for
+    every A of the x_hat forward (d_convs)."""
     g = g_calls_per_forward(gcfg, step)
     d_convs = sum(2 if (k == 0 or dcfg.block_type == "double") else 1
                   for k in range(dcfg.entry_stage(step) + 1))
     return {A: 4 * d_convs + 2 * g[A],
-            A_BWD: 4 * d_convs + g[A] + d_convs - 1,
+            A_BWD: 4 * d_convs + g[A] + d_convs - 1, A_BWD2: d_convs,
             B: 2 * g[B], C: g[C], C_R: g[C],
             F_: 8 if warp == "shear" else 0,
             D_: 8 if warp == "gather" else 0, E_: 0}
@@ -788,8 +1032,9 @@ def new_train_state(gcfg, dcfg, dtype: str):
 
 def record_train_calls(torch, gcfg, dcfg):
     """The kernel calls of one bf16 training iteration at batch 32, and
-    the (shape, slope) of every call of kernel A's second derivative (the
-    gradient penalty's outer pass through A's backward)."""
+    every call of kernel A's second derivative (the gradient penalty's
+    outer pass through A's backward) as (shape, slope, ddy given, ddb
+    given, the outputs it needs)."""
     from pgx_torch.ops.kernels import epilogue
     from pgx_torch.train import make_train_step
     g, d, tc, state = new_train_state(gcfg, dcfg, "bfloat16")
@@ -799,7 +1044,9 @@ def record_train_calls(torch, gcfg, dcfg):
     inner = epilogue._BiasPixelNormLreluGrad.backward
 
     def rec_second(ctx, ddy, ddb):
-        second.append((tuple(ctx.saved_tensors[0].shape), ctx.slope))
+        second.append((tuple(ctx.saved_tensors[0].shape), ctx.slope,
+                       ddy is not None, ddb is not None,
+                       tuple(ctx.needs_input_grad[:3])))
         return inner(ctx, ddy, ddb)
 
     with mock.patch.object(epilogue._BiasPixelNormLreluGrad, "backward",
@@ -807,63 +1054,143 @@ def record_train_calls(torch, gcfg, dcfg):
         calls = record_calls(
             torch, lambda: step(state, real, labels, 1.0, z=z, eps=eps))
     want = calls_per_iteration(g, d, TRAIN_STEP)
-    got = {k: count_calls(calls).get(k, 0) for k in want}
+    got = {k: count_calls(calls).get(k, 0) for k in want if k != A_BWD2}
+    got[A_BWD2] = len(second)
     require(got == want, f"kernel calls per iteration {got} != {want}")
-    d_convs = (want[A] - 2 * g_calls_per_forward(g, TRAIN_STEP)[A]) // 4
-    require(len(second) == d_convs, f"{len(second)} second-order calls of "
-                                    f"{A}, expected {d_convs}")
     return calls, second
 
 
 def second_order_phase(torch, second, reps: int = 5):
     """Kernel A's second derivative at each recorded call of one bf16
-    iteration: the closed form (the Grad Function's backward, as the
-    penalty's outer pass runs it) against autograd's backward through the
-    plain first-order ops (what the port ran before the backward became a
-    kernel), timed over the same inputs; the two agree to two bf16 steps
-    at the largest entry (both work in f32 and round once)."""
+    iteration, with the call's cotangents and needed outputs: the kernel
+    (``_BiasPixelNormLreluGrad2``'s forward) against its plain closed form
+    (``second_order_ref``) in bf16 and f32 (f32 to 1e-5 of each output's
+    largest entry; bf16 two bf16 steps, d_b an f32 sum to 1e-5 relative);
+    the Function as the penalty's outer pass runs it (autograd through A's
+    backward Function) against autograd through the plain first-order ops,
+    two bf16 steps; times: the kernel back to back and on the device (CUDA
+    graph), the plain closed form, and autograd through the plain backward
+    (what the port ran before the backward became a kernel)."""
+    import math
     from pgx_torch.ops.kernels import epilogue
     rng = torch.Generator(device=DEVICE).manual_seed(29)
     uniq = {}
     for c in second:
         uniq[c] = uniq.get(c, 0) + 1
-    out = {"calls": len(second), "closed_form_ms": 0.0, "autograd_ms": 0.0,
-           "max_abs_err": 0.0, "per_shape": []}
-    for (shape, slope), mult in uniq.items():
-        def rand(*sh, scale=1.0):
-            return (torch.randn(*sh, generator=rng, device=DEVICE)
-                    * scale).to(torch.bfloat16)
-        y, gy, u = rand(*shape), rand(*shape), rand(*shape)
-        b = torch.randn(shape[-1], generator=rng, device=DEVICE) * 0.1
-        ty, tg = (t.clone().requires_grad_(True) for t in (y, gy))
-        closed_dy, _ = epilogue._BiasPixelNormLreluGrad.apply(ty, b, tg,
-                                                              slope, 1e-8)
-        a = (ty + b.to(ty.dtype)).float()
-        plain_dy = epilogue.rownorm_lrelu_backward(
-            a, tg.float(), slope, 1e-8).to(ty.dtype)
+    out = {"calls": len(second), "ms": 0.0, "device_ms": 0.0,
+           "plain_ms": 0.0, "autograd_ms": 0.0, "t_bytes": 0.0, "t_ops": 0.0,
+           "max_abs_err": 0.0, "tol": 0.0, "f32": {"ms": 0.0, "plain_ms": 0.0,
+                                                   "t_bytes": 0.0,
+                                                   "max_rel_err": 0.0},
+           "per_shape": []}
+    for (shape, slope, has_ddy, has_ddb, needs), mult in uniq.items():
+        row = {"shape": list(shape), "calls": mult, "ddy": has_ddy,
+               "ddb": has_ddb, "needs": list(needs)}
+        c = shape[-1]
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            es = torch.finfo(dt).bits // 8
 
-        def closed():
-            return torch.autograd.grad(closed_dy, (ty, tg), u,
-                                       retain_graph=True)
+            def rand(*sh, scale=1.0, dtype=dt):
+                return (torch.randn(*sh, generator=rng, device=DEVICE)
+                        * scale).to(dtype)
+            y, gy = rand(*shape), rand(*shape)
+            b = rand(c, scale=0.1, dtype=torch.float32)
+            ddy = rand(*shape) if has_ddy else None
+            ddb = rand(c, dtype=torch.float32) if has_ddb else None
 
-        def plain():
-            return torch.autograd.grad(plain_dy, (ty, tg), u,
-                                       retain_graph=True)
+            def kern():
+                return epilogue._BiasPixelNormLreluGrad2.apply(
+                    y, b, gy, ddy, ddb, slope, 1e-8, needs)
 
-        err = max((x.float() - w.float()).abs().max().item()
-                  for x, w in zip(closed(), plain()))
-        tol = max(bf16_tol(w.float().abs().max().item()) for w in plain())
-        require(err <= tol, f"{A} second derivative {shape}: closed form "
-                            f"vs autograd {err} > {tol}")
-        ms, plain_ms = cuda_ms(torch, closed, reps), cuda_ms(torch, plain,
-                                                            reps)
-        out["closed_form_ms"] += mult * ms
-        out["autograd_ms"] += mult * plain_ms
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        out["per_shape"].append({"shape": list(shape), "calls": mult,
-                                 "closed_form_ms": ms, "autograd_ms": plain_ms,
-                                 "max_abs_err": err, "tol": tol})
-        del closed_dy, plain_dy, a, ty, tg
+            def plain():
+                return epilogue.second_order_ref(y, b, gy, ddy, ddb, slope,
+                                                 1e-8, needs)
+            with torch.inference_mode():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                worst, worst_rel, tol_at = 0.0, 0.0, 0.0
+                for name, x, w in zip(("d_y", "d_b", "d_g"), got, want):
+                    require((x is None) == (w is None), f"{A_BWD2} {name}")
+                    if w is None:
+                        continue
+                    scale = w.float().abs().max().item()
+                    err = (x.float() - w.float()).abs().max().item()
+                    tol = (bf16_tol(scale) if dt_name == "bfloat16"
+                           and name != "d_b" else 1e-5 * scale)
+                    require(x.shape == w.shape and x.dtype == w.dtype
+                            and math.isfinite(err) and err <= tol,
+                            f"{A_BWD2} {shape} {dt_name} {name}: max abs err "
+                            f"{err} > tol {tol}")
+                    worst_rel = max(worst_rel, err / max(scale, 1e-30))
+                    if name != "d_b" and err >= worst:
+                        worst, tol_at = err, tol
+                del got, want
+                ms = cuda_ms(torch, kern, reps)
+                device_ms = graph_ms(torch, kern) if dt_name == "bfloat16" \
+                    else None
+                plain_ms = cuda_ms(torch, plain, reps)
+            # each tensor read once (y, g, ddy) or written once (d_y, d_g),
+            # the bias, ddb (f32) and d_b (f32) C-wide
+            n_full = 2 + has_ddy + needs[0] + needs[2]
+            nbytes = (n_full * math.prod(shape) * es + c * es
+                      + c * 4 * (has_ddb + needs[1]))
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 30.0 * math.prod(shape) / F32_ELEMENTWISE_OPS * 1e3
+            if dt_name == "float32":
+                f = out["f32"]
+                f["ms"] += mult * ms
+                f["plain_ms"] += mult * plain_ms
+                f["t_bytes"] += mult * max(t_bytes, t_ops)
+                f["max_rel_err"] = max(f["max_rel_err"], worst_rel)
+                row["f32"] = {"ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": max(t_bytes, t_ops),
+                              "max_rel_err": worst_rel}
+                continue
+            # the Function where the penalty's outer pass runs it, against
+            # autograd through the plain first-order ops (the old path)
+            ty, tg = (t.clone().requires_grad_(True) for t in (y, gy))
+            closed_dy, _ = epilogue._BiasPixelNormLreluGrad.apply(
+                ty, b, tg, slope, 1e-8)
+            a = (ty + b.to(ty.dtype)).float()
+            plain_dy = epilogue.rownorm_lrelu_backward(
+                a, tg.float(), slope, 1e-8).to(ty.dtype)
+            u = ddy if has_ddy else rand(*shape)
+
+            def closed():
+                return torch.autograd.grad(closed_dy, (ty, tg), u,
+                                           retain_graph=True)
+
+            def autograd_plain():
+                return torch.autograd.grad(plain_dy, (ty, tg), u,
+                                           retain_graph=True)
+            err = max((x.float() - w.float()).abs().max().item()
+                      for x, w in zip(closed(), autograd_plain()))
+            tol = max(bf16_tol(w.float().abs().max().item())
+                      for w in autograd_plain())
+            require(err <= tol, f"{A} second derivative {shape}: kernel "
+                                f"vs autograd through the plain backward "
+                                f"{err} > {tol}")
+            autograd_ms = cuda_ms(torch, autograd_plain, reps)
+            del closed_dy, plain_dy, a, ty, tg
+            out["ms"] += mult * ms
+            out["device_ms"] += mult * device_ms
+            out["plain_ms"] += mult * plain_ms
+            out["autograd_ms"] += mult * autograd_ms
+            out["t_bytes"] += mult * t_bytes
+            out["t_ops"] += mult * t_ops
+            if worst >= out["max_abs_err"]:
+                out["max_abs_err"], out["tol"] = worst, tol_at
+            row.update(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                       autograd_through_plain_backward_ms=autograd_ms,
+                       bound_ms=max(t_bytes, t_ops),
+                       bound_by="operations" if t_ops > t_bytes else "bytes",
+                       max_abs_err=worst, tol=tol_at,
+                       kernel_vs_autograd_err=err)
+        out["per_shape"].append(row)
+    out["bound_ms"] = max(out["t_bytes"], out["t_ops"])
+    out["bound_by"] = ("operations" if out["t_ops"] > out["t_bytes"]
+                       else "bytes")
     return out
 
 
@@ -996,11 +1323,9 @@ def profile_iteration(torch, run, reps: int = 2):
     """Device time of one bf16 training iteration by part (torch.profiler,
     kernels classified by name).  Kernel A's backward (first order: every
     call of the Function's backward, also the penalty's inner one and the
-    repeat in its outer pass) and its closed-form second derivative (the
-    penalty's outer pass through the inner backward) are read from
-    labelled ranges around them.  The backward kernel has its own part;
-    the second derivative's plain ops are part of "elementwise and
-    reductions"."""
+    repeat in its outer pass) and its second derivative (the penalty's
+    outer pass through the inner backward) are read from labelled ranges
+    around them.  Both kernels have their own parts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from pgx_torch.ops.kernels import epilogue
@@ -1030,6 +1355,7 @@ def profile_iteration(torch, run, reps: int = 2):
             torch.cuda.synchronize()
     parts = {"kernel C (plain + emit-r)": ("conv3x3_wgmma_kernel",
                                            "conv3x3_fma_kernel"),
+             "kernel A second order": ("rownorm_bwd2",),
              "kernel A backward": ("rownorm_bwd",),
              "kernels A+B": ("rownorm_kernel",),
              "cuDNN gradient convs (dgrad, wgrad)": ("dgrad", "wgrad"),
@@ -1059,9 +1385,10 @@ def profile_iteration(torch, run, reps: int = 2):
                       if ev.device_type == DeviceType.CUDA
                       and ev.name == name) / 1e3 / reps for name in ranges}
     require(total > 0 and by_part["kernel C (plain + emit-r)"] > 0
-            and by_part["kernel A backward"] > 0,
+            and by_part["kernel A backward"] > 0
+            and by_part["kernel A second order"] > 0,
             "profiler saw no device time for the iteration, kernel C or "
-            "kernel A's backward")
+            "kernel A's backward or second derivative")
     by_name = {}
     for ev in device_events:
         by_name[ev.name] = (by_name.get(ev.name, 0.0)
@@ -1079,8 +1406,18 @@ def profile_iteration(torch, run, reps: int = 2):
                 for k in ("rownorm_kernel", "conv3x3_wgmma_kernel")},
             "note": "the two kernel_a ranges span the device work launched "
                     "inside them: the first order is mostly 'kernel A "
-                    "backward', the second order 'elementwise and "
-                    "reductions'"}
+                    "backward', the second order 'kernel A second order' "
+                    "and the casts around it"}
+
+
+@contextlib.contextmanager
+def plain_second_order():
+    """A's second derivative through its plain closed form (a comparison on
+    the card; the port itself has no such switch)."""
+    from pgx_torch.ops.kernels import epilogue
+    with mock.patch.object(epilogue, "_launch_second_order",
+                           epilogue.second_order_ref):
+        yield
 
 
 def train_phase(torch, gcfg, dcfg):
@@ -1140,8 +1477,8 @@ def train_phase(torch, gcfg, dcfg):
     torch.cuda.synchronize()
     d_alone = K.launch_counts()
     d_convs = (want[A] - 2 * PER_FORWARD[A]) // 4
-    require(d_alone == {A: d_convs, A_BWD: 0, B: 0, C: 0, C_R: 0, F_: 0,
-                        D_: 0, E_: 0},
+    require(d_alone == {A: d_convs, A_BWD: 0, A_BWD2: 0, B: 0, C: 0, C_R: 0,
+                        F_: 0, D_: 0, E_: 0},
             f"a discriminator forward launched {d_alone}")
     require(scores.shape == (TRAIN_BATCH, 1), f"D output {scores.shape}")
 
@@ -1159,6 +1496,12 @@ def train_phase(torch, gcfg, dcfg):
     host_ms = (time.perf_counter() - t0) / 3 * 1e3
     with plain_versions():
         plain_ms = cuda_ms(torch, run, reps=3, warmup=1)
+    # the same iteration with A's second derivative in plain ops, as the
+    # port ran it before it became a kernel
+    with plain_second_order():
+        torch.cuda.reset_peak_memory_stats()
+        plain2_ms = cuda_ms(torch, run, reps=5, warmup=1)
+        plain2_peak = torch.cuda.max_memory_allocated()
     prof = profile_iteration(torch, run)
     return {"resolution": res, "batch": TRAIN_BATCH, "dtype": "bfloat16",
             "iterations_counted": len(plan), "launches": launches,
@@ -1169,7 +1512,10 @@ def train_phase(torch, gcfg, dcfg):
             "plain_path_device_ms_per_iteration": plain_ms,
             "host_wall_ms_per_iteration": host_ms,
             "img_per_s": TRAIN_BATCH / ms * 1e3,
-            "peak_memory_bytes": peak, "profile": prof}
+            "peak_memory_bytes": peak,
+            "plain_second_order": {"device_ms_per_iteration": plain2_ms,
+                                   "peak_memory_bytes": plain2_peak},
+            "profile": prof}
 
 
 # ---------------------------------------------------------------------------
@@ -1183,7 +1529,9 @@ OPS_SHAPE = (TRAIN_BATCH, 128, 128, 256)     # a flagship 128px activation
 def record_launches(torch, run):
     """Every launch of kernels F, D and E that ``run()`` makes, forward and
     backward alike, as (kernel, input shape, arguments): recorded where the
-    wrappers launch (one kernel launch per call)."""
+    wrappers launch (one kernel launch per call).  F's input may be a view
+    (the x-shear reads the einsum's permuted output, the y-shear the column
+    crop): its strides, offset and storage size are recorded too."""
     from pgx_torch.ops.kernels import bias_act, shear, upfirdn2d
     calls = []
 
@@ -1192,15 +1540,22 @@ def record_launches(torch, run):
 
         def wrapped(x, *args):
             calls.append((name, tuple(x.shape),
-                          json.dumps(describe(*args), sort_keys=True)))
+                          json.dumps(describe(x, *args), sort_keys=True)))
             return inner(x, *args)
         return mock.patch.object(mod, "_launch", wrapped)
 
-    with rec(shear, F_, lambda shift, axis: {"axis": axis}), \
-            rec(upfirdn2d, D_, lambda taps, up, down, pads, flip: {
+    def describe_f(x, shift, axis):
+        if x.is_contiguous():
+            return {"axis": axis}
+        return {"axis": axis, "strides": list(x.stride()),
+                "offset": x.storage_offset(),
+                "storage": x.untyped_storage().nbytes() // x.element_size()}
+
+    with rec(shear, F_, describe_f), \
+            rec(upfirdn2d, D_, lambda x, taps, up, down, pads, flip: {
                 "taps": list(taps), "up": up, "down": down,
                 "pads": list(pads), "flip_filter": flip}), \
-            rec(bias_act, E_, lambda b, spec, alpha, gain, clamp: {
+            rec(bias_act, E_, lambda x, b, spec, alpha, gain, clamp: {
                 "act": next(k for k, v in bias_act.activation_funcs.items()
                             if v is spec),
                 "alpha": alpha, "gain": gain, "clamp": clamp,
@@ -1247,7 +1602,11 @@ def fde_case(torch, name, shape, opts, dt, rng):
     numel = x.numel()
     if name == F_:
         axis = opts["axis"]
-        b, _, r, n = shape
+        b, c, r, n = shape
+        if "strides" in opts:
+            # the recorded view, on storage of the recorded size
+            x = torch.randn(opts["storage"], generator=rng, device=DEVICE).to(
+                dt).as_strided(shape, opts["strides"], opts["offset"])
         lines, length = (r, n) if axis == 3 else (n, r)
         # as the warp makes them: one slope per sample, |slope| <= 1, times
         # the centred line coordinate
@@ -1346,13 +1705,14 @@ def fde_phase(torch, calls, per: str, reps: int = 5, sums=None):
                     del lib
                 del got, want
                 ms = cuda_ms(torch, kern, reps)
-                device_ms = graph_ms(torch, kern) if name == D_ else None
+                device_ms = (graph_ms(torch, kern) if name in (D_, F_)
+                             else None)
                 plain_ms = cuda_ms(torch, plain, reps)
                 if library is not None:
                     lib_ms = cuda_ms(torch, library, reps)
             t_ops = ops / F32_ELEMENTWISE_OPS * 1e3
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            small = {k: v for k, v in opts.items() if k != "taps"}
+            small = {k: v for k, v in opts.items() if k not in ("taps", "storage")}
             emit({"phase": "kernel_shape", "kernel": name,
                   "shape": list(shape), "dtype": dt_name, "calls": mult,
                   "per": per, **small, "max_abs_err": err, "tol": tol,
@@ -1360,21 +1720,25 @@ def fde_phase(torch, calls, per: str, reps: int = 5, sums=None):
                   "bound_ms": max(t_ops, t_bytes),
                   "bound_by": "operations" if t_ops > t_bytes else "bytes",
                   "library_ms": lib_ms})
-            agg = sums.setdefault((name, dt_name), {
-                "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "t_ops": 0.0,
-                "t_bytes": 0.0, "err": 0.0, "tol": 0.0, "lib_ms": 0.0,
-                "lib_calls": 0, "calls": 0})
-            agg["ms"] += mult * ms
-            agg["device_ms"] += mult * (device_ms or 0.0)
-            agg["plain_ms"] += mult * plain_ms
-            agg["t_ops"] += mult * t_ops
-            agg["t_bytes"] += mult * t_bytes
-            agg["calls"] += mult
-            if lib_ms is not None:
-                agg["lib_ms"] += mult * lib_ms
-                agg["lib_calls"] += mult
-            if err >= agg["err"]:
-                agg["err"], agg["tol"] = err, tol
+            # kernel F is also summed per axis
+            keys = [name] + ([f"{name}_axis{opts['axis']}"] if name == F_
+                             else [])
+            for key in keys:
+                agg = sums.setdefault((key, dt_name), {
+                    "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                    "t_ops": 0.0, "t_bytes": 0.0, "err": 0.0, "tol": 0.0,
+                    "lib_ms": 0.0, "lib_calls": 0, "calls": 0})
+                agg["ms"] += mult * ms
+                agg["device_ms"] += mult * (device_ms or 0.0)
+                agg["plain_ms"] += mult * plain_ms
+                agg["t_ops"] += mult * t_ops
+                agg["t_bytes"] += mult * t_bytes
+                agg["calls"] += mult
+                if lib_ms is not None:
+                    agg["lib_ms"] += mult * lib_ms
+                    agg["lib_calls"] += mult
+                if err >= agg["err"]:
+                    agg["err"], agg["tol"] = err, tol
     return sums
 
 
@@ -1589,9 +1953,10 @@ def profile_ada_iteration(torch, run, reps: int = 2):
             for _ in range(reps):
                 run()
             torch.cuda.synchronize()
-    parts = {"kernel F": ("shift_kernel",),
+    parts = {"kernel F": ("shear_cols", "shear_rows"),
              "kernel C (plain + emit-r)": ("conv3x3_wgmma_kernel",
                                            "conv3x3_fma_kernel"),
+             "kernel A second order": ("rownorm_bwd2",),
              "kernel A backward": ("rownorm_bwd",),
              "kernels A+B": ("rownorm_kernel",),
              "cuDNN gradient convs (dgrad, wgrad)": ("dgrad", "wgrad"),
@@ -1731,6 +2096,8 @@ def ada_train_phase(torch, gcfg, dcfg):
     host_ms = (time.perf_counter() - t0) / 3 * 1e3
     with plain_versions():
         plain_ms = cuda_ms(torch, run, reps=3, warmup=1)
+    with plain_second_order():
+        plain2_ms = cuda_ms(torch, run, reps=5, warmup=1)
 
     # the pipe alone at the iteration's shapes, forward and with backward
     fake = torch.randn(TRAIN_BATCH, 128, 128, 3, device=DEVICE).clamp_(
@@ -1761,6 +2128,7 @@ def ada_train_phase(torch, gcfg, dcfg):
             "host_wall_ms_per_iteration": host_ms,
             "img_per_s": TRAIN_BATCH / ms * 1e3,
             "peak_memory_bytes": peak,
+            "plain_second_order_device_ms_per_iteration": plain2_ms,
             "pipe_alone_b32_bf16": {"forward_ms": pipe_fwd_ms,
                                     "forward_backward_ms": pipe_both_ms},
             "profile": prof}
@@ -1790,9 +2158,14 @@ def main() -> int:
     train_calls, second = record_train_calls(torch, cfg, dcfg)
     per_kernel_train = kernel_phase(
         torch, train_calls, "bf16 training iteration, batch 32", reps=5)
+    second_order = second_order_phase(torch, second)
     emit({"phase": "kernel_a_second_order", "per": "one bf16 training "
-          "iteration, batch 32", **second_order_phase(torch, second)})
+          "iteration, batch 32", **second_order})
     emit({"phase": "kernel_gradients", **gradient_phase(torch)})
+    emit({"phase": "misaligned_inputs", **misaligned_phase(torch)})
+    floor = launch_floor_phase(torch, per_kernel[(B, "bfloat16")]["device_ms"])
+    emit({"phase": "launch_floor", **floor})
+    emit({"phase": "routing", **routing_phase(torch)})
 
     # 3. serving through the entry points a user calls
     fwd = forward_check(torch, cfg, params)
@@ -1843,6 +2216,7 @@ def main() -> int:
         for act, spec in activation_funcs.items() for clamp in (-1.0, 1.5)],
         "every activation, with and without clamp", reps=3)
     emit({"phase": "kernel_gradients_fde", **fde_gradient_phase(torch)})
+    emit({"phase": "crop_copy", **crop_copy_phase(torch)})
     emit({"phase": "shear_pipe_f32_check",
           **shear_pipe_f32_check(torch, cfg.resolution(TRAIN_STEP))})
     ada = ada_train_phase(torch, cfg, dcfg)
@@ -1901,7 +2275,30 @@ def main() -> int:
             entry["device_ms"] = head[(name, "bfloat16")]["device_ms"]
             entry["train"]["device_ms"] = per_kernel_train[
                 (name, "bfloat16")]["device_ms"]
+            entry["launch_floor_device_ms"] = floor["empty_kernel_device_ms"]
         kernels.append(entry)
+
+    # A's second derivative: launched in the penalty's outer pass of every
+    # training iteration, timed at the iteration's recorded calls
+    source, replaces = SOURCES[A_BWD2]
+    launches = {"launches_train": trained["launches"][A_BWD2],
+                "launches_train_ada": ada["launches"][A_BWD2]}
+    require(all(v > 0 for v in launches.values()),
+            f"{A_BWD2}: not launched on its main path ({launches})")
+    so = second_order
+    kernels.append({
+        "name": A_BWD2, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": sum(launches.values()), **launches,
+        "launches_per_path_run": so["calls"], "max_abs_err": so["max_abs_err"],
+        "tol": so["tol"], "ms": so["ms"], "device_ms": so["device_ms"],
+        "plain_ms": so["plain_ms"], "bound_ms": so["bound_ms"],
+        "bound_by": so["bound_by"], "library_ms": None,
+        "autograd_through_plain_backward_ms": so["autograd_ms"],
+        "f32": {"ms": so["f32"]["ms"], "plain_ms": so["f32"]["plain_ms"],
+                "bound_ms": so["f32"]["t_bytes"],
+                "max_rel_err": so["f32"]["max_rel_err"]},
+        "per": "one bf16 training iteration at batch 32 (sum over its "
+               "calls)"})
 
     # F, D, E: launches from the counted runs of their paths (F the shear
     # ADA iterations; D the gather ADA iteration and the ops-layer block; E
@@ -1937,11 +2334,20 @@ def main() -> int:
                  # the kernel's own device time (CUDA graph): "ms" times
                  # back-to-back calls, where the host's launch time shows
                  # for the small ones
-                 **({"device_ms": agg["device_ms"]} if name == D_ else {}),
+                 **({"device_ms": agg["device_ms"]} if name in (D_, F_)
+                    else {}),
                  "f32": {k: v for k, v in
                          summed(fde[(name, "float32")]).items()
                          if k != "cudnn_conv_bias_ms"},
                  "per": per}
+        if name == F_:
+            entry["per_axis"] = {
+                f"axis{ax}": {k: v for k, v in summed(
+                    fde[(f"{F_}_axis{ax}", "bfloat16")]).items()
+                    if k != "cudnn_conv_bias_ms"}
+                | {"device_ms": fde[(f"{F_}_axis{ax}", "bfloat16")][
+                    "device_ms"]}
+                for ax in (3, 2)}
         kernels.append(entry)
 
     # 6. the card

@@ -14,7 +14,11 @@ fan_in follows the reference's quirk:
 Dispatch mirrors ``pgx``: with ``fused=True`` (the generator) every
 padding-1 3x3 conv that is not preceded by a fused upsample runs kernel C
 (conv + bias + pixel-norm + lrelu in one pass); the epilogue after
-``equal_conv2d_up2x`` runs kernel A when it pixel-normalizes.  Kernel C is
+``equal_conv2d_up2x`` runs kernel A when it pixel-normalizes.  As in pgx,
+each kernel is taken only where its ``supported`` predicate accepts the
+shape and dtype (C a multiple of 8 and at most 512, float32 or bfloat16);
+elsewhere the conv is cuDNN's and the epilogue the plain torch ops below,
+decided before any launch.  Kernel C is
 differentiable once only, so the discriminator, which sits under the
 gradient penalty's double backward, passes ``fused=False``: its convs are
 cuDNN's and their epilogues kernel A, which differentiates twice.  Each
@@ -34,6 +38,8 @@ import torch.nn as nn
 
 from pgx_torch.ops.conv2d_gradfix import conv2d
 from pgx_torch.ops.kernels import (bias_pixelnorm_lrelu, conv3x3_epilogue)
+from pgx_torch.ops.kernels import conv_epilogue as kernel_c
+from pgx_torch.ops.kernels import epilogue as kernel_a
 from pgx_torch.ops.resize import upsample2x
 
 # ---------------------------------------------------------------------------
@@ -181,21 +187,26 @@ class Embedding(nn.Module):
 def conv_epilogue(y: torch.Tensor, b: torch.Tensor, use_pixel_norm: bool,
                   slope: float = 0.2) -> torch.Tensor:
     """bias -> PixelNorm? -> LeakyReLU on a pre-bias conv output; kernel A
-    where it pixel-normalizes."""
-    if use_pixel_norm:
+    where it pixel-normalizes and takes the shape."""
+    if use_pixel_norm and kernel_a.supported(y):
         return bias_pixelnorm_lrelu(y, b, slope)
-    return leaky_relu(y + b.to(y.dtype), slope)
+    y = y + b.to(y.dtype)
+    if use_pixel_norm:
+        y = pixel_norm(y)
+    return leaky_relu(y, slope)
 
 
 def _conv_step(conv: EqualConv2d, x: torch.Tensor, padding: int,
                use_pixel_norm: bool, slope: float,
                fused: bool = True) -> torch.Tensor:
     """One conv + epilogue.  ``fused``: kernel C for a padding-1 3x3 conv
-    (where pgx's ``_maybe_fused_conv_step`` applies).  Otherwise, and for
-    every other conv, cuDNN's conv then the epilogue (kernel A), which is
-    the only form that may sit under a double backward."""
+    that it takes (where pgx's ``_maybe_fused_conv_step`` applies).
+    Otherwise, and for every other conv, cuDNN's conv then the epilogue
+    (kernel A), which is the only form that may sit under a double
+    backward."""
     kh, kw, in_ch, _ = conv.w.shape
-    if fused and padding == 1 and (kh, kw) == (3, 3):
+    if (fused and padding == 1 and (kh, kw) == (3, 3)
+            and kernel_c.supported(x, conv.w)):
         w = conv.w * math.sqrt(2.0 / (in_ch * kh * kw))
         return conv3x3_epilogue(x, w, conv.b, use_pixel_norm=use_pixel_norm,
                                 slope=slope)

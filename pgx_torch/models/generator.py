@@ -19,6 +19,8 @@ import torch.nn as nn
 from pgx_torch.core import layers as L
 from pgx_torch.models.config import GeneratorConfig
 from pgx_torch.ops.kernels import pixel_norm_lrelu
+from pgx_torch.ops.kernels.pixel_norm_lrelu import (
+    supported as pixel_norm_lrelu_supported)
 from pgx_torch.ops.resize import upsample2x
 from pgx_torch.utils import resolve_device
 
@@ -178,9 +180,13 @@ def generator_apply(gen: Generator, z: torch.Tensor,
         else:
             z = torch.cat([z, embed], dim=-1)
 
-    # stage 0: latent -> 4x4, then pixel-norm + lrelu (kernel B)
-    x = L.latent_to_4x4(gen.input.w, gen.input.b, z)
-    x = pixel_norm_lrelu(x.contiguous(), cfg.input_lrelu_slope)
+    # stage 0: latent -> 4x4, then pixel-norm + lrelu (kernel B where it
+    # takes the width)
+    x = L.latent_to_4x4(gen.input.w, gen.input.b, z).contiguous()
+    if pixel_norm_lrelu_supported(x):
+        x = pixel_norm_lrelu(x, cfg.input_lrelu_slope)
+    else:
+        x = L.leaky_relu(L.pixel_norm(x), cfg.input_lrelu_slope)
     x = _block(gen, 0, x)
 
     out_stage = cfg.out_stage(step)

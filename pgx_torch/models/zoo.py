@@ -10,6 +10,17 @@ from pgx_torch.models.config import DiscriminatorConfig, GeneratorConfig
 # legacy family (8x8 .. 256x256, no 4x4 head)
 # --------------------------------------------------------------------------
 
+def legacy_generator(z_dim: int = 128, channel: int = 128,
+                     pixel_norm: bool = True, tanh: bool = True,
+                     max_step: int = 6, **kw) -> GeneratorConfig:
+    """progan_modules.Generator."""
+    c = channel
+    return GeneratorConfig(
+        z_dim=z_dim, channels=(c, c, c, c, c // 2, c // 4, c // 4),
+        pixel_norm=pixel_norm, tanh=tanh, max_step=max_step, arch="legacy",
+        **kw)
+
+
 def legacy_discriminator(feat_dim: int = 128, max_step: int = 6,
                          **kw) -> DiscriminatorConfig:
     """progan_modules.Discriminator."""

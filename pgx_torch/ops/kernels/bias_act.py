@@ -131,11 +131,13 @@ def bias_act_ref(x: torch.Tensor, b: Optional[torch.Tensor] = None,
 
 def _launch(x: torch.Tensor, b: Optional[torch.Tensor], spec: ActivationSpec,
             alpha: float, gain: float, clamp: float) -> torch.Tensor:
+    x = build.aligned(x)
     build.check_cuda_input(NAME, x)
     c = x.shape[-1]
     bb = None
     if b is not None:
-        bb = b.to(device=x.device, dtype=x.dtype).contiguous()
+        bb = build.aligned(
+            b.to(device=x.device, dtype=x.dtype).contiguous())
     out = torch.empty_like(x)
     lib = build.load_library()
     build.check(lib.pgx_bias_act(

@@ -94,6 +94,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # (y, b, g, dy, db_partial, rows, c, dtype, slope, eps, stream)
     lib.pgx_bias_pixelnorm_lrelu_bwd.argtypes = [p, p, p, p, p, i64, i, i, f,
                                                  f, p]
+    # (y, b, g, ddy, ddb, d_y, d_g, db_partial, rows, c, dtype, slope, eps,
+    # stream); ddy, ddb, d_y, d_g and db_partial may be null
+    lib.pgx_bias_pixelnorm_lrelu_bwd2.argtypes = [p, p, p, p, p, p, p, p,
+                                                  i64, i, i, f, f, p]
     lib.pgx_bias_pixelnorm_lrelu_bwd_blocks.argtypes = [i64]
     lib.pgx_bias_pixelnorm_lrelu_bwd_blocks.restype = ctypes.c_int
     lib.pgx_conv3x3_epilogue.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f,
@@ -102,14 +106,19 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # dtype, slope, eps, stream); always pixel-normalizes
     lib.pgx_conv3x3_epilogue_r.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                            f, f, p]
-    # (img, shift, out, b, c, r, n, axis, dtype, stream)
-    lib.pgx_shift_1d.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    # (img, shift, out, b, c, r, n, sb, sc, sr, axis, dtype, unit_in,
+    # unit_out, stream)
+    lib.pgx_shift_1d.argtypes = [p, p, p, i, i, i, i, i64, i64, i64, i, i, i,
+                                 i, p]
+    lib.pgx_shift_1d_tile.argtypes = [i]
+    lib.pgx_shift_1d_tile.restype = ctypes.c_int
     # (x, out, plan, dtype, stream); plan points at upfirdn2d.py's _PlanC
     lib.pgx_upfirdn2d.argtypes = [p, p, p, i, p]
     # (x, b, out, n, c, act, alpha, gain, clamp, dtype, stream)
     lib.pgx_bias_act.argtypes = [p, p, p, i64, i, i, f, f, f, i, p]
     for fn in (lib.pgx_bias_pixelnorm_lrelu, lib.pgx_pixel_norm_lrelu,
                lib.pgx_bias_pixelnorm_lrelu_bwd,
+               lib.pgx_bias_pixelnorm_lrelu_bwd2,
                lib.pgx_conv3x3_epilogue, lib.pgx_conv3x3_epilogue_r,
                lib.pgx_shift_1d, lib.pgx_upfirdn2d, lib.pgx_bias_act):
         fn.restype = ctypes.c_int
@@ -117,6 +126,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pgx_upfirdn2d_plan_bytes.restype = ctypes.c_int
     lib.pgx_conv3x3_cout_pad.argtypes = [i]
     lib.pgx_conv3x3_cout_pad.restype = ctypes.c_int
+    lib.pgx_noop.argtypes = [p]
+    lib.pgx_noop.restype = ctypes.c_int
     lib.pgx_error_string.argtypes = [i]
     lib.pgx_error_string.restype = ctypes.c_char_p
     return lib
@@ -158,10 +169,11 @@ def check(status: int, name: str) -> None:
 # launches its kernel and nowhere else.  Kernel C counts its two entries
 # apart: "conv3x3_epilogue" is the plain launch, "conv3x3_epilogue_r" the
 # differentiated forward that also writes the pixel-norm scale r.  Kernel
-# A's backward ("bias_pixelnorm_lrelu_bwd") counts its own launches.  Kernel
-# D ("upfirdn2d") is one launch per call.
+# A's backward ("bias_pixelnorm_lrelu_bwd") and its second derivative
+# ("bias_pixelnorm_lrelu_bwd2") count their own launches.  Kernel D
+# ("upfirdn2d") is one launch per call.
 LAUNCHES = {"bias_pixelnorm_lrelu": 0, "bias_pixelnorm_lrelu_bwd": 0,
-            "pixel_norm_lrelu": 0,
+            "bias_pixelnorm_lrelu_bwd2": 0, "pixel_norm_lrelu": 0,
             "conv3x3_epilogue": 0, "conv3x3_epilogue_r": 0,
             "shift_1d": 0, "upfirdn2d": 0, "bias_act": 0}
 
@@ -175,14 +187,36 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
-def check_cuda_input(name: str, t) -> None:
-    """Device, type, layout and alignment a kernel's input must have."""
+def aligned(t):
+    """``t`` when its data pointer is 16-byte aligned, else a copy of it in
+    fresh (aligned, contiguous) memory.  A view that starts inside its
+    storage, such as ``x[1:]`` of a bf16 ``[B, 127, 127, 3]`` batch, is
+    copied, not refused; the copy costs one read and one write of ``t``.
+    Layout is not changed otherwise: the input check still refuses a
+    non-contiguous tensor that is aligned."""
+    import torch
+    if t.data_ptr() % 16 == 0:
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    return out.copy_(t)
+
+
+def check_cuda_input(name: str, t, *, rows_strided: bool = False) -> None:
+    """Device, type, layout and alignment a kernel's input must have:
+    contiguous and 16-byte aligned or, with ``rows_strided`` (kernel F),
+    a last-axis stride of 1 and a 4-byte aligned start."""
     import torch
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: dtype {t.dtype} not supported "
                         f"(float32 or bfloat16)")
+    if rows_strided:
+        if t.dim() and t.stride(-1) != 1:
+            raise ValueError(f"{name}: expected a last-axis stride of 1")
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name}: data pointer not 4-byte aligned")
+        return
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous (NHWC) tensor")
     if t.data_ptr() % 16:

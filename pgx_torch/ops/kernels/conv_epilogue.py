@@ -40,6 +40,18 @@ NAME = "conv3x3_epilogue"
 NAME_R = "conv3x3_epilogue_r"
 
 
+def supported(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether the kernel takes NHWC ``x`` and the HWIO kernel ``w``: float32
+    or bfloat16, a 3x3 ``w`` whose C_in is x's, C_in a multiple of 8 and
+    C_out a multiple of 8 and at most 512."""
+    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[:2]) != (3, 3):
+        return False
+    cin, cout = x.shape[-1], w.shape[3]
+    return (x.dtype in (torch.float32, torch.bfloat16) and w.shape[2] == cin
+            and cin > 0 and cin % 8 == 0 and 0 < cout <= 512
+            and cout % 8 == 0)
+
+
 def conv3x3_epilogue_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                          *, use_pixel_norm: bool = True, slope: float = 0.2,
                          eps: float = 1e-8, return_r: bool = False):
@@ -69,6 +81,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Check the inputs, lay the weights out for the kernel and launch the
     plain entry or, with ``emit_r``, the residual-emitting one."""
     name = NAME_R if emit_r else NAME
+    x = build.aligned(x)
     build.check_cuda_input(name, x)
     if x.dim() != 4:
         raise ValueError(f"{name}: x must be NHWC, got shape {tuple(x.shape)}")
@@ -92,7 +105,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         wk = F.pad(wk, (0, 0, 0, cpad - cout)).contiguous()
     else:
         wk = w.to(x.dtype).reshape(9, cin, cout).contiguous()
-    bb = b.to(x.dtype).contiguous()
+    bb = build.aligned(b.to(x.dtype).contiguous())
     out = torch.empty((nb, h, wd, cout), dtype=x.dtype, device=x.device)
     if emit_r:
         r = torch.empty((nb, h, wd, 1), dtype=torch.float32, device=x.device)
@@ -203,8 +216,9 @@ def conv3x3_epilogue(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (float32/bfloat16 x, contiguous; C_in and C_out multiples of 8,
-    C_out <= 512): the plain entry when no gradient is recorded, the
-    residual-emitting entry under grad."""
+    C_out <= 512: ``supported``; a misaligned view is copied first): the
+    plain entry when no gradient is recorded, the residual-emitting entry
+    under grad."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
                                     or b.requires_grad):
         return _Conv3x3Epilogue.apply(x, w, b, use_pixel_norm, slope, eps)

@@ -4,7 +4,8 @@
 // (body _fwd_kernel):   a = y + b;  out = lrelu(a * rsqrt(mean_c(a^2) + eps))
 // B, pixel_norm_lrelu, replaces pgx/ops/pallas/kernels.py:pixel_norm_lrelu_pallas
 // (body _pn_lrelu_kernel): the same with no bias.
-// A's backward (rownorm_bwd_kernel) is further down.
+// A's backward (rownorm_bwd_kernel) and its second derivative
+// (rownorm_bwd2_kernel) are further down.
 //
 // Bound: bytes.  Each row of C <= 512 channels is read once and written once;
 // the arithmetic is a few operations per element.  Design: one warp owns one
@@ -240,6 +241,144 @@ int bwd_blocks(int64_t rows) {
   return (int)(want < kBwdMaxBlocks ? want : kBwdMaxBlocks);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel A's second derivative: the backward of A's backward, one pass.
+//
+// Replaces the plain torch ops of rownorm_lrelu_backward_vjp + the d_b sum
+// (pgx differentiates A twice through its custom_jvp's tangent rule,
+// pgx/ops/pallas/epilogue.py:80-86, plain jnp that XLA fuses).  For the
+// cotangent u = ddy + ddb of A's backward output da (dy = da, db = sum of
+// da over the rows), per row with a = y + b (in y's dtype, then f32),
+// s = lrelu's slope at a, dpn = s g, r = rsqrt(mean(a^2) + eps) and the
+// row means m = mean(dpn a), p = mean(u dpn), q = mean(u a):
+//     d_g = s (r u - r^3 q a)
+//     d_a = (3 r^5 m q - r^3 p) a - r^3 q dpn - r^3 m u
+//     d_y = d_a,  d_b = sum over rows of d_a (f32)
+// Bound: bytes (read y, g and ddy, write d_y and d_g: five tensors of the
+// row shape; the bias and ddb are C-wide).  Design: A's backward kernel with
+// a third input and four row sums: one warp owns one row in registers,
+// 16-byte loads and stores, the sums by warp shuffle, every output rounded
+// once; d_b from per-block f32 column sums added in a fixed order by
+// rownorm_bwd_colsum_kernel (deterministic).  ddy, ddb, d_y, d_g and the d_b
+// scratch may each be null: what is absent is neither read nor written.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kRowsPerBlock)
+rownorm_bwd2_kernel(const T* __restrict__ y, const T* __restrict__ bias,
+                    const T* __restrict__ g, const T* __restrict__ ddy,
+                    const float* __restrict__ ddb, T* __restrict__ d_y,
+                    T* __restrict__ d_g, float* __restrict__ db_partial,
+                    int64_t rows, int c, float slope, float eps) {
+  constexpr int V = VecWidth<T>::N;
+  constexpr int kMaxVec = kMaxC / (32 * V);
+  __shared__ float colsum[kRowsPerBlock][kMaxC];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nvec = c / V;
+  const float inv_c = 1.f / c;
+
+  // the bias and ddb are the same for every row: kept in registers
+  float bv[kMaxVec][V], uv[kMaxVec][V], dbs[kMaxVec][V];
+#pragma unroll
+  for (int j = 0; j < kMaxVec; ++j) {
+    const int v = lane + 32 * j;
+    uint4 braw = make_uint4(0, 0, 0, 0);
+    if (v < nvec) braw = reinterpret_cast<const uint4*>(bias)[v];
+    const T* be = reinterpret_cast<const T*>(&braw);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      bv[j][k] = pgx::to_f(be[k]);
+      uv[j][k] = (ddb != nullptr && v < nvec) ? ddb[v * V + k] : 0.f;
+      dbs[j][k] = 0.f;
+    }
+  }
+
+  for (int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + warp; row < rows;
+       row += (int64_t)gridDim.x * kRowsPerBlock) {
+    const uint4* ysrc = reinterpret_cast<const uint4*>(y + row * c);
+    const uint4* gsrc = reinterpret_cast<const uint4*>(g + row * c);
+    const uint4* usrc = reinterpret_cast<const uint4*>(ddy + row * c);
+    float a[kMaxVec][V], gv[kMaxVec][V], u[kMaxVec][V];
+    float ssq = 0.f, msum = 0.f, psum = 0.f, qsum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxVec; ++j) {
+      const int v = lane + 32 * j;
+      uint4 yraw = make_uint4(0, 0, 0, 0), graw = make_uint4(0, 0, 0, 0);
+      uint4 uraw = make_uint4(0, 0, 0, 0);
+      if (v < nvec) {
+        yraw = ysrc[v];
+        graw = gsrc[v];
+        if (ddy != nullptr) uraw = usrc[v];
+      }
+      const T* ye = reinterpret_cast<const T*>(&yraw);
+      const T* ge = reinterpret_cast<const T*>(&graw);
+      const T* ue = reinterpret_cast<const T*>(&uraw);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        // y + b in the input type, as the forward takes it
+        const float t = pgx::to_f(pgx::from_f<T>(pgx::to_f(ye[k]) + bv[j][k]));
+        const float gk = pgx::to_f(ge[k]);
+        // ddy + ddb, zero past the row's end (uv is zero there too)
+        const float uk = (ddy != nullptr ? pgx::to_f(ue[k]) : 0.f) + uv[j][k];
+        const float d = (t < 0.f ? slope : 1.f) * gk;
+        a[j][k] = t;
+        gv[j][k] = gk;
+        u[j][k] = uk;
+        ssq += t * t;
+        msum += d * t;
+        psum += uk * d;
+        qsum += uk * t;
+      }
+    }
+    ssq = pgx::warp_sum(ssq);
+    msum = pgx::warp_sum(msum);
+    psum = pgx::warp_sum(psum);
+    qsum = pgx::warp_sum(qsum);
+    const float r = rsqrtf(ssq * inv_c + eps);
+    const float m = msum * inv_c, p = psum * inv_c, q = qsum * inv_c;
+    const float r3 = r * r * r;
+    const float r3q = r3 * q, r3m = r3 * m;
+    const float coef_a = 3.f * r3 * r * r * m * q - r3 * p;
+#pragma unroll
+    for (int j = 0; j < kMaxVec; ++j) {
+      const int v = lane + 32 * j;
+      if (v < nvec) {
+        uint4 yout, gout;
+        T* ye = reinterpret_cast<T*>(&yout);
+        T* ge = reinterpret_cast<T*>(&gout);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const float s = a[j][k] < 0.f ? slope : 1.f;
+          const float da = coef_a * a[j][k] - r3q * (s * gv[j][k])
+                           - r3m * u[j][k];
+          dbs[j][k] += da;
+          ye[k] = pgx::from_f<T>(da);
+          ge[k] = pgx::from_f<T>(s * (r * u[j][k] - r3q * a[j][k]));
+        }
+        if (d_y != nullptr) reinterpret_cast<uint4*>(d_y + row * c)[v] = yout;
+        if (d_g != nullptr) reinterpret_cast<uint4*>(d_g + row * c)[v] = gout;
+      }
+    }
+  }
+
+  if (db_partial == nullptr) return;  // uniform across the block
+#pragma unroll
+  for (int j = 0; j < kMaxVec; ++j) {
+    const int v = lane + 32 * j;
+    if (v < nvec) {
+#pragma unroll
+      for (int k = 0; k < V; ++k) colsum[warp][v * V + k] = dbs[j][k];
+    }
+  }
+  __syncthreads();
+  for (int col = threadIdx.x; col < c; col += blockDim.x) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kRowsPerBlock; ++w) s += colsum[w][col];
+    db_partial[(int64_t)blockIdx.x * c + col] = s;
+  }
+}
+
 template <typename T>
 int launch_bwd(const void* y, const void* b, const void* g, void* dy,
                float* db_partial, int64_t rows, int c, float slope, float eps,
@@ -256,7 +395,48 @@ int launch_bwd(const void* y, const void* b, const void* g, void* dy,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_bwd2(const void* y, const void* b, const void* g, const void* ddy,
+                const float* ddb, void* d_y, void* d_g, float* db_partial,
+                int64_t rows, int c, float slope, float eps,
+                cudaStream_t stream) {
+  const int blocks = bwd_blocks(rows);
+  if (blocks == 0) return (int)cudaSuccess;
+  rownorm_bwd2_kernel<T><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(
+      (const T*)y, (const T*)b, (const T*)g, (const T*)ddy, ddb, (T*)d_y,
+      (T*)d_g, db_partial, rows, c, slope, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || db_partial == nullptr) return (int)e;
+  rownorm_bwd_colsum_kernel<<<(c + 31) / 32, dim3(32, 32), 0, stream>>>(
+      db_partial, blocks, c);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Kernel A's second derivative for the cotangents ddy (y's dtype, y's
+// shape) and ddb (f32, C values) of its backward's outputs: d_y and d_g (y's
+// dtype and shape) and d_b (f32, C values, left in row 0 of db_partial, a
+// [pgx_bias_pixelnorm_lrelu_bwd_blocks(rows)][C] f32 scratch).  y, b, g,
+// ddy share one dtype.  ddy or ddb may be null (not both); any of d_y, d_g
+// and db_partial may be null, and is then not computed.
+extern "C" int pgx_bias_pixelnorm_lrelu_bwd2(
+    const void* y, const void* b, const void* g, const void* ddy,
+    const void* ddb, void* d_y, void* d_g, void* db_partial, int64_t rows,
+    int c, int dtype, float slope, float eps, void* stream) {
+  if (c <= 0 || c > kMaxC || c % 8 != 0 || b == nullptr ||
+      (ddy == nullptr && ddb == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == pgx::kFloat32)
+    return launch_bwd2<float>(y, b, g, ddy, (const float*)ddb, d_y, d_g,
+                              (float*)db_partial, rows, c, slope, eps, s);
+  if (dtype == pgx::kBFloat16)
+    return launch_bwd2<__nv_bfloat16>(y, b, g, ddy, (const float*)ddb, d_y,
+                                      d_g, (float*)db_partial, rows, c, slope,
+                                      eps, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // Rows of the [blocks][C] f32 scratch that pgx_bias_pixelnorm_lrelu_bwd
 // takes for `rows` rows.
@@ -290,6 +470,14 @@ extern "C" int pgx_bias_pixelnorm_lrelu(const void* y, const void* b,
                                         void* stream) {
   if (b == nullptr) return (int)cudaErrorInvalidValue;
   return dispatch(y, b, out, rows, c, dtype, slope, eps, stream);
+}
+
+// An empty kernel: one launch of nothing, the floor under kernel B's time.
+__global__ void noop_kernel() {}
+
+extern "C" int pgx_noop(void* stream) {
+  noop_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* pgx_error_string(int status) {

@@ -25,10 +25,17 @@ transpose of pgx's tangent rule (``epilogue.py:_jvp_rule``)::
 Neither is ``once_differentiable``: the discriminator runs this epilogue
 under the WGAN-GP gradient penalty, where ``torch.autograd.grad(...,
 create_graph=True)`` records the backward and differentiates it again.  The
-second derivative is written out in closed form in plain differentiable
-torch ops (``rownorm_lrelu_backward_vjp``), which the penalty's outer pass
-runs in place of autograd through the first derivative's ops.  pgx has no
-backward kernel (its rule is plain jnp).
+backward Function's own backward is a third Function,
+``_BiasPixelNormLreluGrad2``, whose forward launches the second-order kernel
+(``pgx_bias_pixelnorm_lrelu_bwd2``; the plain version for a CPU tensor): the
+second derivative in closed form (``rownorm_lrelu_backward_vjp``), which the
+penalty's outer pass runs in place of autograd through the first
+derivative's ops.  Its backward differentiates the plain closed form again.
+pgx has no backward kernels (its rule is plain jnp).
+
+``supported(y)`` says whether the kernels take ``y``: float32 or bfloat16
+with C a multiple of 8 and at most 512.  The layers ask it before calling
+``bias_pixelnorm_lrelu`` and otherwise take the plain torch ops.
 """
 
 from __future__ import annotations
@@ -41,6 +48,22 @@ from pgx_torch.ops.kernels import build
 
 NAME = "bias_pixelnorm_lrelu"
 NAME_BWD = "bias_pixelnorm_lrelu_bwd"
+NAME_BWD2 = "bias_pixelnorm_lrelu_bwd2"
+MAX_C = 512
+
+
+def supported(y: torch.Tensor) -> bool:
+    """Whether the kernels take ``y``: float32 or bfloat16, its last axis C
+    a multiple of 8 and at most 512 (shared by kernels A and B)."""
+    c = y.shape[-1] if y.dim() else 0
+    return (y.dtype in (torch.float32, torch.bfloat16) and 0 < c <= MAX_C
+            and c % 8 == 0)
+
+
+def check_channels(name: str, c: int) -> None:
+    if c % 8 or not 0 < c <= MAX_C:
+        raise ValueError(f"{name}: C={c} must be a multiple of 8, <= "
+                         f"{MAX_C}")
 
 
 def stat_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -110,11 +133,11 @@ def bias_pixelnorm_lrelu_ref(y: torch.Tensor, b: torch.Tensor,
 
 def _launch(y: torch.Tensor, b: torch.Tensor, slope: float,
             eps: float) -> torch.Tensor:
+    y = build.aligned(y)
     build.check_cuda_input(NAME, y)
     c = y.shape[-1]
-    if c % 8 or c > 512:
-        raise ValueError(f"{NAME}: C={c} must be a multiple of 8, <= 512")
-    bb = b.to(device=y.device, dtype=y.dtype).contiguous()
+    check_channels(NAME, c)
+    bb = build.aligned(b.to(device=y.device, dtype=y.dtype).contiguous())
     out = torch.empty_like(y)
     lib = build.load_library()
     build.check(lib.pgx_bias_pixelnorm_lrelu(
@@ -140,16 +163,15 @@ def bias_pixelnorm_lrelu_backward_ref(y: torch.Tensor, b: torch.Tensor,
 
 def _launch_backward(y: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
                      slope: float, eps: float):
+    y = build.aligned(y)
     build.check_cuda_input(NAME_BWD, y)
     c = y.shape[-1]
-    if c % 8 or c > 512:
-        raise ValueError(f"{NAME_BWD}: C={c} must be a multiple of 8, "
-                         f"<= 512")
+    check_channels(NAME_BWD, c)
     if g.shape != y.shape:
         raise ValueError(f"{NAME_BWD}: cotangent shape {tuple(g.shape)} != "
                          f"{tuple(y.shape)}")
-    bb = b.to(device=y.device, dtype=y.dtype).contiguous()
-    gg = g.to(dtype=y.dtype).contiguous()
+    bb = build.aligned(b.to(device=y.device, dtype=y.dtype).contiguous())
+    gg = build.aligned(g.to(dtype=y.dtype).contiguous())
     rows = y.numel() // c
     lib = build.load_library()
     dy = torch.empty_like(y)
@@ -188,8 +210,8 @@ class _BiasPixelNormLrelu(torch.autograd.Function):
 
 class _BiasPixelNormLreluGrad(torch.autograd.Function):
     """``(dy, db)`` for the cotangent g.  Forward: the backward kernel (the
-    plain version for a CPU tensor).  Backward: the second derivative in
-    closed form, plain differentiable ops."""
+    plain version for a CPU tensor).  Backward: ``_BiasPixelNormLreluGrad2``,
+    the second derivative in closed form (the second-order kernel)."""
 
     @staticmethod
     def forward(ctx, y, b, g, slope, eps):
@@ -203,24 +225,118 @@ class _BiasPixelNormLreluGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ddy, ddb):
         y, b, g = ctx.saved_tensors
-        if ddy is None and ddb is None:
+        needs = tuple(ctx.needs_input_grad[:3])
+        if (ddy is None and ddb is None) or not any(needs):
             return None, None, None, None, None
-        acc = stat_dtype(y.dtype)
-        # dy and db are the same da (db summed over rows): one cotangent
-        u = ddy.to(acc) if ddy is not None else torch.zeros((), dtype=acc,
-                                                              device=y.device)
-        if ddb is not None:
-            u = u + ddb.to(acc)
-        u = u.expand(y.shape)
-        a = (y + b.to(y.dtype)).to(acc)
-        d_a, d_g = rownorm_lrelu_backward_vjp(a, g.to(acc), u, ctx.slope,
-                                              ctx.eps)
-        d_y = d_a.to(y.dtype) if ctx.needs_input_grad[0] else None
-        d_b: Optional[torch.Tensor] = None
-        if ctx.needs_input_grad[1]:
-            d_b = d_a.reshape(-1, d_a.shape[-1]).sum(0).to(b.dtype)
-        d_g = d_g.to(g.dtype) if ctx.needs_input_grad[2] else None
+        d_y, d_b, d_g = _BiasPixelNormLreluGrad2.apply(
+            y, b, g, ddy, ddb, ctx.slope, ctx.eps, needs)
         return d_y, d_b, d_g, None, None
+
+
+def second_order_ref(y: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
+                     ddy: Optional[torch.Tensor], ddb: Optional[torch.Tensor],
+                     slope: float = 0.2, eps: float = 1e-8,
+                     needs=(True, True, True)):
+    """Plain version of the second-order kernel: for the cotangents ``ddy``
+    and ``ddb`` of A's backward outputs ``(dy, db)`` (either may be None),
+    the gradients ``(d_y, d_b, d_g)`` in y's, b's and g's dtypes, each None
+    where ``needs`` says so.  Statistics and the ``d_b`` sum in f32 (f64
+    for f64); plain torch ops, differentiable again."""
+    acc = stat_dtype(y.dtype)
+    # dy and db are the same da (db summed over rows): one cotangent
+    u = ddy.to(acc) if ddy is not None else torch.zeros((), dtype=acc,
+                                                          device=y.device)
+    if ddb is not None:
+        u = u + ddb.to(acc)
+    u = u.expand(y.shape)
+    a = (y + b.to(y.dtype)).to(acc)
+    d_a, d_g = rownorm_lrelu_backward_vjp(a, g.to(acc), u, slope, eps)
+    d_y = d_a.to(y.dtype) if needs[0] else None
+    d_b = (d_a.reshape(-1, d_a.shape[-1]).sum(0).to(b.dtype) if needs[1]
+           else None)
+    return d_y, d_b, (d_g.to(g.dtype) if needs[2] else None)
+
+
+def _launch_second_order(y, b, g, ddy, ddb, slope, eps, needs):
+    y = build.aligned(y)
+    build.check_cuda_input(NAME_BWD2, y)
+    c = y.shape[-1]
+    check_channels(NAME_BWD2, c)
+    for name, t, shape in (("g", g, y.shape), ("ddy", ddy, y.shape),
+                           ("ddb", ddb, (c,))):
+        if t is not None and t.shape != shape:
+            raise ValueError(f"{NAME_BWD2}: {name} shape {tuple(t.shape)} "
+                             f"!= {tuple(shape)}")
+    if ddy is None and ddb is None:
+        raise ValueError(f"{NAME_BWD2}: needs ddy or ddb")
+    bb = build.aligned(b.to(device=y.device, dtype=y.dtype).contiguous())
+    gg = build.aligned(g.to(dtype=y.dtype).contiguous())
+    uy = (None if ddy is None
+          else build.aligned(ddy.to(dtype=y.dtype).contiguous()))
+    ub = (None if ddb is None
+          else build.aligned(ddb.to(device=y.device,
+                                    dtype=torch.float32).contiguous()))
+    rows = y.numel() // c
+    lib = build.load_library()
+    d_y = torch.empty_like(y) if needs[0] else None
+    d_g = torch.empty_like(y) if needs[2] else None
+    part = None
+    if needs[1]:
+        # f32 column sums of each block; the kernel leaves d_b in row 0
+        part = torch.empty(
+            (max(lib.pgx_bias_pixelnorm_lrelu_bwd_blocks(rows), 1), c),
+            dtype=torch.float32, device=y.device)
+        if rows == 0:
+            part.zero_()
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    build.check(lib.pgx_bias_pixelnorm_lrelu_bwd2(
+        y.data_ptr(), bb.data_ptr(), gg.data_ptr(), ptr(uy), ptr(ub),
+        ptr(d_y), ptr(d_g), ptr(part), rows, c, build.dtype_code(y),
+        float(slope), float(eps), build.stream_ptr()), NAME_BWD2)
+    build.LAUNCHES[NAME_BWD2] += 1
+    return (d_y, None if part is None else part[0].to(b.dtype),
+            None if d_g is None else d_g.to(g.dtype))
+
+
+class _BiasPixelNormLreluGrad2(torch.autograd.Function):
+    """``(d_y, d_b, d_g)`` of ``_BiasPixelNormLreluGrad`` for the cotangents
+    ``(ddy, ddb)``, each None where ``needs`` says so.  Forward: the
+    second-order kernel (the plain version for a CPU tensor).  Backward:
+    autograd through the plain closed form, recomputed from the saved
+    inputs, so the chain stays differentiable to any order."""
+
+    @staticmethod
+    def forward(ctx, y, b, g, ddy, ddb, slope, eps, needs):
+        ctx.save_for_backward(y, b, g, ddy, ddb)
+        ctx.slope, ctx.eps, ctx.needs = slope, eps, needs
+        ctx.set_materialize_grads(False)
+        if y.device.type == "cpu":
+            return second_order_ref(y, b, g, ddy, ddb, slope, eps, needs)
+        return _launch_second_order(y, b, g, ddy, ddb, slope, eps, needs)
+
+    @staticmethod
+    def backward(ctx, gy, gb, gg):
+        saved = ctx.saved_tensors
+        # grad mode is on here only under create_graph=True
+        create = torch.is_grad_enabled()
+        wrt = [(i, t) for i, t in enumerate(saved)
+               if ctx.needs_input_grad[i] and t is not None]
+        with torch.enable_grad():
+            outs = second_order_ref(*saved, ctx.slope, ctx.eps, ctx.needs)
+        pairs = [(o, gout) for o, gout in zip(outs, (gy, gb, gg))
+                 if o is not None and gout is not None and o.requires_grad]
+        grads = [None] * 8
+        if wrt and pairs:
+            got = torch.autograd.grad(
+                [o for o, _ in pairs], [t for _, t in wrt],
+                [gout for _, gout in pairs], allow_unused=True,
+                create_graph=create)
+            for (i, _), d in zip(wrt, got):
+                grads[i] = d
+        return tuple(grads)
 
 
 def bias_pixelnorm_lrelu(y: torch.Tensor, b: torch.Tensor,
@@ -231,7 +347,8 @@ def bias_pixelnorm_lrelu(y: torch.Tensor, b: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes float32/bfloat16, contiguous, with C a multiple of 8 and at
-    most 512."""
+    most 512 (``supported``); a view whose pointer is not 16-byte aligned is
+    copied first."""
     if b.shape != (y.shape[-1],):
         raise ValueError(f"{NAME}: bias shape {tuple(b.shape)} != "
                          f"({y.shape[-1]},)")

@@ -9,6 +9,9 @@ Bound: bytes (one read and one write of x).  It shares kernel A's source
 (``csrc/epilogue.cu``: one warp per row, the row held in registers) with the
 bias pointer left null, and keeps its own entry and launch count.
 
+``supported(x)`` is kernel A's rule (float32 or bfloat16, C a multiple of 8
+and at most 512): the generator asks it before calling ``pixel_norm_lrelu``.
+
 Differentiable like kernel A: an ``autograd.Function`` whose forward
 launches the kernel and whose backward is plain torch ops on the saved
 input (the generator's input layer sits under grad in the G step).
@@ -19,8 +22,10 @@ from __future__ import annotations
 import torch
 
 from pgx_torch.ops.kernels import build
-from pgx_torch.ops.kernels.epilogue import (rownorm_lrelu_backward,
-                                            rownorm_lrelu_ref, stat_dtype)
+# supported: kernel A's rule is kernel B's, re-exported for the generator
+from pgx_torch.ops.kernels.epilogue import (  # noqa: F401
+    check_channels, rownorm_lrelu_backward, rownorm_lrelu_ref, stat_dtype,
+    supported)
 
 NAME = "pixel_norm_lrelu"
 
@@ -32,10 +37,10 @@ def pixel_norm_lrelu_ref(x: torch.Tensor, slope: float = 0.2,
 
 
 def _launch(x: torch.Tensor, slope: float, eps: float) -> torch.Tensor:
+    x = build.aligned(x)
     build.check_cuda_input(NAME, x)
     c = x.shape[-1]
-    if c % 8 or c > 512:
-        raise ValueError(f"{NAME}: C={c} must be a multiple of 8, <= 512")
+    check_channels(NAME, c)
     out = torch.empty_like(x)
     lib = build.load_library()
     build.check(lib.pgx_pixel_norm_lrelu(
@@ -68,5 +73,6 @@ def pixel_norm_lrelu(x: torch.Tensor, slope: float = 0.2,
     differentiable in ``x``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32/bfloat16, contiguous, C a multiple of 8 and at most 512)."""
+    (float32/bfloat16, contiguous, C a multiple of 8 and at most 512:
+    ``supported``; a misaligned view is copied first)."""
     return _PixelNormLrelu.apply(x, slope, eps)

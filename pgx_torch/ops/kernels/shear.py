@@ -15,7 +15,15 @@ f64 image) and rounded once, as pgx's Pallas kernel does.
 
 Bound: bytes, one read and one write of the tensor.  The CUDA kernel
 (``csrc/shear.cu``) reads the two taps by index; it has no rotation ladder,
-no padding of R and no transposed route for large extents.
+no padding of R and no transposed route for large extents.  Axis 3 makes 16
+bytes of outputs per thread from two aligned 16-byte loads.  Axis 2 stages a
+band of input rows per tile of ``TILE_ROWS`` x ``STRIP`` outputs in shared
+memory (``BAND_ROWS`` rows: every shift slope up to 2 per column fits; a
+tile whose shifts spread wider reads device memory directly).  The input
+may be a view with strided rows, such as the warp's column crop: the kernel
+takes its strides and moves the widest unit (16, 8, 4 or 2 bytes) that
+divides its pointer, strides and row length (``_unit``), so the crop is not
+copied first.
 
 Differentiation.  The op is linear in ``img`` and its transpose is the
 shift by ``-shift``, so the Function's backward applies the Function itself
@@ -26,11 +34,38 @@ draws only.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from pgx_torch.ops.kernels import build
 
 NAME = "shift_1d"
+# csrc/shear.cu's axis-2 tile: columns, output rows, staged rows
+STRIP, TILE_ROWS, BAND_ROWS = 32, 64, 64 + 2 * 32 + 2
+
+
+def _unit(ptr: int, strides, length: int, itemsize: int) -> int:
+    """The widest of 16, 8, 4 and 2 bytes (at least one element) that
+    divides the byte address ``ptr``, every element stride in ``strides``
+    and a row of ``length`` elements: the lowest bit set in any of them,
+    capped at 16."""
+    bits = ptr | 16 | length * itemsize
+    for s in strides:
+        bits |= s * itemsize
+    return max(bits & -bits, itemsize)
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The kernel library, once it has shown the tile ``STRIP``,
+    ``TILE_ROWS`` and ``BAND_ROWS`` describe."""
+    lib = build.load_library()
+    got = tuple(lib.pgx_shift_1d_tile(i) for i in range(3))
+    if got != (STRIP, TILE_ROWS, BAND_ROWS):
+        raise RuntimeError(f"{NAME}: csrc/shear.cu's tile {got} differs from "
+                           f"shear.py's {(STRIP, TILE_ROWS, BAND_ROWS)}")
+    return lib
 
 
 def _check_shapes(img: torch.Tensor, shift: torch.Tensor, axis: int) -> None:
@@ -78,14 +113,20 @@ def shift_1d_ref(img: torch.Tensor, shift: torch.Tensor,
 
 
 def _launch(img: torch.Tensor, shift: torch.Tensor, axis: int) -> torch.Tensor:
-    build.check_cuda_input(NAME, img)
+    if img.stride(-1) != 1 or img.data_ptr() % 4:
+        img = build.aligned(img.contiguous())
+    build.check_cuda_input(NAME, img, rows_strided=True)
     b, c, r, n = img.shape
+    sb, sc, sr, _ = img.stride()
+    es = img.element_size()
     sh = shift.to(device=img.device, dtype=torch.float32).contiguous()
-    out = torch.empty_like(img)
-    lib = build.load_library()
+    out = torch.empty(img.shape, dtype=img.dtype, device=img.device)
+    lib = _library()
     build.check(lib.pgx_shift_1d(
-        img.data_ptr(), sh.data_ptr(), out.data_ptr(), b, c, r, n, axis,
-        build.dtype_code(img), build.stream_ptr()), NAME)
+        img.data_ptr(), sh.data_ptr(), out.data_ptr(), b, c, r, n, sb, sc, sr,
+        axis, build.dtype_code(img),
+        _unit(img.data_ptr(), (sb, sc, sr), n, es), _unit(0, (), n, es),
+        build.stream_ptr()), NAME)
     build.LAUNCHES[NAME] += 1
     return out
 
@@ -115,6 +156,8 @@ def shift_1d(img: torch.Tensor, shift: torch.Tensor,
     any order; ``shift`` is detached.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32/bfloat16; made contiguous first)."""
+    (float32/bfloat16), which reads a view with strided rows in place (a
+    last-axis stride other than 1, or a start not 4-byte aligned, is copied
+    first); the result is contiguous."""
     _check_shapes(img, shift, axis)
-    return _Shift1d.apply(img.contiguous(), shift.detach(), axis)
+    return _Shift1d.apply(img, shift.detach(), axis)

@@ -253,6 +253,7 @@ def _library():
 
 def _launch(x: torch.Tensor, taps: Sequence[float], up: int, down: int,
             pads: Pads, flip_filter: bool) -> torch.Tensor:
+    x = build.aligned(x)
     build.check_cuda_input(NAME, x)
     if up not in (1, 2) or down not in (1, 2):
         raise ValueError(f"{NAME}: up and down must be 1 or 2, got "

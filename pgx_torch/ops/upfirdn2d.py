@@ -7,9 +7,10 @@ given.  Filters are host constants (numpy, a sequence, or a CPU tensor),
 shaped ``(fh, fw)`` or ``(fw,)`` for separable application; they are never
 differentiated.
 
-Dispatch: a 1-D (separable) filter with ``up`` and ``down`` in {1, 2} goes
-to kernel D (``pgx_torch.ops.kernels.upfirdn2d``): a CUDA tensor launches
-it or raises, a CPU tensor takes its plain version.  A 2-D filter, or other
+Dispatch: a 1-D (separable) filter of at most ``MAX_TAPS`` (64) taps with
+``up`` and ``down`` in {1, 2} goes to kernel D
+(``pgx_torch.ops.kernels.upfirdn2d``): a CUDA tensor launches it or raises,
+a CPU tensor takes its plain version.  A 2-D filter, a longer one, or other
 factors, takes the grouped-convolution formulation below, which pgx also
 computes outside its kernel.
 """
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pgx_torch.ops.kernels.upfirdn2d import upfirdn2d_separable
+from pgx_torch.ops.kernels.upfirdn2d import MAX_TAPS, upfirdn2d_separable
 
 FilterLike = Union[np.ndarray, torch.Tensor, Sequence[float], None]
 
@@ -97,7 +98,8 @@ def upfirdn2d(x: torch.Tensor, f: FilterLike, up: int = 1, down: int = 1,
     f = _filter_array(f)
     px0, px1, py0, py1 = _parse_padding(padding)
 
-    if f.ndim == 1 and up in (1, 2) and down in (1, 2):
+    if (f.ndim == 1 and up in (1, 2) and down in (1, 2)
+            and f.shape[0] <= MAX_TAPS):
         # the gain is split evenly over the two passes, in f32 as pgx does
         taps = f * np.float32(np.sqrt(gain))
         return upfirdn2d_separable(x, taps.tolist(), up, down,

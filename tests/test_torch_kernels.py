@@ -373,7 +373,10 @@ def test_gpu_rownorm_kernels_match_plain(cuda, dtype, shape):
 @pytest.mark.parametrize("shape,cout,pn", [
     ((4, 4, 4, 512), 512, True), ((2, 16, 16, 512), 512, True),
     ((2, 64, 64, 256), 256, True), ((1, 128, 128, 128), 128, True),
-    ((3, 5, 7, 24), 40, False), ((1, 4, 4, 8), 8, True)])
+    ((3, 5, 7, 24), 40, False), ((1, 4, 4, 8), 8, True),
+    # legacy_generator(channel=16)'s narrow widths
+    ((2, 64, 64, 16), 16, True), ((2, 64, 64, 16), 8, True),
+    ((2, 32, 32, 8), 8, True)])
 def test_gpu_conv3x3_epilogue_matches_plain(cuda, dtype, shape, cout, pn):
     x = _on(_rand(shape, 4), cuda, dtype)
     w = _on(_rand((3, 3, shape[-1], cout), 5,
@@ -555,6 +558,161 @@ def test_gpu_kernel_a_second_derivative_matches_plain(cuda):
         assert (got - want).abs().max().item() <= 1e-4 * scale
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 128), (2, 16, 16, 256),
+                                   (4, 8, 8, 512), (2, 17, 3, 40),
+                                   (9000, 1, 1, 8)])
+def test_gpu_kernel_a_second_order_kernel_matches_plain(cuda, dtype, shape):
+    """The second-order kernel against its plain closed form at the
+    channel counts of the iteration's calls (128, 256, 512) and at odd row
+    counts: f32 to 1e-5 of each output's largest entry, bf16 to two bf16
+    steps (d_b, an f32 sum in another order, to 1e-5 relative), for
+    cotangents on dy, db and both and each pattern of needed outputs."""
+    from pgx_torch.ops.kernels import epilogue as E
+    y = _on(_rand(shape, 1), cuda, dtype)
+    b = _on(_rand(shape[-1:], 2, 0.3), cuda, torch.float32)
+    g = _on(_rand(shape, 3), cuda, dtype)
+    ddy_all = _on(_rand(shape, 4), cuda, dtype)
+    ddb_all = _on(_rand(shape[-1:], 5), cuda, torch.float32)
+    for ddy, ddb in ((ddy_all, ddb_all), (ddy_all, None), (None, ddb_all)):
+        for needs in ((True, True, True), (True, False, False),
+                      (False, True, False), (False, False, True)):
+            before = K.launch_counts()["bias_pixelnorm_lrelu_bwd2"]
+            with torch.no_grad():
+                got = E._BiasPixelNormLreluGrad2.apply(y, b, g, ddy, ddb,
+                                                       0.2, 1e-8, needs)
+            want = E.second_order_ref(y, b, g, ddy, ddb, 0.2, 1e-8, needs)
+            torch.cuda.synchronize()
+            assert K.launch_counts()["bias_pixelnorm_lrelu_bwd2"] == \
+                before + 1
+            for name, need, x, w in zip(("d_y", "d_b", "d_g"), needs, got,
+                                        want):
+                if not need:
+                    assert x is None
+                    continue
+                assert x.dtype == w.dtype and x.shape == w.shape
+                scale = w.float().abs().max().item()
+                tol = (1e-5 * scale if dtype == torch.float32
+                       or name == "d_b" else 2 * 2.0 ** (
+                           np.floor(np.log2(max(scale, 1e-3))) - 7))
+                err = (x.float() - w.float()).abs().max().item()
+                assert err <= tol, (name, ddy is None, ddb is None, err, tol)
+
+
+@pytest.mark.gpu
+def test_gpu_kernel_a_backward_of_backward_launches_the_kernel(cuda):
+    """A's backward under create_graph, differentiated again: one launch of
+    the second-order kernel per outer backward, the values the plain
+    version's."""
+    y = _on(_rand((4, 8, 8, 128), 1), cuda, torch.float32)
+    b = _on(_rand((128,), 2, 0.1), cuda, torch.float32)
+    g = _on(_rand((4, 8, 8, 128), 3), cuda, torch.float32)
+
+    def penalty_grads(fn):
+        ty, tb = y.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        gy, = torch.autograd.grad((fn(ty, tb) * g).sum(), ty,
+                                  create_graph=True)
+        return torch.autograd.grad(gy.square().sum(), (ty, tb))
+
+    before = K.launch_counts()["bias_pixelnorm_lrelu_bwd2"]
+    got = penalty_grads(K.bias_pixelnorm_lrelu)
+    assert K.launch_counts()["bias_pixelnorm_lrelu_bwd2"] == before + 1
+    for a, e in zip(got, penalty_grads(K.bias_pixelnorm_lrelu_ref)):
+        assert (a - e).abs().max().item() <= 1e-4 * e.abs().max().item()
+
+
+def _misaligned(shape, dtype, dev, seed):
+    """A contiguous view of ``shape`` whose data pointer is one element
+    past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    flat = torch.empty(n + 1, dtype=dtype, device=dev)
+    flat[1:] = _on(_rand((n,), seed), dev, dtype)
+    view = flat[1:].view(shape)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_misaligned_views_are_copied_and_launched(cuda, dtype):
+    """A, B, C, D, E and F take a contiguous view whose pointer is not
+    16-byte aligned (copied first) and match their plain versions."""
+    from pgx_torch.ops import bias_act
+    y = _misaligned((2, 5, 5, 40), dtype, cuda, 1)
+    b = _on(_rand((40,), 2, 0.1), cuda, torch.float32)
+    w = _on(_rand((3, 3, 40, 24), 3, 0.1), cuda, torch.float32)
+    img = _misaligned((2, 3, 24, 36), dtype, cuda, 4)
+    taps = _fir_taps(12)
+    tol = GPU_TOL[dtype]
+    cases = {
+        "bias_pixelnorm_lrelu": (lambda: K.bias_pixelnorm_lrelu(y, b),
+                                 lambda: K.bias_pixelnorm_lrelu_ref(y, b)),
+        "pixel_norm_lrelu": (lambda: K.pixel_norm_lrelu(y),
+                             lambda: K.pixel_norm_lrelu_ref(y)),
+        "conv3x3_epilogue": (lambda: K.conv3x3_epilogue(y, w, b[:24]),
+                             lambda: K.conv3x3_epilogue_ref(y, w, b[:24])),
+        "upfirdn2d": (lambda: K.upfirdn2d_separable(y, taps, 2, 1,
+                                                    (6, 5, 6, 5)),
+                      lambda: K.upfirdn2d_ref(y, taps, 2, 1, (6, 5, 6, 5))),
+        "bias_act": (lambda: bias_act(y, b, act="lrelu"),
+                     lambda: K.bias_act_ref(y, b, act="lrelu")),
+        "shift_1d": (lambda: K.shift_1d(img, torch.full((2, 36), 2.5,
+                                                        device=cuda), 2),
+                     lambda: K.shift_1d_ref(img, torch.full(
+                         (2, 36), 2.5, device=cuda), 2)),
+    }
+    for name, (kern, plain) in cases.items():
+        before = K.launch_counts()[name]
+        with torch.no_grad():
+            got, want = kern(), plain()
+        torch.cuda.synchronize()
+        assert K.launch_counts()[name] == before + 1, name
+        assert (got.float() - want.float()).abs().max().item() <= tol, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_unsupported_width_model_forward(cuda, dtype):
+    """legacy_generator(channel=16) at 128px: its 4-channel stages take the
+    torch ops and cuDNN, the others the kernels; the output is finite and
+    matches the plain versions': in f32 to 1e-3 of the largest output; in
+    bf16 in the mean, to 2e-2 of it, because a pixel norm over 4 channels
+    in bf16 turns one rounding of a small pixel into a different pixel
+    (single outputs differ by up to 0.6 there)."""
+    from pgx_torch.core import layers as TL
+    from pgx_torch.models import generator as TG
+    from pgx_torch.models import zoo
+    from pgx_torch.models.generator import Generator, init_generator
+    cfg = zoo.legacy_generator(z_dim=16, channel=16, max_step=5,
+                               dtype=str(dtype).removeprefix("torch."))
+    gen = Generator.from_jax_params(cfg, init_generator(cfg, seed=0), cuda)
+    z = torch.randn(4, 16, device=cuda)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        got = gen(z, step=5).float()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    assert counts["pixel_norm_lrelu"] == 1 and counts["conv3x3_epilogue"] > 0
+    assert got.shape == (4, 128, 128, 3) and bool(torch.isfinite(got).all())
+    plain = {TL: ("bias_pixelnorm_lrelu", "conv3x3_epilogue"),
+             TG: ("pixel_norm_lrelu",)}
+    saved = {(m, n): getattr(m, n) for m, ns in plain.items() for n in ns}
+    try:
+        for (m, n) in saved:
+            setattr(m, n, getattr(K, n + "_ref"))
+        with torch.no_grad():
+            want = gen(z, step=5).float()
+    finally:
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
+    scale = want.abs().max().item()
+    if dtype == torch.float32:
+        assert (got - want).abs().max().item() <= 1e-3 * scale
+    else:
+        assert (got - want).abs().mean().item() <= 2e-2 * scale
+
+
 # ---------------------------------------------------------------------------
 # On the card: kernels F (shift_1d), D (upfirdn2d) and E (bias_act)
 # ---------------------------------------------------------------------------
@@ -585,6 +743,32 @@ def test_gpu_shift_1d_matches_plain(cuda, dtype, shape, axis, scale):
     assert K.launch_counts()["shift_1d"] == before + 1
     assert got.dtype == dtype and got.shape == img.shape
     assert (got.float() - want.float()).abs().max().item() <= FDE_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis", [2, 3])
+def test_gpu_shift_1d_warp_shapes_and_crop_view(cuda, dtype, axis):
+    """The two 128px warp calls at batch 32 with the warp's shifts (gamma
+    times the centred line), the y-shear also on the column crop of the
+    x-shear's output, read in place."""
+    b, c, r, vx, n = 32, 3, 576, 896, 268
+    big = _on(_rand((b, c, r, vx), 1), cuda, dtype)
+    gamma = _on(_rand((b, 1), 2, 0.5), cuda, torch.float32).clamp(-1, 1)
+    lines = r if axis == 3 else n
+    shift = gamma * (torch.arange(lines, device=cuda) - (lines / 2 - 0.5))
+    imgs = [big] if axis == 3 else [big[..., 314:314 + n],
+                                    big[..., 314:314 + n].contiguous()]
+    for img in imgs:
+        before = K.launch_counts()["shift_1d"]
+        with torch.no_grad():
+            got = K.shift_1d(img, shift, axis)
+            want = K.shift_1d_ref(img, shift, axis)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["shift_1d"] == before + 1
+        assert got.is_contiguous() and got.shape == img.shape
+        assert (got.float() - want.float()).abs().max().item() <= \
+            FDE_TOL[dtype]
 
 
 @pytest.mark.gpu
@@ -736,8 +920,15 @@ def test_gpu_new_wrappers_reject_bad_inputs(cuda):
                        torch.zeros(1, 4, device=cuda), 3)
         with pytest.raises(TypeError):
             bias_act(torch.zeros(2, 4, device=cuda, dtype=torch.float16))
+        # the wrapper takes 1 to 64 taps; upfirdn2d sends longer filters to
+        # the grouped conv (tests/test_torch_routing.py)
         with pytest.raises(ValueError, match="taps"):
-            upfirdn2d(torch.zeros(1, 80, 80, 1, device=cuda), np.ones(65))
+            K.upfirdn2d_separable(torch.zeros(1, 80, 80, 1, device=cuda),
+                                  np.ones(65))
+        before = K.launch_counts()["upfirdn2d"]
+        assert upfirdn2d(torch.zeros(1, 80, 80, 1, device=cuda),
+                         np.ones(65)).shape == (1, 16, 16, 1)
+        assert K.launch_counts()["upfirdn2d"] == before
         with pytest.raises(ValueError, match="1 or 2"):
             K.upfirdn2d_separable(torch.zeros(1, 8, 8, 1, device=cuda),
                                   [1.0, 1.0], up=3)

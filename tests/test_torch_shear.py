@@ -146,6 +146,120 @@ def test_shift_1d_checks_and_counts():
     assert tshear.NAME in before
 
 
+@pytest.mark.parametrize("axis", [2, 3])
+def test_shift_1d_reads_a_strided_view(axis):
+    """The warp's column crop ``v[..., m:m + n]``: the kernel reads it in
+    place (strided rows), the plain version through the view; both match
+    pgx's contract on the cropped array, and the gradient lands on the
+    whole tensor's window."""
+    rng = np.random.RandomState(7 + axis)
+    big = rng.randn(2, 3, 40, 96).astype(np.float32)
+    view = torch.from_numpy(big).requires_grad_(True)[..., 17:17 + 42]
+    assert not view.is_contiguous() and view.stride(-1) == 1
+    lines = 40 if axis == 3 else 42
+    shift = (rng.randn(2, lines) * 9).astype(np.float32)
+    want = np.asarray(jwarp._shift_1d_jnp(
+        jnp.asarray(big[..., 17:17 + 42]), jnp.asarray(shift), axis))
+    got = shift_1d(view, torch.from_numpy(shift), axis)
+    assert got.is_contiguous() and got.shape == view.shape
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=ATOL, rtol=0)
+    ct = rng.randn(*got.shape).astype(np.float32)
+    g, = torch.autograd.grad(got, view, torch.from_numpy(ct))
+    np.testing.assert_allclose(
+        g.numpy(), shift_1d_ref(torch.from_numpy(ct),
+                                -torch.from_numpy(shift), axis).numpy(),
+        atol=0, rtol=0)
+
+
+def test_unit_is_the_widest_that_divides_pointer_strides_and_row():
+    # the 128px warp, bf16: the y-shear's input is columns 314 .. 582 of a
+    # [32, 3, 576, 896] tensor, its output a contiguous [32, 3, 576, 268]
+    x = torch.zeros(2, 3, 576, 896, dtype=torch.bfloat16)
+    view = x[..., 314:314 + 268]
+    assert tshear._unit(view.data_ptr(), view.stride()[:3], 268, 2) == 4
+    assert tshear._unit(x.data_ptr(), x.stride()[:3], 896, 2) == 16
+    assert tshear._unit(0, (), 268, 2) == 8        # 536-byte output rows
+    assert tshear._unit(0, (), 268, 4) == 16
+    assert tshear._unit(0, (), 101, 2) == 2
+    assert tshear._unit(0, (), 5, 4) == 4          # never below an element
+    assert tshear._unit(2, (896,), 268, 2) == 2    # a 2-byte start
+
+
+def _staged_rows_emulation(img, shift):
+    """csrc/shear.cu's axis-2 kernel in numpy, f64, for one [R, N] plane:
+    per tile of TILE_ROWS x STRIP outputs, the strip's k range, the band of
+    input rows [r0 + kmin, r0 + rows + kmax] with zero rows outside
+    [0, R), and each output's two taps read from the band (device memory
+    where the band would exceed BAND_ROWS).  Returns the output and the
+    number of tiles that read device memory."""
+    r_ext, n_ext = img.shape
+    out = np.zeros_like(img)
+    direct = 0
+    for r0 in range(0, r_ext, tshear.TILE_ROWS):
+        for n0 in range(0, n_ext, tshear.STRIP):
+            rows = min(tshear.TILE_ROWS, r_ext - r0)
+            cols = np.arange(n0, min(n0 + tshear.STRIP, n_ext))
+            sv = np.clip(shift[cols].astype(np.float32), -(r_ext + 2.0),
+                         r_ext + 2.0)
+            fl = np.floor(sv)                  # f32, as the kernel takes it
+            k, f = fl.astype(np.int64), (sv - fl).astype(np.float64)
+            kmin, need = k.min(), rows + k.max() - k.min() + 1
+            rr = np.arange(rows)[:, None]
+            if need <= tshear.BAND_ROWS:
+                src = r0 + kmin + np.arange(need)
+                ok = (src >= 0) & (src < r_ext)
+                band = np.zeros((need, len(cols)))
+                band[ok] = img[src[ok]][:, cols]
+                at = rr + k[None, :] - kmin
+                idx = np.arange(len(cols))[None, :]
+                a0, a1 = band[at, idx], band[at + 1, idx]
+            else:
+                direct += 1
+                p = r0 + rr + k[None, :]
+
+                def tap(q):
+                    inside = (q >= 0) & (q < r_ext)
+                    return np.where(inside, img[np.clip(q, 0, r_ext - 1),
+                                                cols[None, :]], 0.0)
+                a0, a1 = tap(p), tap(p + 1)
+            out[r0:r0 + rows, cols] = (1.0 - f) * a0 + f * a1
+    return out, direct
+
+
+@pytest.mark.parametrize("r_ext,n_ext", [(576, 268), (1088, 524),
+                                         (2112, 1036)])
+def test_staged_band_holds_every_tap_of_the_warp(r_ext, n_ext):
+    """The y-shear's extents at 128, 256 and 512px, with the warp's shifts
+    ``gamma * centred column`` for |gamma| up to 2 (pure rotations reach
+    1): every tile is staged, every tap an output reads lies in its band,
+    and the result is the plain version's."""
+    rng = np.random.RandomState(r_ext)
+    img = rng.randn(r_ext, n_ext)
+    centred = np.arange(n_ext) - (n_ext / 2 - 0.5)
+    for gamma in (-2.0, -1.0, -0.37, 0.0, 0.61, 1.0, 2.0):
+        shift = gamma * centred + rng.uniform(-3, 3)
+        got, direct = _staged_rows_emulation(img, shift)
+        assert direct == 0, gamma
+        want = shift_1d_ref(torch.from_numpy(img)[None, None],
+                            torch.from_numpy(shift.astype(np.float32))[None],
+                            2)[0, 0].numpy()
+        np.testing.assert_allclose(got, want, atol=1e-12, rtol=0)
+
+
+def test_tiles_with_spread_shifts_read_device_memory():
+    """Shifts that are no shear (random per column) leave the band; those
+    tiles read their taps directly, with the same result."""
+    rng = np.random.RandomState(3)
+    img = rng.randn(150, 70)
+    shift = rng.randn(70) * 60
+    got, direct = _staged_rows_emulation(img, shift)
+    assert direct > 0
+    want = shift_1d_ref(torch.from_numpy(img)[None, None],
+                        torch.from_numpy(shift.astype(np.float32))[None],
+                        2)[0, 0].numpy()
+    np.testing.assert_allclose(got, want, atol=1e-12, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # the warp built on it
 # ---------------------------------------------------------------------------
