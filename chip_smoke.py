@@ -66,7 +66,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the controller's state moving as ada_update implies, ms per iteration,
    img/s, peak memory, the pipe's own time and a torch.profiler split;
    and one iteration with the gather warp, which launches kernel D.
-6. card    — nvidia-smi's name and power limit.
+6. train_loop — the flagship's training CLI
+   (``pgx_torch.cli.conditional_proper_cifar_train.main``) in this process
+   at full width, bf16, batch 32, 64px fade/stable -> 128px fade/stable,
+   fixed ADA p = 0.6 (shear warp, so kernel F runs), 3 iterations a
+   mini-step, samples, checkpoints and log every 3 iterations, in a
+   temporary directory the phase deletes; launch counts from 0 around it
+   (every kernel but D and E launched); finite losses in every CSV row,
+   64px then 128px in timing.json, 10 x 10 sample grids, the checkpoint
+   files at the cadence.  Then the same CLI in a child process, sent
+   SIGTERM once its first checkpoint is on disk, must exit 143 with an
+   emergency full-state checkpoint, and ``--resume`` here must restart at
+   that iteration and finish.  Reports img/s at 128px from timing.json
+   beside the bare step's, the prefetcher's wait, peak memory, seconds and
+   bytes per checkpoint write and the resumed run's first iteration.
+7. card    — nvidia-smi's name and power limit.
+
+Every bf16 kernel row of phase 2 also carries the kernel's device time
+from a CUDA graph (``device_ms``), beside the back-to-back time (``ms``).
 
 Prints JSON lines; the last two lines before the final one are the
 kernels table (nine entries) and the card, the last line is
@@ -80,6 +97,7 @@ import dataclasses
 import http.client
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -388,9 +406,10 @@ def kernel_phase(torch, calls, per: str, reps: int = 10):
                         f"tol {tol}")
                 del got, want
                 ms = cuda_ms(torch, kern, reps)
-                # B is one launch on a small tensor: back to back, the
-                # wrapper's host time shows; the graph leaves it out
-                device_ms = graph_ms(torch, kern) if name == B else None
+                # back to back, the wrapper's host time shows where a call
+                # is shorter than its enqueueing; the graph leaves it out
+                device_ms = (graph_ms(torch, kern) if dt_name == "bfloat16"
+                             else None)
                 plain_ms = cuda_ms(torch, plain, reps)
                 conv_ms = (cuda_ms(torch, conv_only, reps) if conv_only
                            else None)
@@ -2134,6 +2153,231 @@ def ada_train_phase(torch, gcfg, dcfg):
             "profile": prof}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the training loop through the flagship's CLI
+# ---------------------------------------------------------------------------
+
+LOOP_ARGS = ["--synthetic", "--channels", "512", "--z-dim", "512",
+             "--num-classes", "10", "--max-step", "6", "--init-step", "5",
+             "--dtype", "bfloat16", "--batch-size", str(TRAIN_BATCH),
+             "--images-per-mini-step", "96", "--ada-p", "0.6",
+             "--sample-every", "3", "--checkpoint-every", "3",
+             "--log-every", "3"]
+LOOP_TOTAL = 12          # 3 iterations a mini-step: 64px fade + stable,
+LOOP_CADENCE = (1, 3, 6, 9, 12)   # 128px fade + stable; events every 3
+
+
+@contextlib.contextmanager
+def loop_probes(torch):
+    """Measurement around the loop (none of it changes what the loop does):
+    every checkpoint write timed after a synchronize, with the bytes of the
+    files it wrote; every sample grid's PNG encode and write (its images
+    are on the host by then); every prefetcher the loop opens, for its wait
+    time; the first step of the run timed to its end and the iteration it
+    starts from."""
+    from pgx_torch import checkpoint as ckpt
+    from pgx_torch.train import loop as loop_mod
+    orig_save, orig_step = ckpt.save_checkpoint, loop_mod.make_train_step
+    orig_grid = loop_mod.save_image_grid
+    probes = {"writes": [], "grids_s": [], "prefetchers": [],
+              "first_step": None}
+
+    def timed_grid(*a, **kw):
+        t0 = time.perf_counter()
+        orig_grid(*a, **kw)
+        probes["grids_s"].append(time.perf_counter() - t0)
+
+    def timed_save(trial_dir, iteration, state, full_state=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig_save(trial_dir, iteration, state, full_state)
+        dt = time.perf_counter() - t0
+        names = [ckpt.checkpoint_name(iteration, k) for k in ("g", "d")]
+        if full_state:
+            names.append(ckpt.state_name(iteration))
+        probes["writes"].append({
+            "iteration": iteration, "seconds": dt, "full_state": full_state,
+            "bytes": sum(os.path.getsize(os.path.join(
+                trial_dir, "checkpoint", n)) for n in names)})
+
+    class Prefetcher(loop_mod.DevicePrefetcher):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            probes["prefetchers"].append(self)
+
+    def first_step_timed(*a, **kw):
+        step = orig_step(*a, **kw)
+
+        def run(state, *sa, **skw):
+            if probes["first_step"] is not None:
+                return step(state, *sa, **skw)
+            start_iter = state["iteration"]
+            t0 = time.perf_counter()
+            out = step(state, *sa, **skw)
+            torch.cuda.synchronize()
+            probes["first_step"] = {"iteration": start_iter,
+                                    "ended_s": time.perf_counter(),
+                                    "step_s": time.perf_counter() - t0}
+            return out
+        return run
+
+    with mock.patch.object(ckpt, "save_checkpoint", timed_save), \
+            mock.patch.object(loop_mod, "DevicePrefetcher", Prefetcher), \
+            mock.patch.object(loop_mod, "make_train_step", first_step_timed), \
+            mock.patch.object(loop_mod, "save_image_grid", timed_grid):
+        yield probes
+
+
+def check_trial(trial: str) -> dict:
+    """What the run must have left: finite losses in every CSV row, 64px
+    then 128px in timing.json, the sample grids (10 x 10 tiles) and the
+    checkpoint files at the cadence."""
+    import math
+    import glob
+    (log,) = glob.glob(os.path.join(trial, "train_log_*.txt"))
+    with open(log) as f:
+        lines = f.read().splitlines()
+    require(lines[0] == "iter,g,d,grad,alpha,ada_p,ada_r",
+            f"CSV header {lines[0]!r}")
+    rows = [[float(v) for v in line.split(",")] for line in lines[1:]]
+    require([int(r[0]) for r in rows] == [3, 6, 9, 12],
+            f"CSV iterations {[r[0] for r in rows]}")
+    require(all(math.isfinite(v) for r in rows for v in r),
+            f"CSV rows {rows}")
+    with open(os.path.join(trial, "timing.json")) as f:
+        timing = json.load(f)
+    require({k: v["resolution"] for k, v in timing.items()}
+            == {"3": 64, "6": 64, "9": 128, "12": 128},
+            f"timing.json {timing}")
+    names = set(os.listdir(os.path.join(trial, "checkpoint")))
+    samples = sorted(os.listdir(os.path.join(trial, "sample")))
+    for it in LOOP_CADENCE:
+        for kind in ("g.model", "d.model", "state.pt"):
+            require(f"{it:03d}_{kind}" in names,
+                    f"no {it:03d}_{kind} in {sorted(names)}")
+        require(f"{it:03d}.png" in samples, f"no sample {it}: {samples}")
+    grids = {}
+    for name in samples:
+        with open(os.path.join(trial, "sample", name), "rb") as f:
+            head = f.read(24)
+        w, h = (int.from_bytes(head[16:20], "big"),
+                int.from_bytes(head[20:24], "big"))
+        res = 64 if int(name[:3]) <= 6 else 128
+        require(head[:8] == b"\x89PNG\r\n\x1a\n"
+                and w == h == 10 * (res + 2) + 2,
+                f"sample {name}: {w}x{h}, want 10 x 10 tiles of {res}px")
+        grids[name] = [w, h]
+    return {"csv": rows, "timing": timing, "sample_grids": grids}
+
+
+def train_loop_phase(torch, bare: dict):
+    """The flagship's training CLI in this process at full width, bf16,
+    batch 32, 64px -> 128px with the shear warp at p = 0.6: launch counts
+    from 0 around it, the trial it leaves checked.  Then the same CLI in a
+    child process, sent SIGTERM once its first checkpoint is on disk, must
+    exit 143 with an emergency checkpoint, and ``--resume`` here finishes
+    its run from that iteration."""
+    import glob
+    import shutil
+    from pgx_torch.cli import conditional_proper_cifar_train as cli
+    from pgx_torch.ops import kernels as K
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="pgx_train_loop_")
+    try:
+        args = LOOP_ARGS + ["--output", os.path.join(root, "run")]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with loop_probes(torch) as probes:
+            # ---- the main path: counts from 0 around the CLI run ----
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            trial = cli.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = K.launch_counts()
+            # ----------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        run = check_trial(trial)
+        full = [w for w in probes["writes"] if w["full_state"]]
+        require(len(full) == len(LOOP_CADENCE) + 1,
+                f"checkpoint writes {probes['writes']}")
+        waits = [p.wait_s for p in probes["prefetchers"]]
+        require(len(waits) == 2, f"{len(waits)} prefetchers (want one per "
+                                 f"resolution)")
+        tick = run["timing"][str(LOOP_TOTAL)]
+
+        # ---- SIGTERM to the CLI in its own process, then --resume ----
+        torch.cuda.empty_cache()
+        out_dir = os.path.join(root, "stopped")
+        child = subprocess.Popen(
+            [sys.executable, "-m",
+             "pgx_torch.cli.conditional_proper_cifar_train",
+             *LOOP_ARGS, "--output", out_dir], cwd=here,
+            env={**os.environ, "PYTHONPATH": here}, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            deadline = time.monotonic() + 300
+            while (time.monotonic() < deadline and child.poll() is None
+                   and not glob.glob(os.path.join(
+                       out_dir, "trial_*", "checkpoint", "001_state.pt"))):
+                time.sleep(0.02)
+            t_sig = time.perf_counter()
+            child.send_signal(signal.SIGTERM)
+            out, _ = child.communicate(timeout=300)
+            stop_s = time.perf_counter() - t_sig
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+        require(child.returncode == 143,
+                f"the CLI exited {child.returncode} on SIGTERM:\n{out[-3000:]}")
+        (stopped_trial,) = glob.glob(os.path.join(out_dir, "trial_*"))
+        states = sorted(glob.glob(os.path.join(
+            stopped_trial, "checkpoint", "*_state.pt")))
+        stopped_at = int(os.path.basename(states[-1]).split("_")[0])
+        require(f"emergency checkpoint saved at iteration {stopped_at}"
+                in out and 1 <= stopped_at < LOOP_TOTAL,
+                f"no emergency checkpoint at {stopped_at}:\n{out[-3000:]}")
+        with loop_probes(torch) as resume_probes:
+            t_resume = time.perf_counter()
+            cli.main(LOOP_ARGS + ["--output", out_dir, "--resume",
+                                  stopped_trial])
+            resume_wall = time.perf_counter() - t_resume
+        first = resume_probes["first_step"]
+        require(first["iteration"] == stopped_at,
+                f"resumed at {first['iteration']}, the emergency checkpoint "
+                f"is at {stopped_at}")
+        resumed = check_trial(stopped_trial)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(not os.path.exists(root), f"{root} left behind")
+    return {
+        "config": "python -m pgx_torch.cli.conditional_proper_cifar_train "
+                  + " ".join(LOOP_ARGS),
+        "iterations": LOOP_TOTAL, "launches": launches,
+        "wall_s": wall, "peak_memory_bytes": peak,
+        "img_per_s_128px_stable_timing_json": tick["img_s"],
+        "bare_step_img_per_s": {"train": bare["train"],
+                                "train_ada": bare["train_ada"]},
+        "prefetch_wait_s": {"total": sum(waits), "per_resolution": waits},
+        "checkpoint_writes": probes["writes"],
+        "full_checkpoint_s_mean": statistics.mean(
+            w["seconds"] for w in full),
+        "full_checkpoint_bytes": full[0]["bytes"],
+        "sample_grid_png_s": probes["grids_s"],
+        "sigterm": {"stopped_at_iteration": stopped_at,
+                    "exit_code": child.returncode,
+                    "seconds_from_signal_to_exit": stop_s},
+        "resume": {"first_iteration": first["iteration"],
+                   "first_iteration_s": first["ended_s"] - t_resume,
+                   "first_step_s": first["step_s"],
+                   "wall_s": resume_wall,
+                   "csv_rows": resumed["csv"]},
+        "csv": run["csv"], "timing": run["timing"],
+        "sample_grids": run["sample_grids"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2225,6 +2469,13 @@ def main() -> int:
           "ada_cfg=AdaConfig()", **ada,
           "total_s": time.monotonic() - t_start})
 
+    # 6. the training loop through the flagship's CLI, SIGTERM and resume
+    looped = train_loop_phase(torch, {"train": trained["img_per_s"],
+                                      "train_ada": ada["img_per_s"]})
+    emit({"phase": "train_loop", **looped,
+          "total_s": time.monotonic() - t_start})
+    loop_launches = looped["launches"]
+
     def summed(agg):
         return {"launches": agg["calls"], "max_abs_err": agg["err"],
                 "tol": agg["tol"], "ms": agg["ms"],
@@ -2245,15 +2496,18 @@ def main() -> int:
         serve_launches = served["launches"].get(name, 0)
         train_launches = trained["launches"][name]
         ada_launches = ada["launches"][name]
-        require(train_launches > 0 and ada_launches > 0
+        loop_l = loop_launches[name]
+        require(train_launches > 0 and ada_launches > 0 and loop_l > 0
                 and (serve_launches > 0 or not on_serve),
                 f"{name}: not launched on its main path")
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
-                 "launches": serve_launches + train_launches + ada_launches,
+                 "launches": (serve_launches + train_launches + ada_launches
+                              + loop_l),
                  "launches_serve": serve_launches,
                  "launches_train": train_launches,
                  "launches_train_ada": ada_launches,
+                 "launches_train_loop": loop_l,
                  # the launches of one run of the path named in "per": ms,
                  # plain_ms and bound_ms are sums over these
                  "launches_per_path_run": head[(name, "bfloat16")]["calls"],
@@ -2269,12 +2523,12 @@ def main() -> int:
                            **summed(per_kernel_train[(name, "bfloat16")]),
                            "f32": summed(per_kernel_train[(name,
                                                            "float32")])}}
+        # "ms" times back-to-back launches, the wrapper's host time
+        # included; "device_ms" the kernel's own time (CUDA graph)
+        entry["device_ms"] = head[(name, "bfloat16")]["device_ms"]
+        entry["train"]["device_ms"] = per_kernel_train[
+            (name, "bfloat16")]["device_ms"]
         if name == B:
-            # "ms" times back-to-back launches, the wrapper's host time
-            # included; "device_ms" the kernel's own time (CUDA graph)
-            entry["device_ms"] = head[(name, "bfloat16")]["device_ms"]
-            entry["train"]["device_ms"] = per_kernel_train[
-                (name, "bfloat16")]["device_ms"]
             entry["launch_floor_device_ms"] = floor["empty_kernel_device_ms"]
         kernels.append(entry)
 
@@ -2282,7 +2536,8 @@ def main() -> int:
     # training iteration, timed at the iteration's recorded calls
     source, replaces = SOURCES[A_BWD2]
     launches = {"launches_train": trained["launches"][A_BWD2],
-                "launches_train_ada": ada["launches"][A_BWD2]}
+                "launches_train_ada": ada["launches"][A_BWD2],
+                "launches_train_loop": loop_launches[A_BWD2]}
     require(all(v > 0 for v in launches.values()),
             f"{A_BWD2}: not launched on its main path ({launches})")
     so = second_order
@@ -2308,7 +2563,8 @@ def main() -> int:
             (F_, "one bf16 ADA iteration (shear warp) at batch 32: 6 "
                  "forward and 2 backward launches",
              ada["launches_per_iteration"][F_], {
-                 "launches_train_ada": ada["launches"][F_]}),
+                 "launches_train_ada": ada["launches"][F_],
+                 "launches_train_loop": loop_launches[F_]}),
             (D_, "one bf16 ADA iteration (gather warp) at batch 32: 6 "
                  "forward and 2 backward launches", gather_launches[D_], {
                      "launches_train_ada_gather": gather_launches[D_],
@@ -2320,6 +2576,8 @@ def main() -> int:
         source, replaces = SOURCES[name]
         require(all(v > 0 for v in launches.values()),
                 f"{name}: not launched on its main path ({launches})")
+        # the loop's flagship path runs neither D nor E: 0 for them
+        launches.setdefault("launches_train_loop", loop_launches[name])
         agg = fde[(name, "bfloat16")]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(launches.values()),
@@ -2350,7 +2608,7 @@ def main() -> int:
                 for ax in (3, 2)}
         kernels.append(entry)
 
-    # 6. the card
+    # 7. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

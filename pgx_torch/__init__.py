@@ -7,8 +7,12 @@ hot work goes through hand-written CUDA kernels (``pgx_torch.ops.kernels``)
 whose plain PyTorch versions serve CPU tensors and the tests.
 
 Ported so far: the serving path (``GeneratorService`` in
-``pgx_torch.serve`` over the EMA generator's forward), one WGAN-GP training
-iteration (``pgx_torch.train.make_train_step``), the ADA augmentation
-pipeline and its controller (``pgx_torch.augment``) and the ops layer
-(``pgx_torch.ops``).
+``pgx_torch.serve`` over the EMA generator's forward), the WGAN-GP training
+iteration (``pgx_torch.train.make_train_step``) and the loop around it
+(``pgx_torch.train.train_loop``: growth stages, sample grids, checkpoints,
+resume), the checkpoint protocol (``pgx_torch.checkpoint``), the data path
+(``pgx_torch.data``: datasets, batch streams, the device prefetcher), the
+ADA augmentation pipeline and its controller (``pgx_torch.augment``), the
+ops layer (``pgx_torch.ops``) and two CLIs (``pgx_torch.cli.serve``,
+``pgx_torch.cli.conditional_proper_cifar_train``).
 """

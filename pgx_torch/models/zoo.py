@@ -1,5 +1,6 @@
 """Factories of ``pgx.models.zoo``: every discriminator config, and the
-generator configs ported so far."""
+generator configs ported so far (all but ``conditional_generator`` and
+``mnist_conditional_generator``)."""
 
 from __future__ import annotations
 
@@ -89,6 +90,20 @@ def conditional_correct_discriminator_wgangp(
         stage_out=(f, f, f, f, f, f // 2),
         arch="proper", conditioning="label_plane", num_classes=num_classes,
         equal_embed=do_equal_embed, max_step=max_step, **kw)
+
+
+def conditional_correct_generator_ada(z_dim: int = 512, num_classes: int = 10,
+                                      channel: int = 512,
+                                      pixel_norm: bool = True,
+                                      tanh: bool = False, max_step: int = 4,
+                                      **kw) -> GeneratorConfig:
+    """progan_modules.ConditionalCorrectGeneratorAda: L2-normalized z and
+    embed before concat."""
+    c = channel
+    return GeneratorConfig(
+        z_dim=z_dim, channels=(c, c, c, c), pixel_norm=pixel_norm, tanh=tanh,
+        max_step=max_step, arch="proper", conditioning="norm_concat",
+        num_classes=num_classes, embed_dim=z_dim, **kw)
 
 
 def conditional_correct_discriminator_ada(feat_dim: int = 512,

@@ -1,4 +1,5 @@
-"""Growth schedules, the train step and the sampling function of the port."""
+"""Growth schedules, the train step, the sampling function and the training
+loop of the port."""
 
 from pgx_torch.train.schedule import (  # noqa: F401
     LegacySchedule,
@@ -15,3 +16,4 @@ from pgx_torch.train.wgan import (  # noqa: F401
     make_train_step,
     train_state_from_jax,
 )
+from pgx_torch.train.loop import LoopConfig, train_loop  # noqa: F401,E402
