@@ -80,13 +80,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    that iteration and finish.  Reports img/s at 128px from timing.json
    beside the bare step's, the prefetcher's wait, peak memory, seconds and
    bytes per checkpoint write and the resumed run's first iteration.
-7. card    — nvidia-smi's name and power limit.
+7. train_512_recipe — the 512px production recipe at full width
+   (conditional_correct_grown(8, z_dim=512, channel=512), bf16, batch 8,
+   ADA with the controller and the shear warp, gp_every 4, fused_g):
+   kernel A's tangent (bias_pixelnorm_lrelu_jvp) at every call of one jvp
+   penalty iteration against its plain version in f32 and bf16, with its
+   device time from a CUDA graph, and its Function's backward against
+   autograd through the plain rule; the f32 step at 512px in both penalty
+   modes (jvp against reverse, and jvp through the kernels against jvp
+   with the plain versions, against a noise yardstick); the bf16 step in
+   both modes with launch counts per penalty and plain iteration asserted
+   from the routing rules (reverse: no tangent; jvp: no double backward
+   of a conv), ms per iteration over whole gp_every groups, img/s, peak
+   memory, idle share; one window of make_train_multi_step(k=8) against 8
+   single steps at learning rate 0, within 4x two runs' own spread (the
+   card's atomics are not repeatable); peak memory and ms per iteration for each
+   remat policy and weights_cast='once'; then the flagship's CLI with
+   the recipe's flags (--gp-mode jvp --steps-per-call 8) through 256px
+   and 512px, fade and stable, windows counted per phase, and a short run
+   with --steps-per-call auto.
+8. card    — nvidia-smi's name and power limit.
 
 Every bf16 kernel row of phase 2 also carries the kernel's device time
 from a CUDA graph (``device_ms``), beside the back-to-back time (``ms``).
 
 Prints JSON lines; the last two lines before the final one are the
-kernels table (nine entries) and the card, the last line is
+kernels table (ten entries) and the card, the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -116,6 +135,7 @@ A, B, C, C_R = ("bias_pixelnorm_lrelu", "pixel_norm_lrelu",
                 "conv3x3_epilogue", "conv3x3_epilogue_r")
 A_BWD = "bias_pixelnorm_lrelu_bwd"
 A_BWD2 = "bias_pixelnorm_lrelu_bwd2"
+A_JVP = "bias_pixelnorm_lrelu_jvp"
 F_, D_, E_ = "shift_1d", "upfirdn2d", "bias_act"
 SOURCES = {
     A: ("pgx_torch/ops/kernels/csrc/epilogue.cu",
@@ -126,6 +146,10 @@ SOURCES = {
     A_BWD2: ("pgx_torch/ops/kernels/csrc/epilogue.cu",
              "pgx/ops/pallas/epilogue.py:80-86 (second order of the "
              "custom_jvp's tangent rule)"),
+    # the custom_jvp's tangent rule, which pgx's JVP penalty evaluates
+    A_JVP: ("pgx_torch/ops/kernels/csrc/epilogue.cu",
+            "pgx/ops/pallas/epilogue.py:115-137 (the custom_jvp's tangent "
+            "rule, _jvp_rule)"),
     B: ("pgx_torch/ops/kernels/csrc/epilogue.cu",
         "pgx/ops/pallas/kernels.py:266"),
     C: ("pgx_torch/ops/kernels/csrc/conv_epilogue.cu",
@@ -849,7 +873,7 @@ def calls_per_iteration(gcfg, dcfg, step: int, warp=None) -> dict:
                   for k in range(dcfg.entry_stage(step) + 1))
     return {A: 4 * d_convs + 2 * g[A],
             A_BWD: 4 * d_convs + g[A] + d_convs - 1, A_BWD2: d_convs,
-            B: 2 * g[B], C: g[C], C_R: g[C],
+            A_JVP: 0, B: 2 * g[B], C: g[C], C_R: g[C],
             F_: 8 if warp == "shear" else 0,
             D_: 8 if warp == "gather" else 0, E_: 0}
 
@@ -1496,8 +1520,8 @@ def train_phase(torch, gcfg, dcfg):
     torch.cuda.synchronize()
     d_alone = K.launch_counts()
     d_convs = (want[A] - 2 * PER_FORWARD[A]) // 4
-    require(d_alone == {A: d_convs, A_BWD: 0, A_BWD2: 0, B: 0, C: 0, C_R: 0,
-                        F_: 0, D_: 0, E_: 0},
+    require(d_alone == {A: d_convs, A_BWD: 0, A_BWD2: 0, A_JVP: 0, B: 0,
+                        C: 0, C_R: 0, F_: 0, D_: 0, E_: 0},
             f"a discriminator forward launched {d_alone}")
     require(scores.shape == (TRAIN_BATCH, 1), f"D output {scores.shape}")
 
@@ -2378,6 +2402,650 @@ def train_loop_phase(torch, bare: dict):
         "sample_grids": run["sample_grids"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the 512px production recipe (gp_mode='jvp', steps_per_call)
+# ---------------------------------------------------------------------------
+
+R512_STEP = 8             # conditional_correct_grown(8): 512px
+R512_BATCH = 8
+R512_CHANNEL = 512
+R512_GP_EVERY = 4
+R512_ARGS = ["--synthetic", "--max-step", "8", "--init-step", "7",
+             "--dtype", "bfloat16", "--batch-size", str(R512_BATCH),
+             "--ada", "--gp-every", "4", "--fused-g", "--gp-mode", "jvp",
+             "--steps-per-call", "8",
+             # 24 iterations a phase (256px fade, stable, 512px fade,
+             # stable): windows at 4 and 12 of each, 24-47 and 72-95 whole
+             "--images-per-mini-step", str(24 * R512_BATCH),
+             "--limit-images", "64", "--log-every", "24",
+             "--sample-every", "48", "--checkpoint-every", "48"]
+R512_PHASE = 24
+R512_AUTO_ARGS = ["--synthetic", "--max-step", "8", "--init-step", "7",
+                  "--dtype", "bfloat16", "--batch-size", str(R512_BATCH),
+                  "--ada", "--gp-every", "4", "--fused-g", "--gp-mode",
+                  "jvp", "--steps-per-call", "auto",
+                  "--images-per-mini-step", str(8 * R512_BATCH),
+                  "--limit-images", "64", "--log-every", "8",
+                  "--sample-every", "1000", "--checkpoint-every", "1000"]
+
+
+def recipe_pair(dtype: str):
+    from pgx_torch.models import zoo
+    gcfg, dcfg = zoo.conditional_correct_grown(
+        R512_STEP, z_dim=R512_CHANNEL, channel=R512_CHANNEL,
+        num_classes=10, dtype=dtype)
+    return gcfg, dcfg
+
+
+def recipe_launches(gen, dcfg, mode: str, apply_gp: bool) -> dict:
+    """Kernel launches of one recipe iteration (fused_g, ADA with the shear
+    warp), from the weights' shapes and the routing rules.  One generator
+    forward under grad (B, C's residual-emitting entry, A where it takes
+    the upsampled convs) and its backward (A's backward for each A); the
+    pipe on the reals and on the fakes, forward and backward: F 6; D's real
+    and fake forwards (n A each, n = D's convs, all on A) and their
+    backward.  The penalty adds, with 'jvp', the frozen inner forward and
+    its backward (n, n), the dual forward's primal (n A), n tangents, and in
+    the reverse pass over the tangents n second derivatives, n backwards
+    for the tangents' transposes and n for the primal chain; with 'reverse'
+    the x_hat forward and its backward (n, n), the outer pass's n - 1
+    backwards and n second derivatives."""
+    g = routed_g_calls(gen, R512_STEP)
+    require(g["torch_ops"] == 0, f"the recipe's generator left {g} to the "
+                                 f"torch ops")
+    n = sum(2 if (k == 0 or dcfg.block_type == "double") else 1
+            for k in range(dcfg.entry_stage(R512_STEP) + 1))
+    out = {A: 2 * n + g[A], A_BWD: 2 * n + g[A], A_BWD2: 0, A_JVP: 0,
+           B: g[B], C: 0, C_R: g[C], F_: 6, D_: 0, E_: 0}
+    if apply_gp and mode == "jvp":
+        out[A] += 2 * n
+        out[A_BWD] += 3 * n
+        out[A_BWD2] = out[A_JVP] = n
+    elif apply_gp:
+        out[A] += n
+        out[A_BWD] += 2 * n - 1
+        out[A_BWD2] = n
+    return out
+
+
+def recipe_state(gcfg, dcfg, **tc_kw):
+    """A bf16 recipe state (seed 0), the controller at ADA_P0, and its two
+    steps (the penalty iteration and the plain one)."""
+    from pgx_torch.augment import AdaConfig, bgc_config, init_ada_state
+    from pgx_torch.train import TrainConfig, init_train_state, \
+        make_train_step
+    tc = TrainConfig(**{"gp_every": R512_GP_EVERY, "fused_g": True,
+                        **tc_kw})
+    state = init_train_state(gcfg, dcfg, tc, seed=0, device=DEVICE)
+    state["ada"] = init_ada_state(ADA_P0, DEVICE)
+    steps = {gp: make_train_step(gcfg, dcfg, tc, step=R512_STEP,
+                                 fading=False, apply_gp=gp,
+                                 augment_cfg=bgc_config(),
+                                 ada_cfg=AdaConfig())
+             for gp in (True, False)}
+    return tc, state, steps
+
+
+def recipe_draws(torch, gcfg, seed: int, batch: int = R512_BATCH):
+    """One iteration's real batch, labels and draws on the card, seeded."""
+    from pgx_torch.train import draw_augment_sources, draw_z_eps
+    rng = torch.Generator(device=DEVICE).manual_seed(seed)
+    res = gcfg.resolution(R512_STEP)
+    real = torch.randn(batch, res, res, 3, generator=rng,
+                       device=DEVICE).clamp_(-1.0, 1.0).to(torch.bfloat16)
+    labels = torch.arange(batch, device=DEVICE) % gcfg.num_classes
+    z, eps = draw_z_eps(gcfg, batch, rng, dtype=real.dtype)
+    return real, labels, dict(z=z, eps=eps,
+                              aug_draws=draw_augment_sources(rng))
+
+
+def tangent_kernel_phase(torch, calls, reps: int = 5) -> dict:
+    """Kernel A's tangent at every call of one 512px jvp iteration: the
+    kernel against its plain version (pgx's rule in torch ops) in f32 (1e-5
+    of the largest output) and bf16 (two bf16 steps at the largest
+    output); device time from a CUDA graph, back-to-back time, the plain
+    version's, and the byte bound (read y and dy, write dout; b and db
+    C-wide).  Then the Function's backward against autograd through the
+    plain rule at the largest call (f32, 1e-4 of each gradient's largest
+    entry)."""
+    import math
+    from pgx_torch.ops.kernels import epilogue
+    rng = torch.Generator(device=DEVICE).manual_seed(31)
+    uniq = {}
+    for c in calls:
+        uniq[c] = uniq.get(c, 0) + 1
+    out = {"calls": len(calls), "ms": 0.0, "device_ms": 0.0,
+           "plain_ms": 0.0, "t_bytes": 0.0, "max_abs_err": 0.0, "tol": 0.0,
+           "f32": {"ms": 0.0, "plain_ms": 0.0, "t_bytes": 0.0,
+                   "max_rel_err": 0.0}, "per_shape": []}
+    for (shape, has_db), mult in sorted(uniq.items()):
+        row = {"shape": list(shape), "db": has_db, "calls": mult}
+        c = shape[-1]
+        for dt_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dt_name)
+            es = torch.finfo(dt).bits // 8
+
+            def rand(*sh, scale=1.0):
+                return (torch.randn(*sh, generator=rng, device=DEVICE)
+                        * scale).to(dt)
+            y, dy, b = rand(*shape), rand(*shape), rand(c, scale=0.1)
+            db = rand(c) if has_db else None
+
+            def kern():
+                return epilogue._launch_jvp(y, b, dy, db, 0.2, 1e-8)
+
+            def plain():
+                return epilogue.bias_pixelnorm_lrelu_jvp_ref(y, b, dy, db,
+                                                             0.2, 1e-8)
+            with torch.inference_mode():
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                scale = want.float().abs().max().item()
+                err = (got.float() - want.float()).abs().max().item()
+                tol = (bf16_tol(scale) if dt_name == "bfloat16"
+                       else 1e-5 * scale)
+                require(got.shape == want.shape and got.dtype == dt
+                        and math.isfinite(err) and err <= tol,
+                        f"{A_JVP} {shape} {dt_name}: max abs err {err} > "
+                        f"tol {tol}")
+                ms = cuda_ms(torch, kern, reps)
+                plain_ms = cuda_ms(torch, plain, reps)
+                device_ms = (graph_ms(torch, kern)
+                             if dt_name == "bfloat16" else None)
+                # A's forward at the same rows (one warp a row): beside
+                # the tangent's row groups, for the speed queue
+                fwd_ms = (graph_ms(torch, lambda: epilogue._launch(
+                    y, b, 0.2, 1e-8)) if dt_name == "bfloat16" else None)
+            nbytes = 3 * math.prod(shape) * es + c * es * (1 + has_db)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            if dt_name == "float32":
+                f = out["f32"]
+                f["ms"] += mult * ms
+                f["plain_ms"] += mult * plain_ms
+                f["t_bytes"] += mult * t_bytes
+                f["max_rel_err"] = max(f["max_rel_err"],
+                                       err / max(scale, 1e-30))
+                row["f32"] = {"ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": t_bytes, "max_abs_err": err,
+                              "tol": tol}
+                continue
+            out["ms"] += mult * ms
+            out["device_ms"] += mult * device_ms
+            out["plain_ms"] += mult * plain_ms
+            out["t_bytes"] += mult * t_bytes
+            if err >= out["max_abs_err"]:
+                out["max_abs_err"], out["tol"] = err, tol
+            row.update(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                       bound_ms=t_bytes, max_abs_err=err, tol=tol,
+                       a_forward_device_ms=fwd_ms,
+                       a_forward_bound_ms=t_bytes * 2 / 3)
+        out["per_shape"].append(row)
+    # the Function's backward (A's backward and second-derivative kernels)
+    # against autograd through the plain rule, at the call nearest 2^21
+    # elements (its bias gradients sum over rows in another order)
+    shape = min((c[0] for c in calls),
+                key=lambda sh: abs(math.prod(sh) - 2 ** 21))
+    leaves = [(torch.randn(*sh, generator=rng, device=DEVICE) * sc)
+              .requires_grad_(True) for sh, sc in
+              ((shape, 1.0), ((shape[-1],), 0.1), (shape, 1.0),
+               ((shape[-1],), 1.0))]
+    cot = torch.randn(*shape, generator=rng, device=DEVICE)
+    got = torch.autograd.grad(
+        epilogue.bias_pixelnorm_lrelu_tangent(*leaves), leaves, cot)
+    want = torch.autograd.grad(
+        epilogue.bias_pixelnorm_lrelu_jvp_ref(*leaves), leaves, cot)
+    worst = max((x - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                for x, w in zip(got, want))
+    require(worst <= 1e-4, f"{A_JVP} backward vs autograd through the plain "
+                           f"rule: {worst} of the largest entry")
+    out["backward_vs_autograd_plain_rel_err"] = worst
+    out["backward_shape"] = list(shape)
+    out["bound_ms"] = out["t_bytes"]
+    out["bound_by"] = "bytes"
+    return out
+
+
+def record_tangent_calls(torch, gcfg, dcfg):
+    """The (shape, db given) of every tangent kernel launch of one bf16
+    512px jvp penalty iteration."""
+    from pgx_torch.ops.kernels import epilogue
+    calls = []
+    inner = epilogue._launch_jvp
+
+    def rec(y, b, dy, db, slope, eps):
+        calls.append((tuple(y.shape), db is not None))
+        return inner(y, b, dy, db, slope, eps)
+    _, state, steps = recipe_state(gcfg, dcfg, gp_mode="jvp")
+    real, labels, draws = recipe_draws(torch, gcfg, seed=900)
+    with mock.patch.object(epilogue, "_launch_jvp", rec):
+        steps[True](state, real, labels, 1.0, **draws)
+        torch.cuda.synchronize()
+    del state, steps
+    return calls
+
+
+def penalty_f32_check(torch, gcfg, dcfg) -> dict:
+    """f32 at 512px, batch 8, TF32 off, one iteration at learning rate 0
+    from one seeded state (no ADA, the penalty on): D's and G's gradients
+    (Adam's mu) of the jvp penalty through the kernels against (a) the
+    reverse penalty through the kernels and (b) the jvp penalty with the
+    plain versions swapped in (pgx's rule through forward AD of torch ops),
+    with the measures of train_f32_check; the yardstick is the reverse
+    penalty with the plain versions, its fake batch moved by 3e-7 noise.
+    Held to the 128px check's 3e-2 of the largest entry and 5e-3 in the
+    mean, or twice the yardstick where the function is that sensitive."""
+    from pgx_torch.train import TrainConfig, init_train_state, \
+        make_train_step
+
+    def run(mode, context):
+        tc = TrainConfig(gp_mode=mode, learning_rate=0.0)
+        g32, d32 = (dataclasses.replace(c, dtype="float32")
+                    for c in (gcfg, dcfg))
+        state = init_train_state(g32, d32, tc, seed=0, device=DEVICE)
+        real, labels, draws = recipe_draws(torch, g32, seed=950)
+        with context:
+            _, metrics = make_train_step(g32, d32, tc, step=R512_STEP,
+                                         fading=False)(
+                state, real.float(), labels, 1.0, z=draws["z"],
+                eps=draws["eps"].float())
+            torch.cuda.synchronize()
+        mu = {f"{net}.{n}": t.clone() for net in ("d", "g")
+              for n, t in state[f"opt_{net}"]["mu"].items()}
+        del state
+        torch.cuda.empty_cache()
+        return {k: float(v) for k, v in metrics.items()}, mu
+
+    def worst(got, want, prefix):
+        out = {"max_err_rel_to_largest_entry": 0.0,
+               "mean_err_rel_to_mean": 0.0, "tensor": None}
+        for name, w in want.items():
+            scale = w.abs().max().item()
+            if not name.startswith(prefix) or scale == 0.0:
+                continue
+            diff = (got[name] - w).abs()
+            rel = diff.max().item() / scale
+            out["mean_err_rel_to_mean"] = max(
+                out["mean_err_rel_to_mean"],
+                diff.mean().item() / w.abs().mean().item())
+            if rel >= out["max_err_rel_to_largest_entry"]:
+                out["max_err_rel_to_largest_entry"] = rel
+                out["tensor"] = name
+        return out
+
+    jvp_k = run("jvp", contextlib.nullcontext())
+    rev_k = run("reverse", contextlib.nullcontext())
+    jvp_p = run("jvp", plain_versions())
+    rev_p = run("reverse", plain_versions())
+    with plain_versions():
+        noisy = run("reverse", perturbed_fake(torch, 3e-7))
+    stick = {net: worst(noisy[1], rev_p[1], f"{net}.") for net in ("d", "g")}
+    report = {"yardstick_plain_reverse_with_3e-7_noise_on_the_fake": stick}
+    for label, (got, want) in (("jvp_vs_reverse_kernels", (jvp_k, rev_k)),
+                               ("jvp_kernels_vs_jvp_plain", (jvp_k, jvp_p))):
+        for net in ("d", "g"):
+            r = worst(got[1], want[1], f"{net}.")
+            tol_max = max(3e-2, 2 * stick[net]["max_err_rel_to_largest_entry"])
+            tol_mean = max(5e-3, 2 * stick[net]["mean_err_rel_to_mean"])
+            require(r["max_err_rel_to_largest_entry"] <= tol_max
+                    and r["mean_err_rel_to_mean"] <= tol_mean,
+                    f"512px f32 {label} {net}: {r} over ({tol_max}, "
+                    f"{tol_mean})")
+            report[f"{label}_{net}"] = {**r, "tol_max": tol_max,
+                                        "tol_mean": tol_mean}
+        m_got, m_want = got[0], want[0]
+        for k, v in m_want.items():
+            require(abs(m_got[k] - v) <= 1e-4 + 1e-3 * abs(v),
+                    f"512px f32 {label}: metric {k} {m_got[k]} vs {v}")
+    report["metrics"] = {"jvp_kernels": jvp_k[0], "reverse_kernels": rev_k[0],
+                         "jvp_plain": jvp_p[0]}
+    return report
+
+
+def profile_group(torch, run) -> dict:
+    """One recipe group (the penalty iteration and gp_every - 1 plain ones)
+    under torch.profiler: device kernel time, the tangent and
+    rownorm launches traced, and whether torch's double backward of a conv
+    ran (its aten op on the host side)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    kernel_ms = sum(ev.time_range.elapsed_us() for ev in dev) / 1e3
+    host_ops = {ev.name for ev in prof.events()
+                if ev.device_type == DeviceType.CPU}
+    require(kernel_ms > 0, "profiler saw no device time for the recipe")
+    return {"kernel_ms_per_group": kernel_ms,
+            "conv_double_backward": "aten::_convolution_double_backward"
+                                    in host_ops,
+            "tangent_kernels_traced": sum("rownorm_jvp" in ev.name
+                                          for ev in dev)}
+
+
+def recipe_bare_phase(torch, gcfg, dcfg) -> dict:
+    """The recipe's step (fused_g, ADA controller, shear warp, gp_every 4)
+    in both penalty modes at 512px, batch 8, bf16: launch counts from 0 for
+    the penalty iteration and a plain one, asserted against the routing
+    rules; device ms per iteration over whole groups, img/s, peak memory,
+    the host's wall time, idle share from the profile, no double backward
+    of a conv in jvp mode."""
+    import math
+    from pgx_torch.ops import kernels as K
+    out = {}
+    for mode in ("jvp", "reverse"):
+        _, state, steps = recipe_state(gcfg, dcfg, gp_mode=mode)
+        counts = {}
+        # ---- the main path: counts from 0 around each iteration ----
+        for gp, seed in ((True, 1000), (False, 1001)):
+            real, labels, draws = recipe_draws(torch, gcfg, seed=seed)
+            K.reset_launch_counts()
+            _, metrics = steps[gp](state, real, labels, 1.0, **draws)
+            torch.cuda.synchronize()
+            got = K.launch_counts()
+            want = recipe_launches(state["g"], dcfg, mode, gp)
+            require(got == want, f"512px {mode} iteration (penalty {gp}): "
+                                 f"launches {got} != {want}")
+            vals = {k: float(v) for k, v in metrics.items()}
+            require(all(math.isfinite(v) for v in vals.values()),
+                    f"512px {mode}: metrics {vals}")
+            counts["penalty" if gp else "plain"] = got
+        # -------------------------------------------------------------
+        batches = [recipe_draws(torch, gcfg, seed=1100 + j)
+                   for j in range(R512_GP_EVERY)]
+
+        def group():
+            for j, (real, labels, draws) in enumerate(batches):
+                steps[j == 0](state, real, labels, 1.0, **draws)
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, group, reps=3, warmup=1) / R512_GP_EVERY
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        group()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / R512_GP_EVERY
+        prof = profile_group(torch, group)
+        require(not prof["conv_double_backward"] or mode == "reverse",
+                "a jvp group ran aten::_convolution_double_backward")
+        kernel_ms = prof["kernel_ms_per_group"] / R512_GP_EVERY
+        out[mode] = {"launches_penalty_iteration": counts["penalty"],
+                     "launches_plain_iteration": counts["plain"],
+                     "device_ms_per_iteration": ms,
+                     "img_per_s": R512_BATCH / ms * 1e3,
+                     "host_wall_ms_per_iteration": host_ms,
+                     "peak_memory_bytes": peak,
+                     "profiled_kernel_ms_per_iteration": kernel_ms,
+                     "idle_share": max(0.0, 1.0 - kernel_ms / ms),
+                     "conv_double_backward_in_profile":
+                         prof["conv_double_backward"],
+                     # the trace may drop short launches: beside the count
+                     "tangent_kernels_traced_per_group":
+                         prof["tangent_kernels_traced"]}
+        del state, steps, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def multi_step_phase(torch, gcfg, dcfg, k: int = 8) -> dict:
+    """One window of make_train_multi_step(k=8) against 8 single steps on
+    the same draws (jvp, the recipe's settings).  The window is the single
+    step's body called in the same order, but the card's own arithmetic is
+    not repeatable bit for bit: the backward of the generator's bilinear
+    upsample and of the label embeddings' gather add with atomics.  So the
+    comparison runs at learning rate 0 (every iteration sees the same
+    weights, and no Adam step turns a rounding into a +-lr move), cuDNN in
+    its deterministic mode, and holds the window to the spread of two runs
+    of the 8 single steps: Adam's moments (mu, nu) and the ADA state within
+    4x that spread of the largest entry (exactly equal where the two runs
+    are), counts exact.  Both paths timed."""
+    from pgx_torch.augment import AdaConfig, bgc_config
+    from pgx_torch.train import make_train_multi_step
+    batches = [recipe_draws(torch, gcfg, seed=1200 + j) for j in range(k)]
+    # the draw sources replay from their generators' current states:
+    # rewound before every run
+    gens = [b[2]["aug_draws"][0].generator for b in batches]
+    snaps = [g.get_state() for g in gens]
+
+    def rewind():
+        for g, snap in zip(gens, snaps):
+            g.set_state(snap)
+
+    def moments(state):
+        out = {f"{o}.{m}.{n}": t.clone() for o in ("opt_d", "opt_g")
+               for m in ("mu", "nu") for n, t in state[o][m].items()}
+        out.update({f"ada.{n}": t.clone() for n, t in state["ada"].items()})
+        return out
+
+    def spread(x, y):
+        worst, name = 0.0, None
+        for n, t in x.items():
+            scale = max(t.abs().max().item(), 1e-30)
+            rel = (t - y[n]).abs().max().item() / scale
+            if rel > worst:
+                worst, name = rel, n
+        return worst, name
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for label in ("singles", "singles_again", "window"):
+            tc, state, steps = recipe_state(gcfg, dcfg, gp_mode="jvp",
+                                            learning_rate=0.0)
+            rewind()
+            if label == "window":
+                fn = make_train_multi_step(gcfg, dcfg, tc, step=R512_STEP,
+                                           fading=False, k=k,
+                                           augment_cfg=bgc_config(),
+                                           ada_cfg=AdaConfig())
+                run = lambda: fn(state, [b[0] for b in batches],
+                                 [b[1] for b in batches], [1.0] * k,
+                                 draws=[(b[2]["z"], b[2]["eps"],
+                                         b[2]["aug_draws"])
+                                        for b in batches])
+            else:
+                def run():
+                    for j, (real, labels, draws) in enumerate(batches):
+                        steps[j % R512_GP_EVERY == 0](state, real, labels,
+                                                      1.0, **draws)
+            run()
+            torch.cuda.synchronize()
+            require(state["iteration"] == k and state["opt_d"]["count"] == k,
+                    f"{label}: iteration {state['iteration']}")
+            runs[label] = moments(state)
+            ms = cuda_ms(torch, lambda: (rewind(), run()), reps=2, warmup=0)
+            runs[label + "_ms"] = ms
+            del state, steps
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    noise, noise_at = spread(runs["singles_again"], runs["singles"])
+    err, err_at = spread(runs["window"], runs["singles"])
+    require(err <= 4.0 * noise, f"a window of {k} vs {k} single steps: "
+                                f"{err} at {err_at}, two runs of the single "
+                                f"steps {noise} at {noise_at}")
+    return {"k": k, "learning_rate": 0.0,
+            "window_vs_singles_max_rel_err": err, "at": err_at,
+            "singles_vs_singles_max_rel_err": noise, "noise_at": noise_at,
+            "bitwise_equal": err == 0.0,
+            "device_ms_8_single_steps": runs["singles_ms"],
+            "device_ms_one_window": runs["window_ms"]}
+
+
+def memory_variants_phase(torch, gcfg, dcfg) -> dict:
+    """The recipe's jvp step with remat off, each remat policy, and
+    weights_cast='once': peak memory and device ms per iteration over a
+    whole group of gp_every iterations."""
+    out = {}
+    for label, kw in (("remat_off", {}),
+                      ("remat_full", dict(remat=True, remat_policy="full")),
+                      ("remat_convs", dict(remat=True,
+                                           remat_policy="convs")),
+                      ("remat_d_only", dict(remat=True,
+                                            remat_policy="d_only")),
+                      ("weights_cast_once", dict(weights_cast="once"))):
+        _, state, steps = recipe_state(gcfg, dcfg, gp_mode="jvp", **kw)
+        batches = [recipe_draws(torch, gcfg, seed=1300 + j)
+                   for j in range(R512_GP_EVERY)]
+
+        def group():
+            for j, (real, labels, draws) in enumerate(batches):
+                steps[j == 0](state, real, labels, 1.0, **draws)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(torch, group, reps=2, warmup=1) / R512_GP_EVERY
+        out[label] = {"peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                      "device_ms_per_iteration": ms,
+                      "img_per_s": R512_BATCH / ms * 1e3}
+        del state, steps, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def recipe_cli_phase(torch) -> dict:
+    """The recipe through the flagship's CLI in this process (full width,
+    512px, bf16, batch 8, ADA, gp_every 4, fused_g, jvp, steps_per_call 8),
+    256px fade/stable then 512px fade/stable, 24 iterations each: launch
+    counts from 0 around it, the windows and single steps counted, img/s
+    per phase from timing.json, finite CSV rows, peak memory.  Then a short
+    run with --steps-per-call auto, reporting the window it chose per
+    stage."""
+    import glob
+    import math
+    import shutil
+    from pgx_torch.cli import conditional_proper_cifar_train as cli
+    from pgx_torch.ops import kernels as K
+    from pgx_torch.train import loop as loop_mod
+
+    windows, singles, chosen = [], [], []
+    orig_multi, orig_step = (loop_mod.make_train_multi_step,
+                             loop_mod.make_train_step)
+    orig_auto = loop_mod._auto_k
+
+    def counted_multi(*a, **kw):
+        fn = orig_multi(*a, **kw)
+
+        def run(state, *ra, **rkw):
+            windows.append((kw["step"], kw["fading"], state["iteration"],
+                            kw["k"]))
+            return fn(state, *ra, **rkw)
+        return run
+
+    def counted_step(*a, **kw):
+        fn = orig_step(*a, **kw)
+
+        def run(state, *ra, **rkw):
+            singles.append((kw["step"], kw["fading"], state["iteration"]))
+            return fn(state, *ra, **rkw)
+        return run
+
+    def recorded_auto(ms, gp_every):
+        k = orig_auto(ms, gp_every)
+        chosen.append({"ms_per_step": ms, "k": k})
+        return k
+
+    root = tempfile.mkdtemp(prefix="pgx_recipe_")
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(loop_mod, "make_train_multi_step",
+                               counted_multi), \
+                mock.patch.object(loop_mod, "make_train_step",
+                                  counted_step):
+            # ---- the main path: counts from 0 around the CLI run ----
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            trial = cli.main(R512_ARGS + ["--output",
+                                          os.path.join(root, "run")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = K.launch_counts()
+            # ----------------------------------------------------------
+        peak = torch.cuda.max_memory_allocated()
+        (log,) = glob.glob(os.path.join(trial, "train_log_*.txt"))
+        with open(log) as f:
+            lines = f.read().splitlines()
+        rows = [[float(v) for v in line.split(",")] for line in lines[1:]]
+        require([int(r[0]) for r in rows] == [24, 48, 72, 96]
+                and all(math.isfinite(v) for r in rows for v in r),
+                f"recipe CSV {lines}")
+        with open(os.path.join(trial, "timing.json")) as f:
+            timing = json.load(f)
+        require({k: v["resolution"] for k, v in timing.items()}
+                == {"24": 256, "48": 256, "72": 512, "96": 512},
+                f"recipe timing.json {timing}")
+        # the loop's own single steps (a window's body is the step module's
+        # make_train_step, not the loop's) and its windows, per phase
+        phases = {}
+        for p, name in enumerate(("256px fade", "256px stable",
+                                  "512px fade", "512px stable")):
+            lo, hi = p * R512_PHASE, (p + 1) * R512_PHASE
+            phases[name] = {
+                "img_per_s_timing_json": timing[str(hi)]["img_s"],
+                "windows": sum(lo <= w[2] < hi for w in windows),
+                "iterations_in_windows": sum(w[3] for w in windows
+                                             if lo <= w[2] < hi),
+                "iterations_alone": sum(lo <= s[2] < hi for s in singles)}
+            require(phases[name]["windows"] >= 2,
+                    f"recipe {name}: {phases[name]['windows']} windows")
+        in_windows = sum(w[3] for w in windows)
+        alone = len(singles)
+        require(in_windows + alone == 4 * R512_PHASE,
+                f"recipe: {in_windows} iterations in windows and {alone} "
+                f"alone")
+        for name in (A, A_BWD, A_BWD2, A_JVP, B, C_R, F_):
+            require(launches[name] > 0, f"recipe CLI run: {name} not "
+                                        f"launched ({launches})")
+
+        # ---- --steps-per-call auto: the window chosen per stage ----
+        with mock.patch.object(loop_mod, "_auto_k", recorded_auto):
+            t1 = time.perf_counter()
+            cli.main(R512_AUTO_ARGS + ["--output", os.path.join(root,
+                                                                "auto")])
+            auto_wall = time.perf_counter() - t1
+        require(len(chosen) == 2, f"auto chose {chosen} (one per stage)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"config": "python -m pgx_torch.cli.conditional_proper_cifar_train "
+                      + " ".join(R512_ARGS),
+            "iterations": 4 * R512_PHASE, "launches": launches,
+            "wall_s": wall, "peak_memory_bytes": peak, "csv": rows,
+            "timing": timing, "phases": phases,
+            "iterations_in_windows": in_windows,
+            "iterations_alone": alone,
+            "windows": [list(w) for w in windows],
+            "auto": {"config": " ".join(R512_AUTO_ARGS),
+                     "chosen_per_stage": [
+                         {"stage": s, **c} for s, c in zip((7, 8), chosen)],
+                     "wall_s": auto_wall}}
+
+
+def recipe_phase(torch) -> dict:
+    """Phase 7: the 512px production recipe at full width."""
+    gcfg, dcfg = recipe_pair("bfloat16")
+    calls = record_tangent_calls(torch, gcfg, dcfg)
+    tangent = tangent_kernel_phase(torch, calls)
+    emit({"phase": "kernel_a_tangent", "per": "one bf16 jvp penalty "
+          "iteration at 512px, batch 8", **tangent})
+    emit({"phase": "train_512_penalty_f32_check",
+          **penalty_f32_check(torch, gcfg, dcfg)})
+    bare = recipe_bare_phase(torch, gcfg, dcfg)
+    emit({"phase": "train_512_recipe", "config": "conditional_correct_grown("
+          "8, z_dim=512, channel=512, num_classes=10), bf16, batch 8, 512px, "
+          "ADA (AdaConfig(), shear warp), gp_every=4, fused_g", **bare})
+    emit({"phase": "train_512_multi_step",
+          **multi_step_phase(torch, gcfg, dcfg)})
+    emit({"phase": "train_512_memory_variants", "gp_mode": "jvp",
+          **memory_variants_phase(torch, gcfg, dcfg)})
+    cli_run = recipe_cli_phase(torch)
+    emit({"phase": "train_512_cli", **cli_run})
+    return {"tangent": tangent, "bare": bare, "cli": cli_run}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2476,6 +3144,12 @@ def main() -> int:
           "total_s": time.monotonic() - t_start})
     loop_launches = looped["launches"]
 
+    # 7. the 512px production recipe: jvp penalty, windows, remat
+    recipe = recipe_phase(torch)
+    recipe_launches_ = {k: recipe["cli"]["launches"][k] + sum(
+        m[f"launches_{it}_iteration"][k] for m in recipe["bare"].values()
+        for it in ("penalty", "plain")) for k in recipe["cli"]["launches"]}
+
     def summed(agg):
         return {"launches": agg["calls"], "max_abs_err": agg["err"],
                 "tol": agg["tol"], "ms": agg["ms"],
@@ -2503,11 +3177,12 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
                  "launches": (serve_launches + train_launches + ada_launches
-                              + loop_l),
+                              + loop_l + recipe_launches_[name]),
                  "launches_serve": serve_launches,
                  "launches_train": train_launches,
                  "launches_train_ada": ada_launches,
                  "launches_train_loop": loop_l,
+                 "launches_train_512_recipe": recipe_launches_[name],
                  # the launches of one run of the path named in "per": ms,
                  # plain_ms and bound_ms are sums over these
                  "launches_per_path_run": head[(name, "bfloat16")]["calls"],
@@ -2537,7 +3212,8 @@ def main() -> int:
     source, replaces = SOURCES[A_BWD2]
     launches = {"launches_train": trained["launches"][A_BWD2],
                 "launches_train_ada": ada["launches"][A_BWD2],
-                "launches_train_loop": loop_launches[A_BWD2]}
+                "launches_train_loop": loop_launches[A_BWD2],
+                "launches_train_512_recipe": recipe_launches_[A_BWD2]}
     require(all(v > 0 for v in launches.values()),
             f"{A_BWD2}: not launched on its main path ({launches})")
     so = second_order
@@ -2555,6 +3231,30 @@ def main() -> int:
         "per": "one bf16 training iteration at batch 32 (sum over its "
                "calls)"})
 
+    # A's tangent: launched in the dual forward of every jvp penalty
+    # iteration of the 512px recipe, timed at one such iteration's calls
+    source, replaces = SOURCES[A_JVP]
+    tg = recipe["tangent"]
+    launches = {"launches_train_512_recipe": recipe_launches_[A_JVP]}
+    require(launches["launches_train_512_recipe"] > 0
+            and recipe["bare"]["reverse"]["launches_penalty_iteration"][
+                A_JVP] == 0,
+            f"{A_JVP}: launches {launches}, reverse mode "
+            f"{recipe['bare']['reverse']['launches_penalty_iteration']}")
+    kernels.append({
+        "name": A_JVP, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": sum(launches.values()),
+        **launches, "launches_per_path_run": tg["calls"],
+        "max_abs_err": tg["max_abs_err"], "tol": tg["tol"], "ms": tg["ms"],
+        "device_ms": tg["device_ms"], "plain_ms": tg["plain_ms"],
+        "bound_ms": tg["bound_ms"], "bound_by": tg["bound_by"],
+        "library_ms": None,
+        "f32": {"ms": tg["f32"]["ms"], "plain_ms": tg["f32"]["plain_ms"],
+                "bound_ms": tg["f32"]["t_bytes"],
+                "max_rel_err": tg["f32"]["max_rel_err"]},
+        "per": "one bf16 jvp penalty iteration of the 512px recipe at batch "
+               "8 (sum over its calls)"})
+
     # F, D, E: launches from the counted runs of their paths (F the shear
     # ADA iterations; D the gather ADA iteration and the ops-layer block; E
     # the ops-layer block); times summed over one run of the path
@@ -2564,7 +3264,8 @@ def main() -> int:
                  "forward and 2 backward launches",
              ada["launches_per_iteration"][F_], {
                  "launches_train_ada": ada["launches"][F_],
-                 "launches_train_loop": loop_launches[F_]}),
+                 "launches_train_loop": loop_launches[F_],
+                 "launches_train_512_recipe": recipe_launches_[F_]}),
             (D_, "one bf16 ADA iteration (gather warp) at batch 32: 6 "
                  "forward and 2 backward launches", gather_launches[D_], {
                      "launches_train_ada_gather": gather_launches[D_],
@@ -2576,8 +3277,10 @@ def main() -> int:
         source, replaces = SOURCES[name]
         require(all(v > 0 for v in launches.values()),
                 f"{name}: not launched on its main path ({launches})")
-        # the loop's flagship path runs neither D nor E: 0 for them
+        # the loop's and the recipe's paths run neither D nor E: 0 for them
         launches.setdefault("launches_train_loop", loop_launches[name])
+        launches.setdefault("launches_train_512_recipe",
+                            recipe_launches_[name])
         agg = fde[(name, "bfloat16")]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(launches.values()),
@@ -2608,7 +3311,7 @@ def main() -> int:
                 for ax in (3, 2)}
         kernels.append(entry)
 
-    # 7. the card
+    # 8. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -3,11 +3,9 @@
 
 The flags are ``pgx``'s, plus ``--device`` (``cuda`` unless the caller asks
 for ``cpu``); ``--compile-cache`` has no counterpart.  Values whose code
-path is not ported yet raise where they are used: ``TrainConfig`` refuses
-``--gp-mode jvp``, ``--remat`` and ``--weights-cast once``, ``LoopConfig``
-``--steps-per-call`` other than 1, ``--fid-every``, ``--checkpoint-backend
-orbax`` and ``--model-parallel``; ``--multihost`` raises in
-``maybe_init_multihost``.
+path is not ported yet raise where they are used: ``LoopConfig`` refuses
+``--fid-every``, ``--checkpoint-backend orbax`` and ``--model-parallel``;
+``--multihost`` raises in ``maybe_init_multihost``.
 """
 
 from __future__ import annotations
@@ -57,19 +55,20 @@ def add_common_args(p: argparse.ArgumentParser,
                    default=defaults.get("batch_size", 4))
     p.add_argument("--n-critic", type=int, default=1)
     p.add_argument("--remat", action="store_true",
-                   help="rematerialize G/D activations in the backward "
-                        "(not ported yet)")
+                   help="rematerialize G/D activations in the backward")
     p.add_argument("--remat-policy", default="full",
                    choices=["full", "convs", "d_only"],
                    help="with --remat: 'full' saves nothing; 'convs' saves "
                         "conv/matmul outputs and recomputes only the cheap "
-                        "elementwise chains; 'd_only' checkpoints only D's "
-                        "forwards (the GP double-backward path)")
+                        "elementwise chains, which the epilogue kernels "
+                        "already do (no region is added); 'd_only' "
+                        "checkpoints only D's forwards (the GP "
+                        "double-backward path)")
     p.add_argument("--gp-mode", default="reverse",
                    choices=["reverse", "jvp"],
                    help="GP gradient structure: 'reverse' = nested grad "
                         "(reference-exact op order); 'jvp' = the JVP-form "
-                        "surrogate (not ported yet)")
+                        "surrogate (same gradient)")
     p.add_argument("--fused-g", action="store_true",
                    help="FusedProp simultaneous update: one joint gradient "
                         "pass produces both networks' gradients (G steps "
@@ -81,8 +80,7 @@ def add_common_args(p: argparse.ArgumentParser,
     p.add_argument("--weights-cast", default="site",
                    choices=["site", "once"],
                    help="bf16 runs: scale+cast the f32 master weights at "
-                        "every conv (site) or once per forward (once: not "
-                        "ported yet)")
+                        "every conv (site) or once per forward (once)")
     p.add_argument("--init-step", type=int,
                    default=defaults.get("init_step", 1))
     p.add_argument("--max-step", type=int,
@@ -116,8 +114,8 @@ def add_common_args(p: argparse.ArgumentParser,
                         "--fid-every (without it a random-init extractor is "
                         "used: trends are meaningful, absolute scale is not)")
     p.add_argument("--steps-per-call", type=_steps_per_call, default=1,
-                   help="roll N iterations into one device dispatch "
-                        "(only 1 is ported so far)")
+                   help="run N iterations per call (a window; 'auto' "
+                        "times each stage's first steps and picks N)")
     p.add_argument("--model-parallel", type=int, default=1,
                    help="model-axis shards (only 1 is ported so far)")
     p.add_argument("--model-parallel-mode", default="channels",

@@ -26,10 +26,15 @@ kernel wrapper takes its plain version for CPU tensors only.  cuDNN/cuBLAS
 carry the work ``pgx`` leaves to XLA: the latent projection, the 1x1
 to_rgb/from_rgb convs, the upsample + conv and every conv of the
 discriminator.
+
+With the train step's ``weights_cast='once'`` a layer receives a weight
+already rounded to the compute dtype, and the He constant (rounded to that
+dtype, as pgx multiplies by a Python scalar) is applied after the rounding.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -84,8 +89,20 @@ def minibatch_stddev(x: torch.Tensor, eps: float = 1e-8,
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
+def _scale_in(dtype: torch.dtype, scale: float) -> float:
+    """``scale`` rounded to ``dtype``: a Python scalar multiplies an array
+    in the array's own type in pgx, so a bf16 weight (``weights_cast=
+    'once'``) is scaled by the bf16 constant; f32 and f64 are unchanged."""
+    return float(torch.tensor(scale, dtype=dtype))
+
+
+def _scaled(w: torch.Tensor, scale: float) -> torch.Tensor:
+    return w * _scale_in(w.dtype, scale)
+
+
 def _he_scaled(w: torch.Tensor, fan_in: int, dtype) -> torch.Tensor:
-    return (w * math.sqrt(2.0 / fan_in)).to(dtype)
+    return _scaled(w, math.sqrt(2.0 / fan_in)).to(dtype)
 
 
 def _conv_nhwc(x: torch.Tensor, w_hwio: torch.Tensor,
@@ -142,7 +159,7 @@ def embedding(w: torch.Tensor, labels: torch.Tensor, equalized: bool = False,
               dtype=torch.float32) -> torch.Tensor:
     """Label embedding lookup; ``equalized`` applies sqrt(2 / dim)."""
     if equalized:
-        w = w * math.sqrt(2.0 / w.shape[1])
+        w = _scaled(w, math.sqrt(2.0 / w.shape[1]))
     return w[labels.long()].to(dtype)
 
 
@@ -207,7 +224,7 @@ def _conv_step(conv: EqualConv2d, x: torch.Tensor, padding: int,
     kh, kw, in_ch, _ = conv.w.shape
     if (fused and padding == 1 and (kh, kw) == (3, 3)
             and kernel_c.supported(x, conv.w)):
-        w = conv.w * math.sqrt(2.0 / (in_ch * kh * kw))
+        w = _scaled(conv.w, math.sqrt(2.0 / (in_ch * kh * kw)))
         return conv3x3_epilogue(x, w, conv.b, use_pixel_norm=use_pixel_norm,
                                 slope=slope)
     y = equal_conv2d(conv.w, conv.b, x, padding=padding, bias=False)

@@ -22,6 +22,11 @@ kernels.  Stride 1, dilation 1, one group, as the models use.
 grad at all, not whether this backward call needs it; so the penalty's
 inner ``autograd.grad`` with respect to the image also computes each conv's
 weight gradient, which nothing reads.
+
+Forward mode (the JVP form of the penalty): the tangent of ``conv2d(x, w)``
+is ``conv2d(tx, w) + conv2d(x, tw)``, computed by this same conv, so the
+dual forward stays on cuDNN's forward kernels and reverse mode over it
+needs first-order conv gradients only.
 """
 
 from __future__ import annotations
@@ -43,8 +48,18 @@ class _Conv2d(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, padding):
         ctx.save_for_backward(x, w)
+        ctx.save_for_forward(x, w)
         ctx.padding = padding
         return F.conv2d(x, w, padding=padding)
+
+    @staticmethod
+    def jvp(ctx, tx, tw, _tpad):
+        x, w = ctx.saved_tensors
+        out = None if tx is None else conv2d(tx, w, ctx.padding)
+        if tw is not None:
+            tw_out = conv2d(x, tw, ctx.padding)
+            out = tw_out if out is None else out + tw_out
+        return out
 
     @staticmethod
     def backward(ctx, gy):

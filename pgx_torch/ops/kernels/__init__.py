@@ -23,7 +23,9 @@ from pgx_torch.ops.kernels.conv_epilogue import (  # noqa: F401
 )
 from pgx_torch.ops.kernels.epilogue import (  # noqa: F401
     bias_pixelnorm_lrelu,
+    bias_pixelnorm_lrelu_jvp_ref,
     bias_pixelnorm_lrelu_ref,
+    bias_pixelnorm_lrelu_tangent,
 )
 from pgx_torch.ops.kernels.pixel_norm_lrelu import (  # noqa: F401
     pixel_norm_lrelu,

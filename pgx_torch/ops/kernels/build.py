@@ -98,6 +98,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # stream); ddy, ddb, d_y, d_g and db_partial may be null
     lib.pgx_bias_pixelnorm_lrelu_bwd2.argtypes = [p, p, p, p, p, p, p, p,
                                                   i64, i, i, f, f, p]
+    # (y, b, dy, db, dout, rows, c, dtype, slope, eps, stream); db may be
+    # null
+    lib.pgx_bias_pixelnorm_lrelu_jvp.argtypes = [p, p, p, p, p, i64, i, i, f,
+                                                 f, p]
     lib.pgx_bias_pixelnorm_lrelu_bwd_blocks.argtypes = [i64]
     lib.pgx_bias_pixelnorm_lrelu_bwd_blocks.restype = ctypes.c_int
     lib.pgx_conv3x3_epilogue.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f,
@@ -119,6 +123,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for fn in (lib.pgx_bias_pixelnorm_lrelu, lib.pgx_pixel_norm_lrelu,
                lib.pgx_bias_pixelnorm_lrelu_bwd,
                lib.pgx_bias_pixelnorm_lrelu_bwd2,
+               lib.pgx_bias_pixelnorm_lrelu_jvp,
                lib.pgx_conv3x3_epilogue, lib.pgx_conv3x3_epilogue_r,
                lib.pgx_shift_1d, lib.pgx_upfirdn2d, lib.pgx_bias_act):
         fn.restype = ctypes.c_int
@@ -169,11 +174,13 @@ def check(status: int, name: str) -> None:
 # launches its kernel and nowhere else.  Kernel C counts its two entries
 # apart: "conv3x3_epilogue" is the plain launch, "conv3x3_epilogue_r" the
 # differentiated forward that also writes the pixel-norm scale r.  Kernel
-# A's backward ("bias_pixelnorm_lrelu_bwd") and its second derivative
-# ("bias_pixelnorm_lrelu_bwd2") count their own launches.  Kernel D
+# A's backward ("bias_pixelnorm_lrelu_bwd"), its second derivative
+# ("bias_pixelnorm_lrelu_bwd2") and its tangent ("bias_pixelnorm_lrelu_jvp")
+# count their own launches.  Kernel D
 # ("upfirdn2d") is one launch per call.
 LAUNCHES = {"bias_pixelnorm_lrelu": 0, "bias_pixelnorm_lrelu_bwd": 0,
-            "bias_pixelnorm_lrelu_bwd2": 0, "pixel_norm_lrelu": 0,
+            "bias_pixelnorm_lrelu_bwd2": 0, "bias_pixelnorm_lrelu_jvp": 0,
+            "pixel_norm_lrelu": 0,
             "conv3x3_epilogue": 0, "conv3x3_epilogue_r": 0,
             "shift_1d": 0, "upfirdn2d": 0, "bias_act": 0}
 

@@ -4,8 +4,8 @@
 // (body _fwd_kernel):   a = y + b;  out = lrelu(a * rsqrt(mean_c(a^2) + eps))
 // B, pixel_norm_lrelu, replaces pgx/ops/pallas/kernels.py:pixel_norm_lrelu_pallas
 // (body _pn_lrelu_kernel): the same with no bias.
-// A's backward (rownorm_bwd_kernel) and its second derivative
-// (rownorm_bwd2_kernel) are further down.
+// A's backward (rownorm_bwd_kernel), its second derivative
+// (rownorm_bwd2_kernel) and its tangent (rownorm_jvp_kernel) are further down.
 //
 // Bound: bytes.  Each row of C <= 512 channels is read once and written once;
 // the arithmetic is a few operations per element.  Design: one warp owns one
@@ -412,7 +412,156 @@ int launch_bwd2(const void* y, const void* b, const void* g, const void* ddy,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Kernel A's tangent: forward-mode derivative of A in (dy, db), one pass.
+//
+// Replaces the plain jnp of pgx/ops/pallas/epilogue.py:_jvp_rule, which
+// pgx evaluates under jax.jvp (the JVP form of the gradient penalty).  Per
+// row, with a = y + b and da = dy + db (each sum in y's dtype, then f32),
+// r = rsqrt(mean(a^2) + eps) and m = mean(a da):
+//     dpn  = da r - a r^3 m
+//     dout = a >= 0 ? dpn : slope dpn            (stored in y's dtype)
+// Bound: bytes (read y and dy, write dout; b and db are C-wide).  Design: a
+// group of LANES lanes owns one row (LANES the power of two that covers the
+// row's 16-byte vectors, at most a warp), so the narrow rows of the high
+// resolutions (64 channels at 512px: 8 vectors in bf16) keep every lane of
+// a warp busy; 16-byte loads and stores, both row sums by shuffles inside
+// the group, the row kept in registers between the sums and the store.
+// db may be null (no bias tangent).
+// ---------------------------------------------------------------------------
+
+template <int LANES>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T, int LANES>
+__global__ void __launch_bounds__(256)
+rownorm_jvp_kernel(const T* __restrict__ y, const T* __restrict__ bias,
+                   const T* __restrict__ dy, const T* __restrict__ dbias,
+                   T* __restrict__ dout, int64_t rows, int c, float slope,
+                   float eps) {
+  constexpr int V = VecWidth<T>::N;
+  // a full warp may hold up to kMaxC channels; a narrower group one vector
+  // a lane (its LANES covers the row)
+  constexpr int kMaxVec = LANES == 32 ? kMaxC / (32 * V) : 1;
+  constexpr int kRows = 256 / LANES;
+  const int lane = threadIdx.x % LANES;
+  const int64_t row = (int64_t)blockIdx.x * kRows + threadIdx.x / LANES;
+  // rows past the end still take part in the shuffles: no early return
+  const bool live = row < rows;
+  const int nvec = c / V;
+  const uint4* ysrc = reinterpret_cast<const uint4*>(y + row * c);
+  const uint4* dsrc = reinterpret_cast<const uint4*>(dy + row * c);
+
+  float a[kMaxVec][V], da[kMaxVec][V];
+  float ssq = 0.f, dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxVec; ++j) {
+    const int v = lane + LANES * j;
+    uint4 yraw = make_uint4(0, 0, 0, 0), draw = make_uint4(0, 0, 0, 0);
+    uint4 braw = make_uint4(0, 0, 0, 0), dbraw = make_uint4(0, 0, 0, 0);
+    if (live && v < nvec) {
+      yraw = ysrc[v];
+      draw = dsrc[v];
+      braw = reinterpret_cast<const uint4*>(bias)[v];
+      if (dbias != nullptr) dbraw = reinterpret_cast<const uint4*>(dbias)[v];
+    }
+    const T* ye = reinterpret_cast<const T*>(&yraw);
+    const T* de = reinterpret_cast<const T*>(&draw);
+    const T* be = reinterpret_cast<const T*>(&braw);
+    const T* dbe = reinterpret_cast<const T*>(&dbraw);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      // both sums in the input type, as the reference's rule takes them
+      const float t = pgx::to_f(pgx::from_f<T>(pgx::to_f(ye[k]) + pgx::to_f(be[k])));
+      float d = pgx::to_f(de[k]);
+      if (dbias != nullptr) d = pgx::to_f(pgx::from_f<T>(d + pgx::to_f(dbe[k])));
+      a[j][k] = t;
+      da[j][k] = d;
+      ssq += t * t;
+      dot += t * d;
+    }
+  }
+  ssq = group_sum<LANES>(ssq);
+  dot = group_sum<LANES>(dot);
+  if (!live) return;
+  const float inv_c = 1.f / c;
+  const float r = rsqrtf(ssq * inv_c + eps);
+  const float r3m = r * r * r * (dot * inv_c);
+
+  uint4* dst = reinterpret_cast<uint4*>(dout + row * c);
+#pragma unroll
+  for (int j = 0; j < kMaxVec; ++j) {
+    const int v = lane + LANES * j;
+    if (v < nvec) {
+      uint4 raw;
+      T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float dpn = da[j][k] * r - a[j][k] * r3m;
+        e[k] = pgx::from_f<T>(a[j][k] >= 0.f ? dpn : slope * dpn);
+      }
+      dst[v] = raw;
+    }
+  }
+}
+
+template <typename T, int LANES>
+int launch_jvp_lanes(const void* y, const void* b, const void* dy,
+                     const void* db, void* dout, int64_t rows, int c,
+                     float slope, float eps, cudaStream_t stream) {
+  constexpr int kRows = 256 / LANES;
+  const int64_t blocks = (rows + kRows - 1) / kRows;
+  if (blocks == 0) return (int)cudaSuccess;
+  rownorm_jvp_kernel<T, LANES><<<(unsigned)blocks, 256, 0, stream>>>(
+      (const T*)y, (const T*)b, (const T*)dy, (const T*)db, (T*)dout, rows,
+      c, slope, eps);
+  return (int)cudaGetLastError();
+}
+
+// the group width of a row: the power of two that covers its vectors
+template <typename T>
+int launch_jvp(const void* y, const void* b, const void* dy, const void* db,
+               void* dout, int64_t rows, int c, float slope, float eps,
+               cudaStream_t stream) {
+  const int nvec = c / VecWidth<T>::N;
+  if (nvec <= 1)
+    return launch_jvp_lanes<T, 1>(y, b, dy, db, dout, rows, c, slope, eps, stream);
+  if (nvec <= 2)
+    return launch_jvp_lanes<T, 2>(y, b, dy, db, dout, rows, c, slope, eps, stream);
+  if (nvec <= 4)
+    return launch_jvp_lanes<T, 4>(y, b, dy, db, dout, rows, c, slope, eps, stream);
+  if (nvec <= 8)
+    return launch_jvp_lanes<T, 8>(y, b, dy, db, dout, rows, c, slope, eps, stream);
+  if (nvec <= 16)
+    return launch_jvp_lanes<T, 16>(y, b, dy, db, dout, rows, c, slope, eps, stream);
+  return launch_jvp_lanes<T, 32>(y, b, dy, db, dout, rows, c, slope, eps, stream);
+}
+
 }  // namespace
+
+// Kernel A's tangent for the tangents dy (y's shape) and db (C values, or
+// null) of its inputs: dout (y's dtype and shape).  y, b, dy, db and dout
+// share one dtype.
+extern "C" int pgx_bias_pixelnorm_lrelu_jvp(const void* y, const void* b,
+                                            const void* dy, const void* db,
+                                            void* dout, int64_t rows, int c,
+                                            int dtype, float slope, float eps,
+                                            void* stream) {
+  if (c <= 0 || c > kMaxC || c % 8 != 0 || b == nullptr || dy == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == pgx::kFloat32)
+    return launch_jvp<float>(y, b, dy, db, dout, rows, c, slope, eps, s);
+  if (dtype == pgx::kBFloat16)
+    return launch_jvp<__nv_bfloat16>(y, b, dy, db, dout, rows, c, slope, eps,
+                                     s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // Kernel A's second derivative for the cotangents ddy (y's dtype, y's
 // shape) and ddb (f32, C values) of its backward's outputs: d_y and d_g (y's

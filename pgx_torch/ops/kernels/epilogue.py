@@ -33,6 +33,22 @@ penalty's outer pass runs in place of autograd through the first
 derivative's ops.  Its backward differentiates the plain closed form again.
 pgx has no backward kernels (its rule is plain jnp).
 
+Forward mode.  ``_BiasPixelNormLrelu.jvp`` returns the tangent through a
+fourth Function, ``_BiasPixelNormLreluTangent``, whose forward launches the
+tangent kernel (``pgx_bias_pixelnorm_lrelu_jvp``; the plain version
+``bias_pixelnorm_lrelu_jvp_ref`` for a CPU tensor): pgx's ``_jvp_rule``::
+
+    a = y + b,  da = dy + db        (each in y's dtype, then f32)
+    m = mean_c(a * da),  dpn = da * r - a * r^3 * m
+    dout = dpn where a >= 0, else slope * dpn
+
+The JVP form of the gradient penalty differentiates that tangent in reverse
+mode.  The tangent is linear in ``(dy, db)``, so its transpose there is A's
+VJP (the backward kernel); its gradient in ``(y, b)`` for the cotangent c is
+``d/dy <c, J(y) t> = d/dy <J(y)^T c, t>``, which is A's second derivative
+with ``g = c`` and ``(ddy, ddb) = (dy, db)`` (the second-order kernel).  So
+reverse over forward mode runs kernels only.
+
 ``supported(y)`` says whether the kernels take ``y``: float32 or bfloat16
 with C a multiple of 8 and at most 512.  The layers ask it before calling
 ``bias_pixelnorm_lrelu`` and otherwise take the plain torch ops.
@@ -49,6 +65,7 @@ from pgx_torch.ops.kernels import build
 NAME = "bias_pixelnorm_lrelu"
 NAME_BWD = "bias_pixelnorm_lrelu_bwd"
 NAME_BWD2 = "bias_pixelnorm_lrelu_bwd2"
+NAME_JVP = "bias_pixelnorm_lrelu_jvp"
 MAX_C = 512
 
 
@@ -190,15 +207,25 @@ def _launch_backward(y: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
 
 class _BiasPixelNormLrelu(torch.autograd.Function):
     """Forward: the kernel (the plain version for a CPU tensor).  Backward:
-    ``_BiasPixelNormLreluGrad``, differentiable again."""
+    ``_BiasPixelNormLreluGrad``, differentiable again.  Forward mode:
+    ``_BiasPixelNormLreluTangent``, differentiable in reverse mode."""
 
     @staticmethod
     def forward(ctx, y, b, slope, eps):
         ctx.save_for_backward(y, b)
+        ctx.save_for_forward(y, b)
         ctx.slope, ctx.eps = slope, eps
         if y.device.type == "cpu":
             return bias_pixelnorm_lrelu_ref(y, b, slope, eps)
         return _launch(y, b, slope, eps)
+
+    @staticmethod
+    def jvp(ctx, dy, db, _dslope, _deps):
+        y, b = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(y)
+        return _BiasPixelNormLreluTangent.apply(y, b, dy, db, ctx.slope,
+                                                ctx.eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -339,11 +366,101 @@ class _BiasPixelNormLreluGrad2(torch.autograd.Function):
         return tuple(grads)
 
 
+def bias_pixelnorm_lrelu_jvp_ref(y: torch.Tensor, b: torch.Tensor,
+                                 dy: torch.Tensor,
+                                 db: Optional[torch.Tensor] = None,
+                                 slope: float = 0.2,
+                                 eps: float = 1e-8) -> torch.Tensor:
+    """Plain version of the tangent kernel: pgx's ``_jvp_rule``, the
+    tangent of ``bias_pixelnorm_lrelu`` for the tangents ``dy`` and ``db``
+    (None: no bias tangent), in y's dtype.  Both sums in y's dtype, the
+    statistics in f32 (f64 for f64); plain torch ops, differentiable."""
+    acc = stat_dtype(y.dtype)
+    inv_c = 1.0 / y.shape[-1]
+    a = (y + b.to(y.dtype)).to(acc)
+    da = (dy.to(y.dtype) if db is None
+          else dy.to(y.dtype) + db.to(y.dtype)).to(acc)
+    r = torch.rsqrt(torch.sum(a * a, dim=-1, keepdim=True) * inv_c + eps)
+    m = torch.sum(a * da, dim=-1, keepdim=True) * inv_c
+    dpn = da * r - a * (r * r * r) * m
+    return torch.where(a >= 0, dpn, dpn * slope).to(y.dtype)
+
+
+def _launch_jvp(y, b, dy, db, slope, eps):
+    y = build.aligned(y)
+    build.check_cuda_input(NAME_JVP, y)
+    c = y.shape[-1]
+    check_channels(NAME_JVP, c)
+    if dy.shape != y.shape:
+        raise ValueError(f"{NAME_JVP}: tangent shape {tuple(dy.shape)} != "
+                         f"{tuple(y.shape)}")
+    bb = build.aligned(b.to(device=y.device, dtype=y.dtype).contiguous())
+    dd = build.aligned(dy.to(dtype=y.dtype).contiguous())
+    tb = (None if db is None else build.aligned(
+        db.to(device=y.device, dtype=y.dtype).contiguous()))
+    out = torch.empty_like(y)
+    lib = build.load_library()
+    build.check(lib.pgx_bias_pixelnorm_lrelu_jvp(
+        y.data_ptr(), bb.data_ptr(), dd.data_ptr(),
+        None if tb is None else tb.data_ptr(), out.data_ptr(),
+        y.numel() // c, c, build.dtype_code(y), float(slope), float(eps),
+        build.stream_ptr()), NAME_JVP)
+    build.LAUNCHES[NAME_JVP] += 1
+    return out
+
+
+class _BiasPixelNormLreluTangent(torch.autograd.Function):
+    """The tangent of A, ``J(y, b) (dy, db)``, in y's dtype (``db`` may be
+    None).  Forward: the tangent kernel (the plain version for a CPU
+    tensor).  Backward, for the cotangent c: the gradients in ``(dy, db)``
+    are A's VJP ``J^T c`` (``_BiasPixelNormLreluGrad``: the backward
+    kernel), those in ``(y, b)`` A's second derivative with ``g = c`` and
+    ``(ddy, ddb) = (dy, db)`` (``_BiasPixelNormLreluGrad2``: the
+    second-order kernel)."""
+
+    @staticmethod
+    def forward(ctx, y, b, dy, db, slope, eps):
+        ctx.save_for_backward(y, b, dy, db)
+        ctx.slope, ctx.eps = slope, eps
+        if y.device.type == "cpu":
+            return bias_pixelnorm_lrelu_jvp_ref(y, b, dy, db, slope, eps)
+        return _launch_jvp(y, b, dy, db, slope, eps)
+
+    @staticmethod
+    def backward(ctx, c):
+        y, b, dy, db = ctx.saved_tensors
+        need_y, need_b, need_dy, need_db = ctx.needs_input_grad[:4]
+        g_y = g_b = g_dy = g_db = None
+        if need_dy or (need_db and db is not None):
+            t_y, t_b = _BiasPixelNormLreluGrad.apply(y, b, c, ctx.slope,
+                                                     ctx.eps)
+            g_dy = t_y.to(dy.dtype) if need_dy else None
+            g_db = (t_b.to(db.dtype) if need_db and db is not None
+                    else None)
+        if need_y or need_b:
+            g_y, g_b, _ = _BiasPixelNormLreluGrad2.apply(
+                y, b, c, dy, db, ctx.slope, ctx.eps, (need_y, need_b, False))
+        return g_y, g_b, g_dy, g_db, None, None
+
+
+def bias_pixelnorm_lrelu_tangent(y: torch.Tensor, b: torch.Tensor,
+                                 dy: torch.Tensor,
+                                 db: Optional[torch.Tensor] = None,
+                                 slope: float = 0.2,
+                                 eps: float = 1e-8) -> torch.Tensor:
+    """The tangent of ``bias_pixelnorm_lrelu`` at ``(y, b)`` for the
+    tangents ``dy`` and ``db`` (None: no bias tangent), as a plain tensor
+    differentiable in reverse mode: the tangent kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    return _BiasPixelNormLreluTangent.apply(y, b, dy, db, slope, eps)
+
+
 def bias_pixelnorm_lrelu(y: torch.Tensor, b: torch.Tensor,
                          slope: float = 0.2,
                          eps: float = 1e-8) -> torch.Tensor:
     """``lrelu(pixel_norm(y + b), slope)`` over the last axis of NHWC ``y``,
-    differentiable to second order in ``y`` and ``b``.
+    differentiable to second order in ``y`` and ``b``, and in forward mode
+    (the tangent differentiable in reverse mode).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     which takes float32/bfloat16, contiguous, with C a multiple of 8 and at

@@ -13,6 +13,7 @@ from pgx_torch.train.wgan import (  # noqa: F401
     draw_z_eps,
     init_train_state,
     make_eval_generate,
+    make_train_multi_step,
     make_train_step,
     train_state_from_jax,
 )

@@ -12,8 +12,12 @@ Design notes (CUDA):
   upload (``DevicePrefetcher``) overlap with the device's work.
 * the step updates the state in place, so an interrupt inside it would
   leave a half-updated state: SIGTERM, and SIGINT while a step runs, are
-  deferred to the next iteration boundary, where the emergency checkpoint
-  is written.
+  deferred to the next iteration (or window) boundary, where the emergency
+  checkpoint is written.
+* ``steps_per_call=k`` runs windows of k iterations through
+  ``make_train_multi_step`` under pgx's ``_scan_window`` rules; ``0``
+  (auto) times a few single steps at each stage start and picks k with
+  pgx's ``_auto_k`` rule.
 * ``pgx`` draws z, eps and the augmentation sources from ``state["rng"]``
   inside its step; here the loop draws them from a ``torch.Generator`` it
   keeps in ``state["rng"]`` (saved in the full state) and hands them to
@@ -43,7 +47,8 @@ from pgx_torch.models.generator import _state_dict_of
 from pgx_torch.train.schedule import schedule_from_dict, schedule_to_dict
 from pgx_torch.train.wgan import (TrainConfig, draw_augment_sources,
                                   draw_z_eps, init_train_state,
-                                  make_eval_generate, make_train_step)
+                                  make_eval_generate, make_train_multi_step,
+                                  make_train_step)
 from pgx_torch.utils import resolve_device
 from pgx_torch.utils.png import save_image_grid
 
@@ -52,10 +57,10 @@ from pgx_torch.utils.png import save_image_grid
 class LoopConfig:
     """``pgx.train.loop.LoopConfig``, field for field.  Values whose code
     path is not ported yet raise ``NotImplementedError`` here:
-    ``steps_per_call != 1`` (the scanned multi-step), ``fid_every > 0``
-    (in-training FID), ``checkpoint_backend='orbax'`` and
+    ``fid_every > 0`` (in-training FID), ``checkpoint_backend='orbax'`` and
     ``model_parallel > 1``.  ``use_mesh`` changes nothing on one device, as
-    ``pgx``'s one-device mesh does."""
+    ``pgx``'s one-device mesh does.  ``steps_per_call``: k iterations per
+    call (``make_train_multi_step``), 1 one per call, 0 auto."""
 
     trial_name: str = "trial"
     main_path: str = "."
@@ -74,7 +79,11 @@ class LoopConfig:
     fid_samples: int = 1024
     inception_weights: Optional[str] = None
     use_mesh: bool = True
-    steps_per_call: int = 1
+    steps_per_call: int = 1         # a window of N iterations per call
+                                    # (make_train_multi_step); 0 == auto:
+                                    # time single steps at each stage start
+                                    # and pick the window (_auto_k).  An
+                                    # interrupt lands after the window
     model_parallel: int = 1
     model_parallel_mode: str = "channels"
     verbose: bool = True
@@ -84,8 +93,10 @@ class LoopConfig:
         if self.checkpoint_backend not in ("npz", "orbax"):
             raise ValueError(f"checkpoint_backend must be 'npz' or 'orbax', "
                              f"got {self.checkpoint_backend!r}")
+        if self.steps_per_call < 0:
+            raise ValueError(f"steps_per_call must be >= 0 (0: auto), got "
+                             f"{self.steps_per_call}")
         for field, ported in (
-                ("steps_per_call", self.steps_per_call == 1),
                 ("fid_every", self.fid_every <= 0),
                 ("checkpoint_backend", self.checkpoint_backend == "npz"),
                 ("model_parallel", self.model_parallel <= 1)):
@@ -115,6 +126,43 @@ def _sample_grid_inputs(gcfg: GeneratorConfig, loop_cfg: LoopConfig,
     n = loop_cfg.sample_rows * loop_cfg.sample_cols
     z = rng.randn(n, gcfg.z_dim).astype(np.float32)
     return z, None, loop_cfg.sample_cols
+
+
+def _scan_window(i: int, st, schedule, total: int, tc: TrainConfig,
+                 loop_cfg: LoopConfig, k: int) -> int:
+    """How many iterations starting at ``i`` run as one window: the full
+    ``k``, or 1 (a single step).  pgx's rules: a window never crosses a
+    sample, checkpoint or log boundary (events fire at the window's end, as
+    at the single-step cadence), stays inside one (stage, fade phase,
+    resolution), starts ``gp_every``-aligned and never overruns ``total``."""
+    if i % tc.gp_every != 0 or k % tc.gp_every != 0 or i + k > total:
+        return 1
+    events = [loop_cfg.sample_every, loop_cfg.checkpoint_every,
+              loop_cfg.log_every]
+    if loop_cfg.fid_every > 0:
+        events.append(loop_cfg.fid_every)
+    for every in events:
+        # the next event strictly inside (i, i + k): no window past it
+        if ((i // every) + 1) * every < i + k:
+            return 1
+    for j in range(1, k):
+        s2 = schedule.state_at(i + j)
+        if ((s2.step, s2.fading, s2.resolution)
+                != (st.step, st.fading, st.resolution)):
+            return 1
+    return k
+
+
+def _auto_k(ms: float, gp_every: int) -> int:
+    """pgx's window for a measured single-step time ``ms``: 16 below 20 ms,
+    8 below 60 ms, else 1; capped so one window stays under ~5 s (an
+    interrupt lands only after the window), and a multiple of
+    ``gp_every``."""
+    base = 16 if ms < 20.0 else (8 if ms < 60.0 else 1)
+    if base == 1:
+        return 1
+    base = min(base, max(1, int(5000.0 / max(ms, 1e-3))))
+    return max(gp_every * max(1, base // gp_every), 1)
 
 
 def _load_newest_state(trial_dir: str, state):
@@ -158,9 +206,9 @@ def _augment_recipe(augment_cfg, ada_cfg, augment_p):
 
 
 class _Interrupts:
-    """SIGTERM (always) and SIGINT (while a step runs) deferred to the next
-    iteration boundary; the previous handlers come back on ``restore``.
-    Handlers install only from the main thread."""
+    """SIGTERM (always) and SIGINT (while a step or window runs) deferred to
+    the next iteration or window boundary; the previous handlers come back
+    on ``restore``.  Handlers install only from the main thread."""
 
     def __init__(self):
         self.pending: Optional[BaseException] = None
@@ -338,6 +386,20 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         except (OSError, ValueError):
             timing = {}
 
+    auto_scan = loop_cfg.steps_per_call == 0
+    scan_k = max(1, int(loop_cfg.steps_per_call))
+    if scan_k > 1 and scan_k % tc.gp_every != 0:
+        # _scan_window takes only gp_every-aligned windows; a misaligned k
+        # would fall back to single steps for ever, so round it
+        adj = max(tc.gp_every, round(scan_k / tc.gp_every) * tc.gp_every)
+        print(f"steps_per_call={scan_k} is not a multiple of "
+              f"gp_every={tc.gp_every}; using {adj}")
+        scan_k = adj
+    can_scan = ((scan_k > 1 or auto_scan) and tc.n_critic == 1
+                and "on_iteration" not in hooks)
+    stage_k: Dict[int, int] = {}    # auto: the window chosen per stage
+    measure: list = []              # auto: single-step seconds
+
     interrupts = _Interrupts()
     try:
         i = start_iter
@@ -352,37 +414,86 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                     batch_fn(dataset, cur_batch, st.resolution,
                              seed=loop_cfg.seed + st.step), dev)
                 current_res = st.resolution
+                measure.clear()
 
-            imgs, labels = next(prefetcher)
-            update_g = (i + 1) % tc.n_critic == 0
-            apply_gp = i % tc.gp_every == 0
-            fkey = (st.step, st.fading, update_g, apply_gp)
-            if fkey not in step_cache:
-                step_cache[fkey] = make_train_step(
-                    gcfg, dcfg, tc, step=st.step, fading=st.fading,
-                    update_g=update_g, apply_gp=apply_gp,
-                    augment_cfg=augment_cfg, ada_cfg=ada_cfg,
-                    augment_p=augment_p)
-            z, eps, aug_draws = draws(i, imgs)
-            # alpha as the f32 scalar pgx's loop hands its step
-            alpha = float(np.float32(st.alpha))
-            interrupts.in_step = True
-            state, metrics = step_cache[fkey](
-                state, imgs, labels, alpha, z=z, eps=eps,
-                aug_draws=aug_draws)
-            interrupts.in_step = False
-            # with gp_every > 1 the penalty is averaged over the iterations
-            # that computed it
-            gp_count += int(apply_gp)
+            w = 1
+            if can_scan and i != start_iter:   # the first iteration's events
+                k_here = stage_k.get(st.step, 1) if auto_scan else scan_k
+                if k_here > 1:
+                    w = _scan_window(i, st, schedule, total, tc, loop_cfg,
+                                     k_here)
+            if w > 1:
+                batches = [next(prefetcher) for _ in range(w)]
+                # alphas as the f32 scalars pgx's loop hands its step
+                alphas = [float(np.float32(schedule.state_at(i + j).alpha))
+                          for j in range(w)]
+                mkey = ("multi", st.step, st.fading, w)
+                if mkey not in step_cache:
+                    step_cache[mkey] = make_train_multi_step(
+                        gcfg, dcfg, tc, step=st.step, fading=st.fading,
+                        k=w, augment_cfg=augment_cfg, ada_cfg=ada_cfg,
+                        augment_p=augment_p)
+                i0 = i
+                interrupts.in_step = True
+                state, metrics = step_cache[mkey](
+                    state, [b[0] for b in batches],
+                    None if batches[0][1] is None
+                    else [b[1] for b in batches], alphas,
+                    draws=lambda j, real: draws(i0 + j, real))
+                interrupts.in_step = False
+                gp_count += w // tc.gp_every     # metrics are window sums
+            else:
+                imgs, labels = next(prefetcher)
+                update_g = (i + 1) % tc.n_critic == 0
+                apply_gp = i % tc.gp_every == 0
+                fkey = (st.step, st.fading, update_g, apply_gp)
+                if fkey not in step_cache:
+                    step_cache[fkey] = make_train_step(
+                        gcfg, dcfg, tc, step=st.step, fading=st.fading,
+                        update_g=update_g, apply_gp=apply_gp,
+                        augment_cfg=augment_cfg, ada_cfg=ada_cfg,
+                        augment_p=augment_p)
+                z, eps, aug_draws = draws(i, imgs)
+                # alpha as the f32 scalar pgx's loop hands its step
+                alpha = float(np.float32(st.alpha))
+                t_meas = (time.perf_counter() if auto_scan and can_scan
+                          and st.step not in stage_k else None)
+                interrupts.in_step = True
+                state, metrics = step_cache[fkey](
+                    state, imgs, labels, alpha, z=z, eps=eps,
+                    aug_draws=aug_draws)
+                interrupts.in_step = False
+                if t_meas is not None:
+                    # a few single steps at the stage's start, each waited
+                    # for; the first ones build (two step variants when
+                    # gp_every > 1), the least of the rest is the step
+                    float(metrics["d_total"])
+                    measure.append(time.perf_counter() - t_meas)
+                    if len(measure) >= 5:
+                        ms = 1e3 * min(measure[2:])
+                        stage_k[st.step] = _auto_k(ms, tc.gp_every)
+                        measure.clear()
+                        if loop_cfg.verbose:
+                            print(f"[auto] stage {st.step}: {ms:.1f} "
+                                  f"ms/step -> steps_per_call "
+                                  f"{stage_k[st.step]}", flush=True)
+                # with gp_every > 1 the penalty is averaged over the
+                # iterations that computed it
+                gp_count += int(apply_gp)
 
-            count += 1
-            img_count += cur_batch
+            count += w
+            img_count += w * cur_batch
             acc = {k: v.to(torch.promote_types(v.dtype, torch.float32))
                    for k, v in metrics.items()}
             sums = acc if not sums else {k: sums[k] + v
                                          for k, v in acc.items()}
 
-            it = i + 1
+            it = i + w
+            if w > 1:
+                # the events report the window's last iteration (the same
+                # stage by construction; alpha has advanced)
+                st = schedule.state_at(it - 1)
+                alpha = alphas[-1]
             if it % loop_cfg.sample_every == 0 or i == start_iter:
                 gkey = (st.step, st.fading)
                 if gkey not in gen_cache:
@@ -439,7 +550,7 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
 
             if "on_iteration" in hooks:
                 hooks["on_iteration"](i, st, state, metrics)
-            i += 1
+            i += w
         interrupts.check()
     except (KeyboardInterrupt, SystemExit):
         # an interrupted run leaves a resumable checkpoint at the exact

@@ -17,11 +17,29 @@ reference's math exactly:
              sees a zero gradient (its second moment decays, the shared
              count advances), eps outside the square root.
 
-The gradient penalty's second-order term is a double backward:
-``torch.autograd.grad(sum(D(x_hat)), x_hat, create_graph=True)`` and then
-the gradient of the loss.  The discriminator's conv epilogues (kernel A)
-differentiate twice; the generator's fused convs (kernel C) only once, and
-only the generator runs them.
+The gradient penalty's second-order term is, with ``gp_mode='reverse'``,
+a double backward: ``torch.autograd.grad(sum(D(x_hat)), x_hat,
+create_graph=True)`` and then the gradient of the loss.  The
+discriminator's conv epilogues (kernel A) differentiate twice; the
+generator's fused convs (kernel C) only once, and only the generator runs
+them.  ``gp_mode='jvp'`` is pgx's exact surrogate: with ``g`` the input
+gradient (taken with D's parameters frozen) and ``u = 2 lam (|g| - 1) g /
+(|g| B)`` detached, the penalty's parameter gradient is that of the forward
+derivative ``<u, grad_x D(x_hat)>``, a dual forward of D under
+``torch.autograd.forward_ad`` differentiated in reverse mode (reverse over
+forward: kernel A's tangent, backward and second-derivative kernels, and
+first-order conv gradients).
+
+``remat`` recomputes activations in the backward (non-reentrant
+``torch.utils.checkpoint``): ``'full'`` around G's and D's forwards (under
+jvp, around the dual forward as a whole), ``'d_only'`` around D's only.
+``'convs'`` (keep what a conv produces, recompute the elementwise work)
+adds no region: it is what the kernels' Functions already keep.  Kernel A
+saves only its pre-bias conv output and bias and recomputes the epilogue
+in its backward kernel; kernel C saves its conv output and the per-row
+norm factor.
+``weights_cast='once'`` runs each forward on one compute-dtype copy of the
+parameters (``torch.func.functional_call``), made once per parameter state.
 
 With ``augment_cfg`` the ADA pipeline (``pgx_torch.augment``) augments every
 image D sees: the reals once, the D step's fake pass and the G step's fake
@@ -44,9 +62,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.autograd.forward_ad as fwAD
+import torch.utils.checkpoint
+from torch.func import functional_call
 
 from pgx_torch.augment.adaptive import AdaConfig, ada_update, init_ada_state
 from pgx_torch.augment.pipe import AugmentConfig, TorchDraws, augment_pipe
@@ -63,9 +85,7 @@ METRICS = ("d_loss", "grad_penalty", "real_score", "fake_score", "d_total",
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Hyperparameters of the WGAN-GP loop (reference defaults); the fields
-    of ``pgx.train.TrainConfig``.  Values whose code path is not ported yet
-    (``gp_mode='jvp'``, ``remat=True``, ``weights_cast='once'``) raise
-    ``NotImplementedError`` here, at construction."""
+    of ``pgx.train.TrainConfig``."""
 
     learning_rate: float = 1e-3
     beta1: float = 0.0
@@ -78,10 +98,13 @@ class TrainConfig:
     gp_every: int = 1      # lazy regularization: the penalty every N
                            # iterations with lambda scaled by N
     gp_mode: str = "reverse"    # 'reverse': the double backward; 'jvp':
-                                # the forward-over-reverse surrogate
-    remat: bool = False
-    remat_policy: str = "full"
-    weights_cast: str = "site"
+                                # reverse over a dual forward (same math)
+    remat: bool = False         # recompute activations in the backward
+    remat_policy: str = "full"  # 'full' G and D forwards, 'd_only' D's,
+                                # 'convs' no region: the kernels' own
+                                # Functions keep only the conv outputs
+    weights_cast: str = "site"  # 'once': one compute-dtype copy of the
+                                # parameters per forward of each state
     fused_g: bool = False
     # One joint gradient pass through D(G(z)) yields the D gradient and,
     # negated, the G gradient.  G is then scored by the PRE-update D, and
@@ -108,11 +131,6 @@ class TrainConfig:
             raise ValueError("d_concat requires gp_mode='reverse'")
         if self.d_concat and self.fused_g:
             raise ValueError("d_concat is incompatible with fused_g")
-        for field, value in (("gp_mode", "jvp"), ("remat", True),
-                             ("weights_cast", "once")):
-            if getattr(self, field) == value:
-                raise NotImplementedError(
-                    f"TrainConfig.{field}={value!r} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +258,21 @@ def _adam_update(module: torch.nn.Module, grads: List[torch.Tensor],
     torch._foreach_addcdiv_(params, mu, denom, value=-tc.learning_rate / bc1)
 
 
+def _cast(module: torch.nn.Module, dtype: torch.dtype,
+          detach: bool = False) -> Dict[str, torch.Tensor]:
+    """``weights_cast='once'``: one ``dtype`` copy of each parameter,
+    differentiable back to the f32 master unless ``detach``."""
+    return {n: (p.detach() if detach else p).to(dtype)
+            for n, p in module.named_parameters()}
+
+
+def _checkpoint_region(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward
+    (non-reentrant; the forwards draw no random numbers)."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 @contextlib.contextmanager
 def _frozen(module: torch.nn.Module):
     """``module``'s parameters out of the graph for the enclosed forward:
@@ -281,6 +314,16 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     conditional = gcfg.conditioning != "none"
     fused = bool(tc.fused_g) and update_g
     lam = tc.lambda_gp * tc.gp_every
+    policy = tc.remat_policy if tc.remat else None
+    g_dtype, d_dtype = gcfg.compute_dtype, dcfg.compute_dtype
+
+    def cast_of(module, dtype, detach=False):
+        """The parameters a forward runs on: the module's own (None), or
+        with weights_cast='once' one compute-dtype copy (f32: the
+        masters, as in pgx)."""
+        if tc.weights_cast != "once" or dtype == torch.float32:
+            return None
+        return _cast(module, dtype, detach)
 
     def train_step(state, real, labels, alpha, *, z, eps, aug_draws=None):
         gen, disc = state["g"], state["d"]
@@ -307,22 +350,63 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         else:
             aug_d_fake = aug_g_fake = lambda img: img
 
-        def g_fwd(gen_):
-            return generator_apply(gen_, z, lab, step=step, alpha=alpha,
-                                   fading=fading)
+        def g_apply(g_params):
+            kw = dict(step=step, alpha=alpha, fading=fading)
+            if g_params is None:
+                return generator_apply(gen, z, lab, **kw)
+            return functional_call(gen, g_params, (z, lab), kw)
 
-        def d_fwd(img, groups=1):
+        def d_apply(img, d_params, groups=1):
             lab_c = None if lab is None else torch.cat([lab] * groups)
-            return disc(img, lab_c, step=step, alpha=alpha, fading=fading,
-                        stddev_groups=groups).reshape(-1)
+            kw = dict(step=step, alpha=alpha, fading=fading,
+                      stddev_groups=groups)
+            if d_params is None:
+                out = disc(img, lab_c, **kw)
+            else:
+                out = functional_call(disc, d_params, (img, lab_c), kw)
+            return out.reshape(-1)
 
-        def penalty(grad_x):
+        def d_jvp_apply(x_hat, u, d_params, d_fwd=d_apply):
+            """sum(D(x_hat)) differentiated forward along u, returned as a
+            plain tensor (what a checkpoint region may return).  It runs
+            the bare forward: a dual tensor may not enter a region."""
+            with fwAD.dual_level():
+                out = d_fwd(fwAD.make_dual(x_hat, u), d_params)
+                return fwAD.unpack_dual(out.sum()).tangent
+
+        if policy == "full":
+            g_apply = functools.partial(_checkpoint_region, g_apply)
+        if policy in ("full", "d_only"):
+            d_apply = functools.partial(_checkpoint_region, d_apply)
+            d_jvp_apply = functools.partial(_checkpoint_region, d_jvp_apply)
+
+        def norms_of(grad_x):
             acc = torch.promote_types(grad_x.dtype, torch.float32)
-            norms = torch.sqrt(torch.sum(torch.square(grad_x.to(acc)),
-                                         dim=(1, 2, 3)))
+            gx = grad_x.to(acc)
+            return gx, torch.sqrt(torch.sum(torch.square(gx),
+                                            dim=(1, 2, 3)))
+
+        def penalty(norms):
             return lam * torch.mean(torch.square(norms - 1.0))
 
-        def d_loss_with(fake_live):
+        def jvp_penalty(x_hat, d_params):
+            # grad_x only builds the detached coefficient u: D's
+            # parameters are frozen there (pgx's pd_sg), so no weight or
+            # bias gradient is computed and no graph is kept
+            xh = x_hat.detach().requires_grad_(True)
+            with _frozen(disc):
+                frozen = (None if d_params is None
+                          else {n: p.detach() for n, p in d_params.items()})
+                grad_x, = torch.autograd.grad(d_apply(xh, frozen).sum(), xh)
+            gx, norms = norms_of(grad_x)
+            gp_value = penalty(norms)
+            coef = 2.0 * lam * (norms - 1.0) / (norms * bsz)
+            u = (coef[:, None, None, None] * gx).to(x_hat.dtype).detach()
+            jv = d_jvp_apply(x_hat.detach(), u, d_params)
+            # value: the true penalty; gradient: the surrogate's
+            return gp_value.detach() + (jv - jv.detach())
+
+        def d_loss_with(fake_live, d_params):
             # fake_live carries G's graph in fused mode; x_hat never does:
             # the reference interpolates against a detached fake
             x_hat = eps * real + (1.0 - eps) * fake_live.detach()
@@ -333,21 +417,25 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 parts = [real, fake_live]
                 if apply_gp:
                     parts.append(x_hat.requires_grad_(True))
-                scores = d_fwd(torch.cat(parts, dim=0), len(parts))
+                scores = d_apply(torch.cat(parts, dim=0), d_params,
+                                 len(parts))
                 real_scores = scores[:bsz]
                 fake_scores = scores[bsz:2 * bsz]
                 if apply_gp:
                     grad_x, = torch.autograd.grad(
                         scores[2 * bsz:].sum(), x_hat, create_graph=True)
-                    gp = penalty(grad_x)
+                    gp = penalty(norms_of(grad_x)[1])
             else:
-                real_scores = d_fwd(real)
-                fake_scores = d_fwd(fake_live)
-                if apply_gp:
+                real_scores = d_apply(real, d_params)
+                fake_scores = d_apply(fake_live, d_params)
+                if apply_gp and tc.gp_mode == "jvp":
+                    gp = jvp_penalty(x_hat, d_params)
+                elif apply_gp:
                     x_hat.requires_grad_(True)
                     grad_x, = torch.autograd.grad(
-                        d_fwd(x_hat).sum(), x_hat, create_graph=True)
-                    gp = penalty(grad_x)
+                        d_apply(x_hat, d_params).sum(), x_hat,
+                        create_graph=True)
+                    gp = penalty(norms_of(grad_x)[1])
             real_drifted = (torch.mean(real_scores) - tc.drift
                             * torch.mean(torch.square(real_scores)))
             loss = -real_drifted + torch.mean(fake_scores) + gp
@@ -360,18 +448,24 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
             return (loss, {k: v.detach() for k, v in aux.items()},
                     real_scores.detach())
 
+        # G's parameters do not change before its own update: one copy
+        # serves the D step's fake pass and the G step
+        g_params = cast_of(gen, g_dtype)
+
         # --- D update (its graph dies with this function's locals) --------
         def d_step():
             d_params = list(disc.parameters())
+            d_cast = cast_of(disc, d_dtype)
             if fused:
-                g_params = list(gen.parameters())
-                loss, aux, logits = d_loss_with(aug_d_fake(g_fwd(gen)))
-                grads = _grads_of(loss, d_params + g_params)
+                gp_list = list(gen.parameters())
+                loss, aux, logits = d_loss_with(
+                    aug_d_fake(g_apply(g_params)), d_cast)
+                grads = _grads_of(loss, d_params + gp_list)
                 return (grads[:len(d_params)],
                         [-g for g in grads[len(d_params):]], aux, logits)
             with torch.no_grad():
-                fake = aug_d_fake(g_fwd(gen))
-            loss, aux, logits = d_loss_with(fake)
+                fake = aug_d_fake(g_apply(g_params))
+            loss, aux, logits = d_loss_with(fake, d_cast)
             return _grads_of(loss, d_params), None, aux, logits
 
         d_grads, g_grads, metrics, real_logits = d_step()
@@ -395,7 +489,10 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 metrics["g_loss"] = -metrics["fake_score"]
             else:
                 with _frozen(disc):
-                    g_loss = -torch.mean(d_fwd(aug_g_fake(g_fwd(gen))))
+                    # the updated D: cast again (weights_cast='once')
+                    g_loss = -torch.mean(d_apply(
+                        aug_g_fake(g_apply(g_params)),
+                        cast_of(disc, d_dtype)))
                     g_grads = _grads_of(g_loss, list(gen.parameters()))
                 metrics["g_loss"] = g_loss.detach()
                 del g_loss
@@ -409,6 +506,60 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         return state, metrics
 
     return train_step
+
+
+def make_train_multi_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
+                          tc: TrainConfig, *, step: int, fading: bool,
+                          k: int, augment_cfg: Optional[AugmentConfig] = None,
+                          ada_cfg: Optional[AdaConfig] = None,
+                          augment_p: float = 1.0):
+    """``k`` iterations in one call (counterpart of pgx's scanned
+    ``make_train_multi_step``):
+    ``fn(state, reals, labels, alphas, *, draws) -> (state, summed_metrics)``.
+
+    ``reals`` is a k-sequence of batches, ``labels`` a k-sequence or None,
+    ``alphas`` k fade weights.  ``draws`` gives each iteration's ``(z, eps,
+    aug_draws)``: a k-sequence, or a callable ``draws(j, real)`` called just
+    before iteration j runs, so a generator's numbers are consumed in the
+    order k single steps would consume them.  The window runs
+    ``k / gp_every`` groups of one penalty iteration and ``gp_every - 1``
+    plain ones (it must start on a ``gp_every`` boundary, as pgx's), each
+    the single step's body; the metrics are summed on the device and
+    nothing synchronizes the host inside the window.  Constraints as pgx's:
+    ``n_critic == 1`` and ``k`` a positive multiple of ``gp_every``."""
+    if tc.n_critic != 1:
+        raise ValueError("multi-step dispatch requires n_critic == 1")
+    if k < 1 or k % tc.gp_every != 0:
+        raise ValueError(f"k={k} must be a positive multiple of "
+                         f"gp_every={tc.gp_every}")
+    mk = lambda gp: make_train_step(
+        gcfg, dcfg, tc, step=step, fading=fading, update_g=True,
+        apply_gp=gp, augment_cfg=augment_cfg, ada_cfg=ada_cfg,
+        augment_p=augment_p)
+    body_gp = mk(True)
+    body_plain = mk(False) if tc.gp_every > 1 else body_gp
+
+    def multi_step(state, reals: Sequence[torch.Tensor], labels,
+                   alphas: Sequence[float], *, draws):
+        if not len(reals) == len(alphas) == k:
+            raise ValueError(f"a window of k={k} needs k batches and "
+                             f"alphas, got {len(reals)} and {len(alphas)}")
+        sums = None
+        for j in range(k):
+            real = reals[j]
+            z, eps, aug = draws(j, real) if callable(draws) else draws[j]
+            body = body_gp if j % tc.gp_every == 0 else body_plain
+            state, m = body(state, real,
+                            None if labels is None else labels[j],
+                            float(alphas[j]), z=z, eps=eps, aug_draws=aug)
+            # summed as the loop sums: in f32 (or wider)
+            m = {n: v.to(torch.promote_types(v.dtype, torch.float32))
+                 for n, v in m.items()}
+            sums = m if sums is None else {n: sums[n] + v
+                                           for n, v in m.items()}
+        return state, sums
+
+    return multi_step
 
 
 def make_eval_generate(gcfg: GeneratorConfig, *, step: int,

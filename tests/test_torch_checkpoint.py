@@ -151,10 +151,15 @@ def test_config_json_crosses_packages(tmp_path, writer):
 
 
 def test_configs_from_dict_refuses_unported_train_options(tmp_path):
+    """Once refused, the step's variants now load: a trial pgx saved with
+    remat, its policy, the jvp penalty and weights_cast='once' gives the
+    same TrainConfig."""
     (jg, jd), _ = _pairs()
-    jckpt.save_config(str(tmp_path), jg, jd, jwgan.TrainConfig(remat=True))
-    with pytest.raises(NotImplementedError, match="remat"):
-        tckpt.configs_from_dict(tckpt.load_config(str(tmp_path)))
+    jtc = jwgan.TrainConfig(remat=True, remat_policy="convs", gp_mode="jvp",
+                            weights_cast="once", gp_every=4, fused_g=True)
+    jckpt.save_config(str(tmp_path), jg, jd, jtc)
+    _, _, ttc = tckpt.configs_from_dict(tckpt.load_config(str(tmp_path)))
+    assert dataclasses.asdict(ttc) == dataclasses.asdict(jtc)
 
 
 def _grown_pair(max_step, module):

@@ -622,6 +622,91 @@ def test_gpu_kernel_a_backward_of_backward_launches_the_kernel(cuda):
         assert (a - e).abs().max().item() <= 1e-4 * e.abs().max().item()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_db", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 4, 4, 512), (8, 64, 64, 256),
+                                   (8, 512, 512, 64), (8, 512, 512, 32),
+                                   (2, 17, 3, 40), (9000, 1, 1, 8),
+                                   (3, 5, 7, 136)])
+def test_gpu_kernel_a_tangent_matches_plain(cuda, dtype, shape, with_db):
+    """A's tangent kernel against its plain version (pgx's rule in torch
+    ops) at the recipe's channel counts (512 at 4px ... 32 at 512px), at
+    odd row counts and at widths whose vectors do not fill their lane group
+    (40, 136 channels): f32 to 1e-5 of the largest output, bf16 to two
+    bf16 steps; one launch each."""
+    from pgx_torch.ops.kernels import epilogue as E
+    y = _on(_rand(shape, 1), cuda, dtype)
+    b = _on(_rand(shape[-1:], 2, 0.3), cuda, dtype)
+    dy = _on(_rand(shape, 3), cuda, dtype)
+    db = _on(_rand(shape[-1:], 4), cuda, dtype) if with_db else None
+    before = K.launch_counts()["bias_pixelnorm_lrelu_jvp"]
+    with torch.no_grad():
+        got = E.bias_pixelnorm_lrelu_tangent(y, b, dy, db)
+    want = E.bias_pixelnorm_lrelu_jvp_ref(y, b, dy, db)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bias_pixelnorm_lrelu_jvp"] == before + 1
+    assert got.dtype == dtype and got.shape == y.shape
+    scale = want.float().abs().max().item()
+    tol = (1e-5 * scale if dtype == torch.float32
+           else 2 * 2.0 ** (np.floor(np.log2(max(scale, 1e-3))) - 7))
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_kernel_a_tangent_takes_misaligned_views(cuda, dtype):
+    from pgx_torch.ops.kernels import epilogue as E
+    y = _misaligned((2, 5, 5, 40), dtype, cuda, 1)
+    dy = _misaligned((2, 5, 5, 40), dtype, cuda, 2)
+    b = _on(_rand((40,), 3, 0.1), cuda, torch.float32)
+    before = K.launch_counts()["bias_pixelnorm_lrelu_jvp"]
+    with torch.no_grad():
+        got = E.bias_pixelnorm_lrelu_tangent(y, b, dy)
+    want = E.bias_pixelnorm_lrelu_jvp_ref(y, b, dy)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["bias_pixelnorm_lrelu_jvp"] == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= GPU_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_gpu_kernel_a_tangent_launches_from_a_jvp_penalty(cuda):
+    """A two-conv block under forward AD, its tangent differentiated in
+    reverse mode (the jvp penalty's shape): one tangent, one backward for
+    the tangent's transpose, one for the primal chain and one second
+    derivative per A, and the gradients of the plain versions (f32,
+    1e-4 of the largest entry)."""
+    from pgx_torch.core import layers as L
+    import torch.autograd.forward_ad as fwAD
+    x = _on(_rand((4, 8, 8, 64), 1), cuda, torch.float32)
+    u = _on(_rand((4, 8, 8, 64), 2), cuda, torch.float32)
+    convs = [(_on(_rand((3, 3, 64, 64), 3 + i), cuda, torch.float32)
+              .requires_grad_(True),
+              _on(_rand((64,), 5 + i, 0.1), cuda, torch.float32)
+              .requires_grad_(True)) for i in range(2)]
+
+    def jv(epilogue):
+        with fwAD.dual_level():
+            h = fwAD.make_dual(x, u)
+            for w, b in convs:
+                h = epilogue(L.equal_conv2d(w, b, h, padding=1, bias=False),
+                             b)
+            t = fwAD.unpack_dual(h.square().sum()).tangent
+        return torch.autograd.grad(t, [p for c in convs for p in c])
+
+    names = ("bias_pixelnorm_lrelu_jvp", "bias_pixelnorm_lrelu_bwd",
+             "bias_pixelnorm_lrelu_bwd2")
+    before = {n: K.launch_counts()[n] for n in names}
+    got = jv(K.bias_pixelnorm_lrelu)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert {n: after[n] - before[n] for n in names} == {
+        "bias_pixelnorm_lrelu_jvp": 2, "bias_pixelnorm_lrelu_bwd": 4,
+        "bias_pixelnorm_lrelu_bwd2": 2}
+    for a, e in zip(got, jv(K.bias_pixelnorm_lrelu_ref)):
+        assert (a - e).abs().max().item() <= 1e-4 * e.abs().max().item()
+
+
 def _misaligned(shape, dtype, dev, seed):
     """A contiguous view of ``shape`` whose data pointer is one element
     past a 16-byte boundary."""

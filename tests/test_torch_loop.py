@@ -258,12 +258,26 @@ def test_resume_warns_on_drift(tmp_path):
                                          ("fid_every", 100),
                                          ("checkpoint_backend", "orbax"),
                                          ("model_parallel", 2)])
-def test_loop_config_refuses_unported_options(field, value):
-    with pytest.raises(NotImplementedError, match=field):
-        LoopConfig(**{field: value})
+def test_loop_config_refuses_unported_options(tmp_path, field, value):
+    """What is not ported raises; ``steps_per_call`` (a window of 2, or 0:
+    auto) is ported and accepted, and its windows change no number: the
+    loop's CSV and final state equal those of single steps."""
+    if field == "steps_per_call":
+        assert LoopConfig(**{field: value}).steps_per_call == value
+        cadence = dict(sample_every=4, checkpoint_every=4, log_every=2)
+        trials = [_loop(tmp_path / str(k), steps_per_call=k, **cadence)
+                  for k in (value, 1)]
+        assert _rows(trials[0]) == _rows(trials[1])
+        _assert_states_equal(_full_state(trials[0], TOTAL),
+                             _full_state(trials[1], TOTAL))
+    else:
+        with pytest.raises(NotImplementedError, match=field):
+            LoopConfig(**{field: value})
     LoopConfig(use_mesh=False)
     with pytest.raises(ValueError):
         LoopConfig(checkpoint_backend="zarr")
+    with pytest.raises(ValueError):
+        LoopConfig(steps_per_call=-1)
 
 
 def test_loop_runs_on_the_card_only_when_asked(tmp_path):
@@ -322,6 +336,18 @@ def test_cli_trains_a_short_trial(tmp_path, extra, header):
     (["--gp-mode", "jvp"], "gp_mode"),
     (["--multihost"], "multihost")])
 def test_cli_refuses_unported_flags(tmp_path, flags, match):
+    """What is not ported raises; ``--steps-per-call`` and ``--gp-mode jvp``
+    are ported: the CLI trains with them and saves them in the trial's
+    config."""
+    if match in ("steps_per_call", "gp_mode"):
+        trial = cli.main(CLI_ARGS + ["--output", str(tmp_path)] + flags)
+        rows = _rows(trial)
+        assert [r.split(",")[0] for r in rows[1:]] == ["2", "4", "6", "8"]
+        assert all(np.isfinite([float(v) for v in r.split(",")]).all()
+                   for r in rows[1:])
+        if match == "gp_mode":
+            assert tckpt.load_config(trial)["train"]["gp_mode"] == "jvp"
+        return
     with pytest.raises(NotImplementedError, match=match):
         cli.main(CLI_ARGS + ["--output", str(tmp_path)] + flags)
 

@@ -242,5 +242,30 @@ def test_train_config_validation():
 @pytest.mark.parametrize("kw", [dict(gp_mode="jvp"), dict(remat=True),
                                 dict(weights_cast="once")])
 def test_train_config_refuses_unported_variants(kw):
-    with pytest.raises(NotImplementedError):
-        twgan.TrainConfig(**kw)
+    """Once refused, each variant is now accepted: the config is pgx's, and
+    in f64 one iteration with it computes the default's (jvp: the same
+    gradient in another order, 1e-12 of the largest entry; remat and the
+    f64 cast: the same arithmetic)."""
+    tc = twgan.TrainConfig(**kw)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(
+        jwgan.TrainConfig(**kw))
+    jstate = jax.device_get(_initial_state(7))
+    real, labels = _batch(3, seed=80)
+    z, eps = _draws(jstate)
+    out = []
+    for cfg in (tc, twgan.TrainConfig()):
+        state, metrics = twgan.make_train_step(TG, TD, cfg, step=3,
+                                               fading=False)(
+            twgan.train_state_from_jax(TG, TD, cfg, jstate, "cpu"),
+            torch.from_numpy(real), torch.from_numpy(labels), 1.0, z=z,
+            eps=eps)
+        out.append((state, metrics))
+    (got, gm), (want, wm) = out
+    for k in twgan.METRICS:
+        np.testing.assert_allclose(float(gm[k]), float(wm[k]), rtol=1e-12,
+                                   atol=1e-14, err_msg=k)
+    for opt in ("opt_d", "opt_g"):
+        for n, w in want[opt]["mu"].items():
+            scale = max(w.abs().max().item(), 1e-30)
+            assert (got[opt]["mu"][n] - w).abs().max().item() \
+                <= 1e-12 * scale, (opt, n)
