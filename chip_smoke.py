@@ -80,6 +80,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    that iteration and finish.  Reports img/s at 128px from timing.json
    beside the bare step's, the prefetcher's wait, peak memory, seconds and
    bytes per checkpoint write and the resumed run's first iteration.
+   The in-process run also scores FID every 6 iterations (256 samples, at
+   64px and at 128px) with any RuntimeWarning made an error: finite
+   in-training entries in fid_score.json and fid_score_meta.json, each
+   tick's seconds beside the log windows'.
 7. train_512_recipe — the 512px production recipe at full width
    (conditional_correct_grown(8, z_dim=512, channel=512), bf16, batch 8,
    ADA with the controller and the shear warp, gp_every 4, fused_g):
@@ -99,7 +103,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the recipe's flags (--gp-mode jvp --steps-per-call 8) through 256px
    and 512px, fade and stable, windows counted per phase, and a short run
    with --steps-per-call auto.
-8. card    — nvidia-smi's name and power limit.
+   The recipe phase also holds kernel A and A's backward against their
+   plain versions at every launch of one jvp penalty iteration (recorded
+   where they launch), with device time from a CUDA graph against the byte
+   bound (A's share on the production path).
+8. eval    — at the flagship's full width: the device preprocess (PIL's
+   bilinear fixed point as torch integer ops, the float chain by lookup)
+   against the numpy path, bytes and floats equal, at 32px, 128px and
+   grey; the card's f32 Inception features against the CPU's (1e-4 of the
+   largest feature), unchanged with the caller's TF32 flags left on, and
+   Inception's time per batch of 50 against its f32 bound; the flagship
+   (random weights, seeds 0 and 1) as a trial of two checkpoints, exported
+   to reference .model files and imported back (--sample) byte for byte;
+   ``pgx_torch.cli.fid_sweep --kid``, 2048 samples a side, on the imported
+   trial (f32 sampling: its config carries no dtype) and on the bf16
+   trial, each with launch counts from 0 (A 2, B 1, C 9 per sampling
+   batch), nothing traced, finite FID and KID for both checkpoints, its
+   seconds per checkpoint and the host time of each part (sampling,
+   activations, sqrtm, KID); a second sweep that scores nothing; one bf16
+   checkpoint scored again alone under torch.profiler (idle share); A, B
+   and C against their plain versions at the sampling shapes of the sweep
+   (batch 50) and of the loop's FID ticks (64px and 128px, batches 50 and
+   6), in bf16 and f32; G's sampling per batch;
+   ``pgx_torch.cli.fid_selftest`` on random weights (exit 2, then
+   --allow-unverified).
+9. card    — nvidia-smi's name and power limit.
 
 Every bf16 kernel row of phase 2 also carries the kernel's device time
 from a CUDA graph (``device_ms``), beside the back-to-back time (``ms``).
@@ -123,6 +151,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from unittest import mock
 
 # one H100 SXM (NVIDIA data sheet): HBM rate, dense bf16 tensor-core rate,
@@ -2189,6 +2218,10 @@ LOOP_ARGS = ["--synthetic", "--channels", "512", "--z-dim", "512",
              "--log-every", "3"]
 LOOP_TOTAL = 12          # 3 iterations a mini-step: 64px fade + stable,
 LOOP_CADENCE = (1, 3, 6, 9, 12)   # 128px fade + stable; events every 3
+# the in-process run also scores FID: at 6 (64px) and 12 (128px)
+LOOP_FID_SAMPLES = 256
+LOOP_FID_ARGS = ["--fid-every", "6", "--fid-samples", str(LOOP_FID_SAMPLES)]
+LOOP_FID_TICKS = {6: 64, 12: 128}
 
 
 @contextlib.contextmanager
@@ -2203,8 +2236,19 @@ def loop_probes(torch):
     from pgx_torch.train import loop as loop_mod
     orig_save, orig_step = ckpt.save_checkpoint, loop_mod.make_train_step
     orig_grid = loop_mod.save_image_grid
+    from pgx_torch.eval.sweep import TrainingFid
+    orig_fid = TrainingFid.score
     probes = {"writes": [], "grids_s": [], "prefetchers": [],
-              "first_step": None}
+              "first_step": None, "fid_ticks": []}
+
+    def timed_fid(self, trial_dir, iteration, generator, st):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fid = orig_fid(self, trial_dir, iteration, generator, st)
+        probes["fid_ticks"].append({"iteration": iteration, "fid": fid,
+                                    "resolution": st.resolution,
+                                    "seconds": time.perf_counter() - t0})
+        return fid
 
     def timed_grid(*a, **kw):
         t0 = time.perf_counter()
@@ -2248,7 +2292,8 @@ def loop_probes(torch):
     with mock.patch.object(ckpt, "save_checkpoint", timed_save), \
             mock.patch.object(loop_mod, "DevicePrefetcher", Prefetcher), \
             mock.patch.object(loop_mod, "make_train_step", first_step_timed), \
-            mock.patch.object(loop_mod, "save_image_grid", timed_grid):
+            mock.patch.object(loop_mod, "save_image_grid", timed_grid), \
+            mock.patch.object(TrainingFid, "score", timed_fid):
         yield probes
 
 
@@ -2294,6 +2339,27 @@ def check_trial(trial: str) -> dict:
     return {"csv": rows, "timing": timing, "sample_grids": grids}
 
 
+def check_loop_fid(trial: str, ticks: list) -> dict:
+    """The in-training FID's entries: finite scores at the cadence in
+    fid_score.json, each marked in-training, each printed value's."""
+    import math
+    with open(os.path.join(trial, "fid_score.json")) as f:
+        scores = json.load(f)
+    with open(os.path.join(trial, "fid_score_meta.json")) as f:
+        meta = json.load(f)
+    names = {f"{it:03d}_g.model" for it in LOOP_FID_TICKS}
+    require(set(scores) == names and all(math.isfinite(v)
+                                         for v in scores.values()),
+            f"fid_score.json {scores}")
+    require(meta == {n: "in-training" for n in names},
+            f"fid_score_meta.json {meta}")
+    require({t["iteration"]: t["resolution"] for t in ticks}
+            == LOOP_FID_TICKS and all(scores[f"{t['iteration']:03d}_g.model"]
+                                      == t["fid"] for t in ticks),
+            f"FID ticks {ticks} against {scores}")
+    return scores
+
+
 def train_loop_phase(torch, bare: dict):
     """The flagship's training CLI in this process at full width, bf16,
     batch 32, 64px -> 128px with the shear warp at p = 0.6: launch counts
@@ -2307,12 +2373,22 @@ def train_loop_phase(torch, bare: dict):
     from pgx_torch.ops import kernels as K
 
     here = os.path.dirname(os.path.abspath(__file__))
+    from scipy.linalg import LinAlgWarning
     root = tempfile.mkdtemp(prefix="pgx_train_loop_")
     try:
-        args = LOOP_ARGS + ["--output", os.path.join(root, "run")]
+        args = LOOP_ARGS + LOOP_FID_ARGS + ["--output",
+                                            os.path.join(root, "run")]
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        with loop_probes(torch) as probes:
+        with loop_probes(torch) as probes, \
+                warnings.catch_warnings(record=True) as caught:
+            # the loop turns a failed FID tick into a RuntimeWarning and
+            # trains on: here any RuntimeWarning fails the phase.  scipy's
+            # LinAlgWarning (a RuntimeWarning) reports a numerically
+            # singular covariance product, which the Frechet distance's own
+            # fallback handles; it is recorded and counted
+            warnings.simplefilter("error", RuntimeWarning)
+            warnings.simplefilter("always", LinAlgWarning)
             # ---- the main path: counts from 0 around the CLI run ----
             K.reset_launch_counts()
             t0 = time.perf_counter()
@@ -2323,6 +2399,9 @@ def train_loop_phase(torch, bare: dict):
             # ----------------------------------------------------------
         peak = torch.cuda.max_memory_allocated()
         run = check_trial(trial)
+        fid_scores = check_loop_fid(trial, probes["fid_ticks"])
+        linalg_warnings = sum(issubclass(w.category, LinAlgWarning)
+                              for w in caught)
         full = [w for w in probes["writes"] if w["full_state"]]
         require(len(full) == len(LOOP_CADENCE) + 1,
                 f"checkpoint writes {probes['writes']}")
@@ -2376,10 +2455,17 @@ def train_loop_phase(torch, bare: dict):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     require(not os.path.exists(root), f"{root} left behind")
+    windows = {it: run["timing"][str(it)]["elapsed_s"]
+               - run["timing"][str(it - 3)]["elapsed_s"] for it in (9, 12)}
     return {
         "config": "python -m pgx_torch.cli.conditional_proper_cifar_train "
-                  + " ".join(LOOP_ARGS),
+                  + " ".join(LOOP_ARGS + LOOP_FID_ARGS),
         "iterations": LOOP_TOTAL, "launches": launches,
+        "fid": {"scores": fid_scores, "ticks": probes["fid_ticks"],
+                "linalg_warnings": linalg_warnings,
+                # the log windows of 3 iterations at 128px (timing.json):
+                # the one ending at 12 holds the 128px tick
+                "window_s_9": windows[9], "window_s_12": windows[12]},
         "wall_s": wall, "peak_memory_bytes": peak,
         "img_per_s_128px_stable_timing_json": tick["img_s"],
         "bare_step_img_per_s": {"train": bare["train"],
@@ -3024,6 +3110,34 @@ def recipe_cli_phase(torch) -> dict:
                      "wall_s": auto_wall}}
 
 
+def record_a_calls_512(torch, gcfg, dcfg):
+    """Kernel A's and A's backward's launches (shape, bias, slope) in one
+    bf16 512px jvp penalty iteration, recorded where they launch."""
+    from pgx_torch.ops.kernels import epilogue
+    calls = []
+    fwd, bwd = epilogue._launch, epilogue._launch_backward
+
+    def rec(name, fn):
+        def run(y, b, *rest):
+            calls.append((name, tuple(y.shape), (tuple(b.shape),),
+                          json.dumps({"slope": rest[-2]}, sort_keys=True)))
+            return fn(y, b, *rest)
+        return run
+    _, state, steps = recipe_state(gcfg, dcfg, gp_mode="jvp")
+    real, labels, draws = recipe_draws(torch, gcfg, seed=901)
+    with mock.patch.object(epilogue, "_launch", rec(A, fwd)), \
+            mock.patch.object(epilogue, "_launch_backward", rec(A_BWD, bwd)):
+        steps[True](state, real, labels, 1.0, **draws)
+        torch.cuda.synchronize()
+    want = recipe_launches(state["g"], dcfg, "jvp", True)
+    del state, steps
+    got = count_calls(calls)
+    require(got == {A: want[A], A_BWD: want[A_BWD]},
+            f"recorded A launches {got}, the routing rules give "
+            f"{want[A]} and {want[A_BWD]}")
+    return calls
+
+
 def recipe_phase(torch) -> dict:
     """Phase 7: the 512px production recipe at full width."""
     gcfg, dcfg = recipe_pair("bfloat16")
@@ -3031,6 +3145,20 @@ def recipe_phase(torch) -> dict:
     tangent = tangent_kernel_phase(torch, calls)
     emit({"phase": "kernel_a_tangent", "per": "one bf16 jvp penalty "
           "iteration at 512px, batch 8", **tangent})
+    per_a = kernel_phase(torch, record_a_calls_512(torch, gcfg, dcfg),
+                         "one bf16 jvp penalty iteration at 512px, batch 8",
+                         reps=3)
+    a512 = {name: {"launches": agg["calls"], "device_ms": agg["device_ms"],
+                   "ms": agg["ms"], "plain_ms": agg["plain_ms"],
+                   "bound_ms": max(agg["t_ops"], agg["t_bytes"]),
+                   "bound_by": ("operations" if agg["t_ops"] > agg["t_bytes"]
+                                else "bytes"),
+                   "share_of_bound": (max(agg["t_ops"], agg["t_bytes"])
+                                      / agg["device_ms"]),
+                   "max_abs_err": agg["err"], "tol": agg["tol"]}
+            for (name, dt), agg in per_a.items() if dt == "bfloat16"}
+    emit({"phase": "kernel_a_512px", "per": "one bf16 jvp penalty "
+          "iteration at 512px, batch 8 (sum over its launches)", **a512})
     emit({"phase": "train_512_penalty_f32_check",
           **penalty_f32_check(torch, gcfg, dcfg)})
     bare = recipe_bare_phase(torch, gcfg, dcfg)
@@ -3043,7 +3171,528 @@ def recipe_phase(torch) -> dict:
           **memory_variants_phase(torch, gcfg, dcfg)})
     cli_run = recipe_cli_phase(torch)
     emit({"phase": "train_512_cli", **cli_run})
-    return {"tangent": tangent, "bare": bare, "cli": cli_run}
+    return {"tangent": tangent, "bare": bare, "cli": cli_run, "a512": a512}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: evaluation (Inception FID/KID, the sweep, the .model round trip)
+# ---------------------------------------------------------------------------
+
+EVAL_BATCH = 50
+EVAL_SAMPLES = 2048       # a side: pool3 has 2048 dimensions, fewer images
+                          # leave both covariances singular
+EVAL_ITERS = (100, 200)   # past the schedule's end: step 6, 128px, alpha 1
+SWEEP_ARGS = ["--kid", "--dataset", "synthetic", "--num-samples",
+              str(EVAL_SAMPLES), "--num-real", str(EVAL_SAMPLES),
+              "--batch-size", str(EVAL_BATCH)]
+F32_CONV_OPS = 67e12      # Inception's convs: f32 outside the tensor cores
+# the tracer's own spans on the device timeline (CUPTI's buffer handling)
+TRACER_SPANS = ("Activity Buffer Request", "Buffer Flush")
+
+
+def wall_ms(torch, fn, reps: int = 5) -> float:
+    """Median host time of fn() to its end on the card (synchronized)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def eval_preprocess_phase(torch) -> dict:
+    """The device preprocess against the numpy path (``_resize_batch`` and
+    the float chain): bytes after the resize equal, floats equal, for a
+    real 32px batch, a 128px float generator batch and a grey 32px batch;
+    then both timed on the 128px batch of 50."""
+    import numpy as np
+    from pgx_torch.data.datasets import _resize_batch, synthetic_dataset
+    from pgx_torch.eval import fid
+    cases = {
+        "real_32px_uint8": synthetic_dataset(EVAL_BATCH, 32, 3,
+                                             seed=3).images,
+        "fake_128px_float32": np.random.RandomState(7).randn(
+            EVAL_BATCH, 128, 128, 3).astype(np.float32),
+        "grey_32px_uint8": synthetic_dataset(EVAL_BATCH, 32, 1,
+                                             seed=4).images}
+    for name, x in cases.items():
+        u8 = fid._rgb_uint8(x)
+        got = fid.resize_uint8(torch.from_numpy(u8).to(DEVICE), 299)
+        require(np.array_equal(got.cpu().numpy(), _resize_batch(u8, 299)),
+                f"device resize differs from the numpy path ({name})")
+        got = fid.preprocess(x, DEVICE)
+        require(got.shape == (len(x), 299, 299, 3)
+                and got.dtype == torch.float32, f"preprocess {name} shape")
+        require(np.array_equal(got.cpu().numpy(), fid.preprocess(x).numpy()),
+                f"device preprocess floats differ from the numpy path "
+                f"({name})")
+    x = cases["fake_128px_float32"]
+    u8_dev = torch.from_numpy(fid._rgb_uint8(x)).to(DEVICE)
+    return {"cases": list(cases), "bytes_equal": True, "floats_equal": True,
+            "per": "one batch of 50 at 128px, float32 generator output",
+            "device_ms": wall_ms(torch, lambda: fid.preprocess(x, DEVICE)),
+            "device_resize_and_lookup_ms": cuda_ms(
+                torch, lambda: fid._preprocess_tensor(u8_dev), reps=5),
+            "host_quirk_ms": wall_ms(torch, lambda: fid._rgb_uint8(x)),
+            "numpy_host_path_ms": wall_ms(torch, lambda: fid.preprocess(x),
+                                          reps=3)}
+
+
+def inception_flops(torch, model) -> float:
+    """Operations of one image's forward, from the convs' shapes: the sum
+    of 2 * kh * kw * C_in * C_out * H_out * W_out (a forward hook on every
+    conv reads its output's size)."""
+    total = []
+
+    def hook(mod, inp, out):
+        kh, kw = mod.kernel_size
+        total.append(2.0 * kh * kw * mod.in_channels * mod.out_channels
+                     * out.shape[2] * out.shape[3])
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.inference_mode():
+            model(torch.zeros(1, 3, 299, 299, device=DEVICE).contiguous(
+                memory_format=torch.channels_last))
+    finally:
+        for h in handles:
+            h.remove()
+    require(len(total) == 94, f"{len(total)} convs in Inception, want 94")
+    return sum(total)
+
+
+def eval_features_phase(torch) -> dict:
+    """The card's f32 Inception features against the CPU's with the same
+    random weights on one batch of 8 (tolerance 1e-4 of the largest
+    feature); the caller's TF32 flags left on around a call do not move
+    them (the extractor turns TF32 off for its call and restores the flags:
+    1e-6 of the largest feature) and what TF32 would have moved, the model
+    called outside the extractor with TF32 on; then Inception's time per
+    batch of 50 against its f32 bound."""
+    import numpy as np
+    from pgx_torch.eval import fid, inception
+    sd = inception.init_inception(torch.Generator().manual_seed(0))
+    x = fid.preprocess(np.random.RandomState(8).randn(8, 128, 128, 3)
+                       .astype(np.float32))
+    want = fid.make_extractor(sd, device="cpu")(x)
+    ext = fid.make_extractor(sd, device=DEVICE)
+    xd = x.to(DEVICE).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        left_on = ext(x)
+        require(torch.backends.cudnn.allow_tf32
+                and torch.backends.cuda.matmul.allow_tf32,
+                "the extractor did not restore the caller's TF32 flags")
+        with torch.inference_mode():
+            tf32 = ext.model(xd).cpu().numpy()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    got = ext(x)
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max()) / scale
+    flag_err = float(np.abs(left_on - got).max()) / scale
+    require(got.shape == (8, 2048) and np.isfinite(got).all(),
+            "card features' shape or values")
+    require(err <= 1e-4, f"card features vs CPU: {err} of the largest "
+                         f"feature > 1e-4")
+    require(flag_err <= 1e-6, f"features moved with the caller's TF32 "
+                              f"flags on: {flag_err} of the largest")
+    flops = inception_flops(torch, ext.model)
+    xb = torch.randn(EVAL_BATCH, 3, 299, 299, device=DEVICE).contiguous(
+        memory_format=torch.channels_last)
+
+    def batch():
+        with torch.inference_mode():
+            ext.model(xb)
+    ms = cuda_ms(torch, batch, reps=10)
+    bound = EVAL_BATCH * flops / F32_CONV_OPS * 1e3
+    return {"features_vs_cpu_rel_err": err, "tol": 1e-4,
+            "features_with_caller_tf32_on_rel_err": flag_err,
+            "tf32_unscoped_rel_err": float(np.abs(tf32 - want).max()) / scale,
+            "largest_feature": scale,
+            "gflop_per_image": flops / 1e9,
+            "inception_ms_per_batch50": ms,
+            "inception_img_per_s": EVAL_BATCH / ms * 1e3,
+            "inception_bound_ms_per_batch50": bound,
+            "inception_share_of_bound": bound / ms, "bound_by": "operations"}
+
+
+def device_launches(torch, fn) -> int:
+    """Kernels, copies and sets on the device in one fn() call, from the
+    profiler's raw trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.device_type() == DeviceType.CUDA
+               and not ev.is_user_annotation()
+               and ev.name() not in TRACER_SPANS
+               for ev in prof.profiler.kineto_results.events())
+
+
+def write_flagship_trial(trial, cfg, dcfg, g_trees, d_trees) -> None:
+    """The flagship as a trial the loop would leave: its config with a
+    schedule, G and D npz checkpoints at EVAL_ITERS."""
+    from pgx_torch import checkpoint as ckpt
+    from pgx_torch.train import ProperSchedule, TrainConfig
+    from pgx_torch.train.schedule import schedule_to_dict
+    ckpt.save_config(trial, cfg, dcfg, TrainConfig(), postfix="flagship",
+                     extra={"batch_size": TRAIN_BATCH,
+                            "schedule": schedule_to_dict(ProperSchedule(
+                                96, TRAIN_BATCH, cfg.max_step,
+                                cfg.max_step))})
+    os.makedirs(os.path.join(trial, "checkpoint"))
+    for it, g, d in zip(EVAL_ITERS, g_trees, d_trees):
+        for kind, tree in (("g", g), ("d", d)):
+            ckpt.save_params(os.path.join(trial, "checkpoint",
+                                          ckpt.checkpoint_name(it, kind)),
+                             tree)
+
+
+@contextlib.contextmanager
+def sweep_probes(torch, profiled: int | None = None):
+    """Host time of each of the sweep's parts (none of it changes what the
+    sweep does): sampling (to the host copy), activations (preprocess and
+    Inception, to the host copy), the Frechet distance (scipy's sqrtm) and
+    KID.  With ``profiled`` = i, the i-th scored checkpoint runs under
+    torch.profiler (device activity only) from its first sample to its
+    KID; without it nothing is traced."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from pgx_torch.eval import sweep
+    probes = {"generate_s": [], "activations_s": [], "frechet_s": [],
+              "kid_s": []}
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    window = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            if name == "generate_s" and len(probes[name]) == profiled:
+                torch.cuda.synchronize()
+                prof.start()
+                window["t0"] = time.perf_counter()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            probes[name].append(time.perf_counter() - t0)
+            if "t0" in window and name == "kid_s" \
+                    and len(probes[name]) == profiled + 1:
+                torch.cuda.synchronize()
+                window["wall_s"] = time.perf_counter() - window["t0"]
+                prof.stop()
+            return out
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for attr, name in (("generate_samples", "generate_s"),
+                           ("get_activations", "activations_s"),
+                           ("calculate_frechet_distance", "frechet_s"),
+                           ("kid_from_activations", "kid_s")):
+            stack.enter_context(mock.patch.object(
+                sweep, attr, timed(name, getattr(sweep, attr))))
+        yield probes
+    if profiled is None:
+        return
+    require("wall_s" in window, "the profiled checkpoint was not scored")
+    # the raw trace (a million device events where cuDNN picks its
+    # per-slice FFT algorithm; torch's event tree would take minutes), less
+    # the tracer's own spans on the device timeline
+    dev = [ev for ev in prof.profiler.kineto_results.events()
+           if ev.device_type() == DeviceType.CUDA
+           and not ev.is_user_annotation() and ev.name() not in TRACER_SPANS]
+    kernel_s = sum(ev.duration_ns() for ev in dev) / 1e9
+    wall = window["wall_s"]
+    require(0 < kernel_s < wall, f"profiled scoring: device {kernel_s} s in "
+                                 f"{wall} s")
+    probes["profile"] = {"wall_s": wall, "profiled_device_s": kernel_s,
+                         "device_events": len(dev),
+                         "idle_share": 1.0 - kernel_s / wall}
+
+
+def read_scores(trial: str):
+    with open(os.path.join(trial, "fid_score.json")) as f:
+        fids = json.load(f)
+    with open(os.path.join(trial, "kid_score.json")) as f:
+        kids = json.load(f)
+    return fids, kids
+
+
+def counted_sweep(torch, trial: str, dtype: str) -> dict:
+    """One main path: cli/fid_sweep --kid on ``trial`` with launch counts
+    from 0 around it and nothing traced (A 2, B 1, C 9 per sampling batch;
+    finite FID and KID for every checkpoint; the seconds per checkpoint of
+    the whole run and the host time of each part)."""
+    import math
+    from pgx_torch import checkpoint as ckpt
+    from pgx_torch.cli import fid_sweep
+    from pgx_torch.ops import kernels as K
+    with sweep_probes(torch) as probes:
+        # ---- the main path: counts from 0 around the sweep ----
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fid_sweep.main(["--trial", trial] + SWEEP_ARGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()
+        # --------------------------------------------------------
+    batches = len(EVAL_ITERS) * math.ceil(EVAL_SAMPLES / EVAL_BATCH)
+    want = {k: 0 for k in launches}
+    want.update({A: 2 * batches, B: batches, C: 9 * batches})
+    require(launches == want, f"{dtype} sweep launches {launches} != {want} "
+                              f"({batches} sampling batches)")
+    names = [ckpt.checkpoint_name(it, "g") for it in EVAL_ITERS]
+    fids, kids = read_scores(trial)
+    require(sorted(fids) == sorted(kids) == sorted(names)
+            and all(math.isfinite(v) for v in fids.values())
+            and all(math.isfinite(m) and math.isfinite(sd)
+                    for m, sd in kids.values()),
+            f"{dtype} sweep scores {fids} {kids}")
+    require(set(result["comparable"]) == set(names)
+            and not result["in_training"], f"sweep result {result}")
+    return {"config": f"python -m pgx_torch.cli.fid_sweep --trial <{dtype} "
+                      f"trial> " + " ".join(SWEEP_ARGS),
+            "sampling_dtype": dtype, "fid": fids, "kid": kids,
+            "launches": launches, "sampling_batches": batches,
+            "launches_per_sampling_batch": {
+                k: launches[k] / batches for k in (A, B, C)},
+            "wall_s": wall, "seconds_per_checkpoint": wall / len(names),
+            "generate_s": probes["generate_s"],
+            # the first checkpoint's samples, the 2048 real images, the
+            # second checkpoint's samples
+            "activations_s": probes["activations_s"],
+            "frechet_s": probes["frechet_s"], "kid_s": probes["kid_s"]}
+
+
+def profiled_checkpoint(torch, trial: str) -> dict:
+    """The device idle share of one checkpoint's scoring, outside every
+    timed window: the last checkpoint's scores dropped from the trial's
+    files, then cli/fid_sweep scores it alone under torch.profiler, from
+    its first sample to its KID (its samples, both sides' activations,
+    sqrtm, KID)."""
+    import math
+    from pgx_torch import checkpoint as ckpt
+    from pgx_torch.cli import fid_sweep
+    name = ckpt.checkpoint_name(EVAL_ITERS[-1], "g")
+    fids, kids = read_scores(trial)
+    for fname, scores in (("fid_score.json", fids), ("kid_score.json", kids)):
+        with open(os.path.join(trial, fname), "w") as f:
+            json.dump({k: v for k, v in scores.items() if k != name}, f)
+    with sweep_probes(torch, profiled=0) as probes:
+        fid_sweep.main(["--trial", trial] + SWEEP_ARGS)
+    again, _ = read_scores(trial)
+    require(sorted(again) == sorted(fids) and math.isfinite(again[name]),
+            f"profiled re-score {again}")
+    return {"checkpoint": name, **probes["profile"],
+            "generate_s": probes["generate_s"][0],
+            "activations_s": probes["activations_s"],
+            "frechet_s": probes["frechet_s"][0], "kid_s": probes["kid_s"][0],
+            "fid": again[name], "fid_unprofiled": fids[name]}
+
+
+def eval_kernel_phase(torch, cfg, icfg, params) -> dict:
+    """A, B and C against their plain versions at the eval paths' sampling
+    shapes, recorded from ``sweep.generate_samples``: one batch of 50 at
+    128px as the sweep samples the imported trial (f32); the loop's FID
+    ticks (256 samples at batch 50, bf16) at 64px and 128px, whose batches
+    of 50 at 128px are the sweep's shapes and whose other shapes (64px at
+    50 and 6, 128px at 6) are held on their own.  kernel_phase holds every
+    shape in bf16 and f32."""
+    from pgx_torch.eval import sweep
+    from pgx_torch.models.generator import Generator
+
+    def sampled(c, step, n):
+        gen = Generator.from_jax_params(c, params, DEVICE)
+        return lambda: sweep.generate_samples(
+            gen, c, step=step, alpha=1.0, fading=False, num_samples=n,
+            batch_size=EVAL_BATCH, seed=0, num_classes=c.num_classes)
+    rem = LOOP_FID_SAMPLES % EVAL_BATCH
+    sweep_calls = record_calls(torch, sampled(icfg, icfg.max_step,
+                                              EVAL_BATCH))
+    tick_128 = record_calls(torch, sampled(cfg, cfg.max_step,
+                                           EVAL_BATCH + rem))
+    tick_64 = record_calls(torch, sampled(cfg, cfg.max_step - 1,
+                                          EVAL_BATCH + rem))
+    n = len(sweep_calls)
+    require(count_calls(sweep_calls) == {A: 2, B: 1, C: 9}
+            and tick_128[:n] == sweep_calls,
+            f"the sweep's f32 batch {count_calls(sweep_calls)} and the "
+            f"tick's bf16 batch of 50 at 128px differ in their calls")
+    batch50 = kernel_phase(torch, sweep_calls, "one sampling batch of 50 at "
+                           "128px (the sweep's in f32, the FID tick's in "
+                           "bf16)", reps=3)
+    others = kernel_phase(torch, tick_128[n:] + tick_64, "the FID ticks' "
+                          "other sampling batches: 128px at 6, 64px at 50 "
+                          "and 6", reps=3)
+    return {"batch50": batch50, "tick_others": others}
+
+
+def eval_sweep_phase(torch, cfg, dcfg, params) -> dict:
+    """The flagship (random weights from seeds 0 and 1) as a bf16 trial of
+    two checkpoints; exported to reference .model files
+    (cli/export_torch_checkpoint) and imported back (cli/import_checkpoint
+    --sample): every parameter byte for byte.  Then two main paths, each
+    cli/fid_sweep --kid with 2048 samples and 2048 synthetic real images at
+    batch 50 and counts from 0 around it: the imported trial (its config
+    carries no dtype: f32 sampling) and the bf16 trial, then a second sweep
+    of the imported trial that scores nothing (no launch, the files
+    unchanged).  Then one checkpoint of the bf16 trial scored again under
+    torch.profiler (the idle share), A, B and C against their plain
+    versions at the eval paths' shapes, and G's sampling time per batch."""
+    import shutil
+    from pgx_torch import checkpoint as ckpt
+    from pgx_torch.cli import export_torch_checkpoint, fid_sweep, \
+        import_checkpoint
+    from pgx_torch.models.discriminator import init_discriminator
+    from pgx_torch.models.generator import Generator, init_generator
+    from pgx_torch.ops import kernels as K
+    from pgx_torch.train.wgan import make_eval_generate
+
+    root = tempfile.mkdtemp(prefix="pgx_eval_")
+    out = {}
+    try:
+        orig = os.path.join(root, "trial_flagship")
+        g_trees = [params, init_generator(cfg, seed=1)]
+        d_trees = [init_discriminator(dcfg, seed=n) for n in (10, 11)]
+        write_flagship_trial(orig, cfg, dcfg, g_trees, d_trees)
+        ref, imported = (os.path.join(root, n) for n in ("ref", "imported"))
+        t0 = time.perf_counter()
+        export_torch_checkpoint.main(["--trial", orig, "--out", ref])
+        t1 = time.perf_counter()
+        import_checkpoint.main(["--trial", ref, "--family",
+                                "conditional_proper", "--num-classes",
+                                str(cfg.num_classes), "--out", imported,
+                                "--sample"])
+        t2 = time.perf_counter()
+        leaves = 0
+        for it in EVAL_ITERS:
+            for kind in ("g", "d"):
+                name = ckpt.checkpoint_name(it, kind)
+                a = ckpt._flatten(ckpt.load_params(
+                    os.path.join(orig, "checkpoint", name)))
+                b = ckpt._flatten(ckpt.load_params(
+                    os.path.join(imported, "checkpoint", name)))
+                require(a.keys() == b.keys() and all(
+                    a[k].dtype == b[k].dtype and a[k].tobytes()
+                    == b[k].tobytes() for k in a),
+                    f"round trip changed {name}")
+                leaves += len(a)
+            require(os.path.getsize(os.path.join(
+                imported, "sample", f"{it:03d}_imported.png")) > 0,
+                f"no imported sample grid at {it}")
+        icfg, _, _ = ckpt.configs_from_dict(ckpt.load_config(imported))
+        require(dataclasses.replace(icfg, dtype=cfg.dtype) == cfg,
+                f"imported generator config {icfg}")
+        out["round_trip"] = {"leaves_byte_equal": leaves,
+                             "export_s": t1 - t0, "import_sample_s": t2 - t1,
+                             "imported_dtype": icfg.dtype}
+        emit({"phase": "eval_round_trip", **out["round_trip"]})
+
+        out["sweep"] = counted_sweep(torch, imported, icfg.dtype)
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        fid_sweep.main(["--trial", imported] + SWEEP_ARGS)
+        out["sweep"]["second_sweep_s"] = time.perf_counter() - t0
+        require(not any(K.launch_counts().values()),
+                f"the second sweep launched {K.launch_counts()}")
+        require(read_scores(imported) == (out["sweep"]["fid"],
+                                          out["sweep"]["kid"]),
+                "the second sweep rescored")
+        emit({"phase": "eval_sweep", **out["sweep"]})
+        out["sweep_bf16"] = counted_sweep(torch, orig, cfg.dtype)
+        emit({"phase": "eval_sweep_bf16", **out["sweep_bf16"]})
+        out["profiled"] = profiled_checkpoint(torch, orig)
+        emit({"phase": "eval_profiled_checkpoint", "trial": "bf16",
+              **out["profiled"]})
+        out["kernels"] = eval_kernel_phase(torch, cfg, icfg, params)
+
+        # ---- G's sampling per batch: bf16 (the trial) and f32 (import),
+        # at the sweep's batch, beside it and at the serving batch; the
+        # device launches of one f32 forward (cuDNN's algorithm by batch)
+        rng = torch.Generator(device=DEVICE).manual_seed(2)
+        sampling = {}
+        for dt in ("bfloat16", "float32"):
+            c = dataclasses.replace(cfg, dtype=dt)
+            gen = Generator.from_jax_params(c, params, DEVICE)
+            fn = make_eval_generate(c, step=c.max_step)
+            for b in (48, EVAL_BATCH, 56, SERVE_BATCH):
+                z = torch.randn(b, cfg.z_dim, generator=rng, device=DEVICE)
+                lab = torch.arange(b, device=DEVICE) % cfg.num_classes
+                row = {"device_ms": cuda_ms(torch, lambda: fn(gen, z, lab),
+                                            reps=3)}
+                if b == EVAL_BATCH:
+                    row["to_host_ms"] = wall_ms(torch, lambda: fn(
+                        gen, z, lab).float().cpu().numpy(), reps=3)
+                if dt == "float32":
+                    row["device_launches_per_forward"] = device_launches(
+                        torch, lambda: fn(gen, z, lab))
+                sampling[f"{dt}_batch{b}"] = row
+            del gen
+        out["sampling"] = sampling
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(not os.path.exists(root), f"{root} left behind")
+    return out
+
+
+def eval_selftest_phase(torch) -> dict:
+    """cli/fid_selftest on a random state dict in a temporary file: exit 2
+    as unrecognised weights, then the values computed with
+    --allow-unverified (exit 0, finite)."""
+    import io
+    import math
+    import shutil
+    from pgx_torch.cli import fid_selftest
+    from pgx_torch.eval import inception
+    root = tempfile.mkdtemp(prefix="pgx_selftest_")
+    try:
+        path = os.path.join(root, "random_inception.pt")
+        torch.save(inception.init_inception(
+            torch.Generator().manual_seed(5)), path)
+        runs = {}
+        for name, extra in (("unrecognised", []),
+                            ("allow_unverified", ["--allow-unverified"])):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = fid_selftest.main(["--weights", path] + extra)
+            runs[name] = {"exit_code": rc, "seconds":
+                          time.perf_counter() - t0,
+                          **json.loads(buf.getvalue().strip()
+                                       .splitlines()[-1])}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    u, a = runs["unrecognised"], runs["allow_unverified"]
+    require(u["exit_code"] == 2 and u["status"] == "unrecognized_weights",
+            f"self-test on random weights: {u}")
+    require(a["exit_code"] == 0 and a["status"] == "computed_unverified"
+            and all(math.isfinite(a[k]) for k in ("fid_halves",
+                                                  "act_mean_abs",
+                                                  "act_mean")),
+            f"self-test --allow-unverified: {a}")
+    return runs
+
+
+def eval_phase(torch, cfg, dcfg, params) -> dict:
+    """Phase 8: evaluation at the flagship's full width."""
+    t0 = time.monotonic()
+    emit({"phase": "eval_preprocess", **eval_preprocess_phase(torch)})
+    emit({"phase": "eval_features", "config": "InceptionV3 (pytorch_fid "
+          "FID variant), f32, init_inception(seed 0)",
+          **eval_features_phase(torch)})
+    swept = eval_sweep_phase(torch, cfg, dcfg, params)
+    emit({"phase": "eval_sampling", **swept["sampling"]})
+    emit({"phase": "eval_selftest", **eval_selftest_phase(torch),
+          "eval_s": time.monotonic() - t0})
+    return swept
 
 
 def main() -> int:
@@ -3146,6 +3795,12 @@ def main() -> int:
 
     # 7. the 512px production recipe: jvp penalty, windows, remat
     recipe = recipe_phase(torch)
+
+    # 8. evaluation: the sweep through the CLIs, the .model round trip
+    swept = eval_phase(torch, cfg, dcfg, params)
+    eval_launches = swept["sweep"]["launches"]
+    eval_bf16_launches = swept["sweep_bf16"]["launches"]
+    eval_kernels = swept["kernels"]
     recipe_launches_ = {k: recipe["cli"]["launches"][k] + sum(
         m[f"launches_{it}_iteration"][k] for m in recipe["bare"].values()
         for it in ("penalty", "plain")) for k in recipe["cli"]["launches"]}
@@ -3171,14 +3826,20 @@ def main() -> int:
         train_launches = trained["launches"][name]
         ada_launches = ada["launches"][name]
         loop_l = loop_launches[name]
+        eval_l = eval_launches[name]
+        eval_bf16_l = eval_bf16_launches[name]
         require(train_launches > 0 and ada_launches > 0 and loop_l > 0
-                and (serve_launches > 0 or not on_serve),
+                and (serve_launches > 0 or not on_serve)
+                and ((eval_l > 0 and eval_bf16_l > 0) or not on_serve),
                 f"{name}: not launched on its main path")
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces,
                  "launches": (serve_launches + train_launches + ada_launches
-                              + loop_l + recipe_launches_[name]),
+                              + loop_l + recipe_launches_[name] + eval_l
+                              + eval_bf16_l),
                  "launches_serve": serve_launches,
+                 "launches_eval_sweep": eval_l,
+                 "launches_eval_sweep_bf16": eval_bf16_l,
                  "launches_train": train_launches,
                  "launches_train_ada": ada_launches,
                  "launches_train_loop": loop_l,
@@ -3205,6 +3866,22 @@ def main() -> int:
             (name, "bfloat16")]["device_ms"]
         if name == B:
             entry["launch_floor_device_ms"] = floor["empty_kernel_device_ms"]
+        if on_serve:
+            # held at the eval paths' sampling shapes (eval_kernel_phase)
+            for key, per in (("eval_sweep", "one sampling batch of 50 at "
+                              "128px: f32 as the sweep of the imported trial "
+                              "runs it, bf16 as the bf16 sweep and the FID "
+                              "tick run it (sum over its calls)"),
+                             ("eval_fid_tick_other_batches", "the FID ticks' "
+                              "other sampling batches, bf16: 128px at 6, "
+                              "64px at 50 and 6 (sum over their calls)")):
+                agg = eval_kernels["batch50" if key == "eval_sweep"
+                                   else "tick_others"]
+                entry[key] = {"per": per,
+                              **summed(agg[(name, "bfloat16")]),
+                              "device_ms": agg[(name, "bfloat16")][
+                                  "device_ms"],
+                              "f32": summed(agg[(name, "float32")])}
         kernels.append(entry)
 
     # A's second derivative: launched in the penalty's outer pass of every
@@ -3311,7 +3988,7 @@ def main() -> int:
                 for ax in (3, 2)}
         kernels.append(entry)
 
-    # 8. the card
+    # 9. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

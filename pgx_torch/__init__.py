@@ -13,6 +13,10 @@ iteration (``pgx_torch.train.make_train_step``) and the loop around it
 resume), the checkpoint protocol (``pgx_torch.checkpoint``), the data path
 (``pgx_torch.data``: datasets, batch streams, the device prefetcher), the
 ADA augmentation pipeline and its controller (``pgx_torch.augment``), the
-ops layer (``pgx_torch.ops``) and two CLIs (``pgx_torch.cli.serve``,
-``pgx_torch.cli.conditional_proper_cifar_train``).
+ops layer (``pgx_torch.ops``), evaluation (``pgx_torch.eval``: InceptionV3
+FID and KID, the checkpoint sweep, the in-training FID), the reference
+``.model`` import and export (``pgx_torch.checkpoint.torch_import``,
+``torch_export``) and six CLIs (``pgx_torch.cli.serve``,
+``conditional_proper_cifar_train``, ``fid_sweep``, ``fid_selftest``,
+``import_checkpoint``, ``export_torch_checkpoint``).
 """

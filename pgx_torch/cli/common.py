@@ -4,8 +4,8 @@
 The flags are ``pgx``'s, plus ``--device`` (``cuda`` unless the caller asks
 for ``cpu``); ``--compile-cache`` has no counterpart.  Values whose code
 path is not ported yet raise where they are used: ``LoopConfig`` refuses
-``--fid-every``, ``--checkpoint-backend orbax`` and ``--model-parallel``;
-``--multihost`` raises in ``maybe_init_multihost``.
+``--checkpoint-backend orbax`` and ``--model-parallel``; ``--multihost``
+raises in ``maybe_init_multihost``.
 """
 
 from __future__ import annotations
@@ -107,7 +107,7 @@ def add_common_args(p: argparse.ArgumentParser,
     p.add_argument("--fid-every", type=int, default=0,
                    help="in-training quality gate: FID of the EMA generator "
                         "every N iterations, appended to fid_score.json "
-                        "(0 = off; not ported yet)")
+                        "(0 = off)")
     p.add_argument("--fid-samples", type=int, default=1024)
     p.add_argument("--inception-weights", type=str, default=None,
                    help="pytorch_fid/torchvision InceptionV3 state_dict for "

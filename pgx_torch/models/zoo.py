@@ -1,6 +1,5 @@
-"""Factories of ``pgx.models.zoo``: every discriminator config, and the
-generator configs ported so far (all but ``conditional_generator`` and
-``mnist_conditional_generator``)."""
+"""Factories of ``pgx.models.zoo``: every generator and discriminator
+config of the reference zoo, and the grown high-resolution pair."""
 
 from __future__ import annotations
 
@@ -30,6 +29,17 @@ def legacy_discriminator(feat_dim: int = 128, max_step: int = 6,
         stage_in=(f, f, f, f, f // 2, f // 4, f // 4),
         stage_out=(f, f, f, f, f, f // 2, f // 4),
         arch="legacy", max_step=max_step, **kw)
+
+
+def conditional_generator(z_dim: int = 128, num_classes: int = 10,
+                          channel: int = 128, pixel_norm: bool = True,
+                          tanh: bool = True, max_step: int = 6,
+                          **kw) -> GeneratorConfig:
+    """progan_modules.ConditionalGenerator: label embed of dim ==
+    num_classes concatenated to z."""
+    return legacy_generator(z_dim, channel, pixel_norm, tanh, max_step,
+                            conditioning="concat", num_classes=num_classes,
+                            embed_dim=num_classes, **kw)
 
 
 def conditional_discriminator_wgangp(feat_dim: int = 128,
@@ -146,6 +156,22 @@ def mnist_discriminator(feat_dim: int = 64,
         arch="legacy",
         block_type="single" if use_mnist_conv_blocks else "double",
         max_step=3, **kw)
+
+
+def mnist_conditional_generator(z_dim: int = 128, num_classes: int = 10,
+                                channel: int = 64, pixel_norm: bool = True,
+                                tanh: bool = True,
+                                use_mnist_conv_blocks: bool = True,
+                                **kw) -> GeneratorConfig:
+    """mnist_pggan.ConditionalGenerator: normalized embed concat (dim ==
+    z_dim)."""
+    c = channel
+    return GeneratorConfig(
+        z_dim=z_dim, channels=(c, c, c, c), img_channels=1,
+        pixel_norm=pixel_norm, tanh=tanh, max_step=3, arch="legacy",
+        block_type="single" if use_mnist_conv_blocks else "double",
+        input_lrelu_slope=0.1, conditioning="norm_concat",
+        num_classes=num_classes, embed_dim=z_dim, **kw)
 
 
 def mnist_conditional_discriminator_wgangp(

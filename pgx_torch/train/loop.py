@@ -57,10 +57,12 @@ from pgx_torch.utils.png import save_image_grid
 class LoopConfig:
     """``pgx.train.loop.LoopConfig``, field for field.  Values whose code
     path is not ported yet raise ``NotImplementedError`` here:
-    ``fid_every > 0`` (in-training FID), ``checkpoint_backend='orbax'`` and
-    ``model_parallel > 1``.  ``use_mesh`` changes nothing on one device, as
-    ``pgx``'s one-device mesh does.  ``steps_per_call``: k iterations per
-    call (``make_train_multi_step``), 1 one per call, 0 auto."""
+    ``checkpoint_backend='orbax'`` and ``model_parallel > 1``.  ``use_mesh``
+    changes nothing on one device, as ``pgx``'s one-device mesh does.
+    ``steps_per_call``: k iterations per call (``make_train_multi_step``),
+    1 one per call, 0 auto.  ``fid_every > 0``: the EMA generator's FID
+    every that many iterations (``pgx_torch.eval.TrainingFid``, with
+    ``fid_samples`` samples and the ``inception_weights`` file)."""
 
     trial_name: str = "trial"
     main_path: str = "."
@@ -97,7 +99,6 @@ class LoopConfig:
             raise ValueError(f"steps_per_call must be >= 0 (0: auto), got "
                              f"{self.steps_per_call}")
         for field, ported in (
-                ("fid_every", self.fid_every <= 0),
                 ("checkpoint_backend", self.checkpoint_backend == "npz"),
                 ("model_parallel", self.model_parallel <= 1)):
             if not ported:
@@ -366,6 +367,25 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     if sample_labels is not None:
         sample_labels = torch.from_numpy(sample_labels).to(dev)
 
+    # the in-training FID samples the EMA generator on its device and
+    # takes the features there too; it shares the grids' sampling cache
+    fid_hook = None
+    if loop_cfg.fid_every > 0 and not hasattr(dataset, "at_resolution"):
+        warnings.warn("in-training FID needs an array-backed dataset with "
+                      "per-resolution caches; for folder/WikiArt pipelines "
+                      "run pgx_torch.cli.fid_sweep post-hoc", RuntimeWarning)
+    elif loop_cfg.fid_every > 0:
+        from pgx_torch.eval.fid import make_extractor
+        from pgx_torch.eval.inception import load_torch_weights
+        from pgx_torch.eval.sweep import TrainingFid
+        extractor = make_extractor(
+            load_torch_weights(loop_cfg.inception_weights)
+            if loop_cfg.inception_weights else None, device=dev)
+        fid_hook = TrainingFid(dataset, gcfg,
+                               num_samples=loop_cfg.fid_samples,
+                               extractor=extractor, seed=loop_cfg.seed,
+                               gen_cache=gen_cache)
+
     prefetcher = None
     current_res = None
     sums: Dict[str, torch.Tensor] = {}
@@ -511,6 +531,16 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                     save_full(it, state)
                 except OSError:
                     pass  # a failed periodic write never ends the run
+
+            if fid_hook is not None and it % loop_cfg.fid_every == 0:
+                try:
+                    fid = fid_hook.score(trial_dir, it, state["g_ema"], st)
+                    if loop_cfg.verbose:
+                        print(f"{it}; FID: {fid:.4f} "
+                              f"(res {st.resolution})", flush=True)
+                except Exception as e:   # a metric failure never ends a run
+                    warnings.warn(f"in-training FID failed at {it}: {e}",
+                                  RuntimeWarning)
 
             if it % loop_cfg.log_every == 0 and count:
                 vals = {k: float(v) / count for k, v in sums.items()}

@@ -261,8 +261,22 @@ def test_resume_warns_on_drift(tmp_path):
 def test_loop_config_refuses_unported_options(tmp_path, field, value):
     """What is not ported raises; ``steps_per_call`` (a window of 2, or 0:
     auto) is ported and accepted, and its windows change no number: the
-    loop's CSV and final state equal those of single steps."""
-    if field == "steps_per_call":
+    loop's CSV and final state equal those of single steps.  ``fid_every``
+    is ported and accepted: a run scores the EMA generator at its cadence
+    into fid_score.json, marked in-training (parity with pgx's loop is in
+    tests/test_torch_eval_loop.py)."""
+    if field == "fid_every":
+        assert LoopConfig(**{field: value}).fid_every == value
+        trial = _loop(tmp_path, total_iterations=4, fid_every=4,
+                      fid_samples=8)
+        with open(os.path.join(trial, "fid_score.json")) as f:
+            scores = json.load(f)
+        with open(os.path.join(trial, "fid_score_meta.json")) as f:
+            meta = json.load(f)
+        assert sorted(scores) == ["004_g.model"]
+        assert all(np.isfinite(v) for v in scores.values())
+        assert meta == {k: "in-training" for k in scores}
+    elif field == "steps_per_call":
         assert LoopConfig(**{field: value}).steps_per_call == value
         cadence = dict(sample_every=4, checkpoint_every=4, log_every=2)
         trials = [_loop(tmp_path / str(k), steps_per_call=k, **cadence)
