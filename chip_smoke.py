@@ -103,10 +103,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the recipe's flags (--gp-mode jvp --steps-per-call 8) through 256px
    and 512px, fade and stable, windows counted per phase, and a short run
    with --steps-per-call auto.
-   The recipe phase also holds kernel A and A's backward against their
-   plain versions at every launch of one jvp penalty iteration (recorded
-   where they launch), with device time from a CUDA graph against the byte
-   bound (A's share on the production path).
+   The recipe phase also holds kernel A, B, A's backward and A's second
+   derivative against their plain versions at every launch of one jvp
+   penalty iteration (recorded where they launch, with the tangent's),
+   with device time from a CUDA graph against the byte bound: sums per
+   kernel and one row per shape (C, rows, device ms, bound, share).
 8. eval    — at the flagship's full width: the device preprocess (PIL's
    bilinear fixed point as torch integer ops, the float chain by lookup)
    against the numpy path, bytes and floats equal, at 32px, 128px and
@@ -484,7 +485,10 @@ def kernel_phase(torch, calls, per: str, reps: int = 10):
             agg = per_kernel.setdefault((name, dt_name), {
                 "ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "t_ops": 0.0,
                 "t_bytes": 0.0, "err": 0.0, "tol": 0.0, "conv_ms": 0.0,
-                "calls": 0})
+                "calls": 0, "per_shape": []})
+            agg["per_shape"].append({"shape": list(shape), "calls": mult,
+                                     "device_ms": device_ms,
+                                     "bound_ms": max(t_ops, t_bytes)})
             agg["ms"] += mult * ms
             agg["device_ms"] += mult * (device_ms or 0.0)
             agg["plain_ms"] += mult * plain_ms
@@ -2691,25 +2695,6 @@ def tangent_kernel_phase(torch, calls, reps: int = 5) -> dict:
     return out
 
 
-def record_tangent_calls(torch, gcfg, dcfg):
-    """The (shape, db given) of every tangent kernel launch of one bf16
-    512px jvp penalty iteration."""
-    from pgx_torch.ops.kernels import epilogue
-    calls = []
-    inner = epilogue._launch_jvp
-
-    def rec(y, b, dy, db, slope, eps):
-        calls.append((tuple(y.shape), db is not None))
-        return inner(y, b, dy, db, slope, eps)
-    _, state, steps = recipe_state(gcfg, dcfg, gp_mode="jvp")
-    real, labels, draws = recipe_draws(torch, gcfg, seed=900)
-    with mock.patch.object(epilogue, "_launch_jvp", rec):
-        steps[True](state, real, labels, 1.0, **draws)
-        torch.cuda.synchronize()
-    del state, steps
-    return calls
-
-
 def penalty_f32_check(torch, gcfg, dcfg) -> dict:
     """f32 at 512px, batch 8, TF32 off, one iteration at learning rate 0
     from one seeded state (no ADA, the penalty on): D's and G's gradients
@@ -3111,54 +3096,102 @@ def recipe_cli_phase(torch) -> dict:
 
 
 def record_a_calls_512(torch, gcfg, dcfg):
-    """Kernel A's and A's backward's launches (shape, bias, slope) in one
-    bf16 512px jvp penalty iteration, recorded where they launch."""
+    """Every launch of kernel A's family in one bf16 512px jvp penalty
+    iteration, recorded where it launches: A, B and A's backward as
+    kernel_phase's (name, shape, bias shape, slope) calls; A's second
+    derivative as second_order_phase's (shape, slope, ddy given, ddb
+    given, the outputs it needs); A's tangent as (shape, db given).  The
+    counts are held against the routing rules."""
+    import importlib
     from pgx_torch.ops.kernels import epilogue
-    calls = []
-    fwd, bwd = epilogue._launch, epilogue._launch_backward
+    pn = importlib.import_module("pgx_torch.ops.kernels.pixel_norm_lrelu")
+    calls, second, tangent = [], [], []
+    fwd, bwd, pn_fwd = epilogue._launch, epilogue._launch_backward, pn._launch
+    so, jvp = epilogue._launch_second_order, epilogue._launch_jvp
 
     def rec(name, fn):
-        def run(y, b, *rest):
-            calls.append((name, tuple(y.shape), (tuple(b.shape),),
+        def run(y, *rest):
+            bias = (tuple(rest[0].shape),) if name != B else ()
+            calls.append((name, tuple(y.shape), bias,
                           json.dumps({"slope": rest[-2]}, sort_keys=True)))
-            return fn(y, b, *rest)
+            return fn(y, *rest)
         return run
+
+    def rec_so(y, b, g, ddy, ddb, slope, eps, needs):
+        second.append((tuple(y.shape), slope, ddy is not None,
+                       ddb is not None, tuple(needs)))
+        return so(y, b, g, ddy, ddb, slope, eps, needs)
+
+    def rec_jvp(y, b, dy, db, slope, eps):
+        tangent.append((tuple(y.shape), db is not None))
+        return jvp(y, b, dy, db, slope, eps)
     _, state, steps = recipe_state(gcfg, dcfg, gp_mode="jvp")
     real, labels, draws = recipe_draws(torch, gcfg, seed=901)
     with mock.patch.object(epilogue, "_launch", rec(A, fwd)), \
-            mock.patch.object(epilogue, "_launch_backward", rec(A_BWD, bwd)):
+            mock.patch.object(epilogue, "_launch_backward", rec(A_BWD, bwd)), \
+            mock.patch.object(pn, "_launch", rec(B, pn_fwd)), \
+            mock.patch.object(epilogue, "_launch_second_order", rec_so), \
+            mock.patch.object(epilogue, "_launch_jvp", rec_jvp):
         steps[True](state, real, labels, 1.0, **draws)
         torch.cuda.synchronize()
     want = recipe_launches(state["g"], dcfg, "jvp", True)
     del state, steps
-    got = count_calls(calls)
-    require(got == {A: want[A], A_BWD: want[A_BWD]},
-            f"recorded A launches {got}, the routing rules give "
-            f"{want[A]} and {want[A_BWD]}")
-    return calls
+    got = {**count_calls(calls), A_BWD2: len(second), A_JVP: len(tangent)}
+    require(got == {k: want[k] for k in (A, B, A_BWD, A_BWD2, A_JVP)},
+            f"recorded launches of A's family {got}, the routing rules give "
+            f"{want}")
+    return calls, second, tangent
+
+
+def a512_summary(launches, device_ms, ms, plain_ms, bound_ms, bound_by,
+                 max_abs_err, tol) -> dict:
+    return {"launches": launches, "device_ms": device_ms, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / device_ms,
+            "max_abs_err": max_abs_err, "tol": tol}
+
+
+def a512_rows(kernel, per_shape) -> list:
+    """Per-shape rows of one kernel of A's family: C, rows, launches,
+    device ms a launch, its bound and the share."""
+    import math
+    return [{"kernel": kernel, "c": r["shape"][-1],
+             "rows": math.prod(r["shape"][:-1]), "launches": r["calls"],
+             "device_ms": r["device_ms"], "bound_ms": r["bound_ms"],
+             "share_of_bound": r["bound_ms"] / r["device_ms"]}
+            for r in per_shape]
 
 
 def recipe_phase(torch) -> dict:
     """Phase 7: the 512px production recipe at full width."""
     gcfg, dcfg = recipe_pair("bfloat16")
-    calls = record_tangent_calls(torch, gcfg, dcfg)
-    tangent = tangent_kernel_phase(torch, calls)
-    emit({"phase": "kernel_a_tangent", "per": "one bf16 jvp penalty "
-          "iteration at 512px, batch 8", **tangent})
-    per_a = kernel_phase(torch, record_a_calls_512(torch, gcfg, dcfg),
-                         "one bf16 jvp penalty iteration at 512px, batch 8",
-                         reps=3)
-    a512 = {name: {"launches": agg["calls"], "device_ms": agg["device_ms"],
-                   "ms": agg["ms"], "plain_ms": agg["plain_ms"],
-                   "bound_ms": max(agg["t_ops"], agg["t_bytes"]),
-                   "bound_by": ("operations" if agg["t_ops"] > agg["t_bytes"]
-                                else "bytes"),
-                   "share_of_bound": (max(agg["t_ops"], agg["t_bytes"])
-                                      / agg["device_ms"]),
-                   "max_abs_err": agg["err"], "tol": agg["tol"]}
-            for (name, dt), agg in per_a.items() if dt == "bfloat16"}
-    emit({"phase": "kernel_a_512px", "per": "one bf16 jvp penalty "
-          "iteration at 512px, batch 8 (sum over its launches)", **a512})
+    per = "one bf16 jvp penalty iteration at 512px, batch 8"
+    calls, second, tangent_calls = record_a_calls_512(torch, gcfg, dcfg)
+    tangent = tangent_kernel_phase(torch, tangent_calls)
+    emit({"phase": "kernel_a_tangent", "per": per, **tangent})
+    per_a = kernel_phase(torch, calls, per, reps=3)
+    so = second_order_phase(torch, second, reps=3)
+    a512, rows = {}, []
+    for (name, dt), agg in per_a.items():
+        if dt != "bfloat16":
+            continue
+        t = max(agg["t_ops"], agg["t_bytes"])
+        a512[name] = a512_summary(
+            agg["calls"], agg["device_ms"], agg["ms"], agg["plain_ms"], t,
+            "operations" if agg["t_ops"] > agg["t_bytes"] else "bytes",
+            agg["err"], agg["tol"])
+        rows += a512_rows(name, agg["per_shape"])
+    a512[A_BWD2] = a512_summary(
+        so["calls"], so["device_ms"], so["ms"], so["plain_ms"],
+        so["bound_ms"], so["bound_by"], so["max_abs_err"], so["tol"])
+    rows += a512_rows(A_BWD2, so["per_shape"])
+    a512[A_JVP] = a512_summary(
+        tangent["calls"], tangent["device_ms"], tangent["ms"],
+        tangent["plain_ms"], tangent["bound_ms"], tangent["bound_by"],
+        tangent["max_abs_err"], tangent["tol"])
+    rows += a512_rows(A_JVP, tangent["per_shape"])
+    emit({"phase": "kernel_a_512px", "per": per + " (sum over its "
+          "launches)", **a512, "per_shape": rows})
     emit({"phase": "train_512_penalty_f32_check",
           **penalty_f32_check(torch, gcfg, dcfg)})
     bare = recipe_bare_phase(torch, gcfg, dcfg)
@@ -3225,7 +3258,8 @@ def eval_preprocess_phase(torch) -> dict:
         got = fid.preprocess(x, DEVICE)
         require(got.shape == (len(x), 299, 299, 3)
                 and got.dtype == torch.float32, f"preprocess {name} shape")
-        require(np.array_equal(got.cpu().numpy(), fid.preprocess(x).numpy()),
+        require(np.array_equal(got.cpu().numpy(),
+                               fid.preprocess(x, "cpu").numpy()),
                 f"device preprocess floats differ from the numpy path "
                 f"({name})")
     x = cases["fake_128px_float32"]
@@ -3236,8 +3270,8 @@ def eval_preprocess_phase(torch) -> dict:
             "device_resize_and_lookup_ms": cuda_ms(
                 torch, lambda: fid._preprocess_tensor(u8_dev), reps=5),
             "host_quirk_ms": wall_ms(torch, lambda: fid._rgb_uint8(x)),
-            "numpy_host_path_ms": wall_ms(torch, lambda: fid.preprocess(x),
-                                          reps=3)}
+            "numpy_host_path_ms": wall_ms(
+                torch, lambda: fid.preprocess(x, "cpu"), reps=3)}
 
 
 def inception_flops(torch, model) -> float:
@@ -3275,7 +3309,7 @@ def eval_features_phase(torch) -> dict:
     from pgx_torch.eval import fid, inception
     sd = inception.init_inception(torch.Generator().manual_seed(0))
     x = fid.preprocess(np.random.RandomState(8).randn(8, 128, 128, 3)
-                       .astype(np.float32))
+                       .astype(np.float32), "cpu")
     want = fid.make_extractor(sd, device="cpu")(x)
     ext = fid.make_extractor(sd, device=DEVICE)
     xd = x.to(DEVICE).permute(0, 3, 1, 2).contiguous(
@@ -3866,6 +3900,9 @@ def main() -> int:
             (name, "bfloat16")]["device_ms"]
         if name == B:
             entry["launch_floor_device_ms"] = floor["empty_kernel_device_ms"]
+        if name in (A, B, A_BWD):
+            # every launch of one 512px jvp penalty iteration (recipe_phase)
+            entry["train_512_recipe"] = recipe["a512"][name]
         if on_serve:
             # held at the eval paths' sampling shapes (eval_kernel_phase)
             for key, per in (("eval_sweep", "one sampling batch of 50 at "
@@ -3905,6 +3942,7 @@ def main() -> int:
         "f32": {"ms": so["f32"]["ms"], "plain_ms": so["f32"]["plain_ms"],
                 "bound_ms": so["f32"]["t_bytes"],
                 "max_rel_err": so["f32"]["max_rel_err"]},
+        "train_512_recipe": recipe["a512"][A_BWD2],
         "per": "one bf16 training iteration at batch 32 (sum over its "
                "calls)"})
 

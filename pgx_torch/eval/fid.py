@@ -108,13 +108,14 @@ def resize_uint8(x: torch.Tensor, size: int = SIZE) -> torch.Tensor:
     return x
 
 
-def preprocess(images: np.ndarray, device="cpu") -> torch.Tensor:
+def preprocess(images: np.ndarray, device="cuda") -> torch.Tensor:
     """Images (uint8 or float NHWC, NCHW float items, grey) -> float32 NHWC
-    ``(N, 299, 299, 3)`` on ``device``, ready for the Inception forward.
-    The CPU takes the numpy path; a CUDA device resizes and normalises on
-    the device, with the same bytes and floats."""
+    ``(N, 299, 299, 3)`` on ``device`` (the card unless ``"cpu"`` is asked
+    for; raises without one), ready for the Inception forward.  The CPU
+    takes the numpy path; a CUDA device resizes and normalises on the
+    device, with the same bytes and floats."""
+    dev = resolve_device(device)
     u8 = _rgb_uint8(images)
-    dev = torch.device(device)
     if dev.type == "cpu":
         return torch.from_numpy(_float_chain(_resize_batch(u8, SIZE)))
     return _preprocess_tensor(torch.from_numpy(u8).to(dev))

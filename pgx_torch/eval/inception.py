@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pgx_torch.utils import resolve_device
+
 StateDict = Dict[str, torch.Tensor]
 
 POOL3_DIM = 2048
@@ -320,12 +322,14 @@ def inception_from_jax_params(params: Dict[str, Any]) -> StateDict:
     return sd
 
 
-def build_inception(params: Optional[StateDict] = None, *, device="cpu",
+def build_inception(params: Optional[StateDict] = None, *, device="cuda",
                     dtype=torch.float32) -> InceptionV3:
-    """An ``InceptionV3`` in eval mode on ``device`` in ``dtype`` (the
+    """An ``InceptionV3`` in eval mode on ``device`` (the card unless
+    ``"cpu"`` is asked for; raises without one) in ``dtype`` (the
     ``channels_last`` memory format), loaded from ``params`` (a state dict
     in torchvision's names; ``init_inception()`` when None), gradients
     off."""
+    device = resolve_device(device)
     model = InceptionV3().to(dtype)
     model.load_state_dict(init_inception() if params is None else params,
                           strict=True)

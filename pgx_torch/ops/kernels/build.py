@@ -104,6 +104,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                                  f, p]
     lib.pgx_bias_pixelnorm_lrelu_bwd_blocks.argtypes = [i64]
     lib.pgx_bias_pixelnorm_lrelu_bwd_blocks.restype = ctypes.c_int
+    # (rows, c, dtype)
+    lib.pgx_bias_pixelnorm_lrelu_bwd_partials.argtypes = [i64, i, i]
+    lib.pgx_bias_pixelnorm_lrelu_bwd_partials.restype = ctypes.c_int
     lib.pgx_conv3x3_epilogue.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f,
                                          f, p]
     # the residual-emitting entry: (x, w, b, out, r, nb, h, wd, cin, cout,

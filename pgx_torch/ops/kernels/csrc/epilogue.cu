@@ -8,43 +8,85 @@
 // (rownorm_bwd2_kernel) and its tangent (rownorm_jvp_kernel) are further down.
 //
 // Bound: bytes.  Each row of C <= 512 channels is read once and written once;
-// the arithmetic is a few operations per element.  Design: one warp owns one
-// row, each lane reads 16-byte vectors (8 bf16 or 4 f32) into registers, the
-// sum of squares is taken in f32 by warp shuffle, and the row is scaled and
-// stored from the same registers, so device memory sees exactly one read and
-// one write per element.
+// the arithmetic is a few operations per element, so the floor is twice the
+// row bytes over the memory rate.  Design: a group of LANES lanes owns one
+// row, LANES the power of two that covers the row's 16-byte vectors (8 bf16
+// or 4 f32), at most a warp, whose lanes then hold as many vectors each as
+// the row needs (VECS; registers sized to the row).  So the narrow rows of
+// the high resolutions (32-128 channels at 128-512px: 4-16 vectors in bf16)
+// keep every lane busy, and a block of kThreads moves kThreads / LANES rows.
+// Each lane reads its vectors into registers, the sum of squares is taken in
+// f32 by shuffles inside the group, and the row is scaled and stored from
+// the same registers, so device memory sees exactly one read and one write
+// per element.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxC = 512;
-constexpr int kRowsPerBlock = 8;  // 8 warps of 32 threads
+constexpr int kThreads = 256;     // a block of A, B and A's backward
+constexpr int kRowsPerBlock = 8;  // the second derivative: a warp a row
 
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
 template <> struct VecWidth<__nv_bfloat16> { static constexpr int N = 8; };
 
-template <typename T>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
+// How a row's 16-byte vectors are spread: over a group of LANES lanes,
+// VECS vectors a lane (LANES * VECS covers the row)
+template <int L, int N> struct Groups {
+  static constexpr int LANES = L, VECS = N;
+};
+
+template <int LANES>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = LANES / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// f(Groups<LANES, VECS>()) for a row of c channels: LANES the power of two
+// that covers its vectors, a warp above 16, whose lanes then hold as many
+// vectors each as the row needs (registers sized to the row, not to kMaxC)
+template <typename T, typename F>
+int with_groups(int c, F&& f) {
+  const int nvec = c / VecWidth<T>::N;
+  if (nvec <= 1) return f(Groups<1, 1>());
+  if (nvec <= 2) return f(Groups<2, 1>());
+  if (nvec <= 4) return f(Groups<4, 1>());
+  if (nvec <= 8) return f(Groups<8, 1>());
+  if (nvec <= 16) return f(Groups<16, 1>());
+  if (nvec <= 32) return f(Groups<32, 1>());
+  if constexpr (kMaxC / (32 * VecWidth<T>::N) > 2) {  // f32: up to 4
+    if (nvec > 96) return f(Groups<32, 4>());
+    if (nvec > 64) return f(Groups<32, 3>());
+  }
+  return f(Groups<32, 2>());
+}
+
+template <typename T, int LANES, int VECS>
+__global__ void __launch_bounds__(kThreads)
 rownorm_kernel(const T* __restrict__ y, const T* __restrict__ bias,
                T* __restrict__ out, int64_t rows, int c, float slope,
                float eps) {
   constexpr int V = VecWidth<T>::N;
-  constexpr int kMaxVec = kMaxC / (32 * V);  // vectors one lane holds
-  const int lane = threadIdx.x & 31;
-  const int64_t row =
-      (int64_t)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;  // uniform across the warp
+  constexpr int kRows = kThreads / LANES;
+  const int lane = threadIdx.x % LANES;
+  const int64_t row = (int64_t)blockIdx.x * kRows + threadIdx.x / LANES;
+  // rows past the end still take part in the shuffles: no early return
+  const bool live = row < rows;
   const int nvec = c / V;
   const uint4* src = reinterpret_cast<const uint4*>(y + row * c);
   const uint4* bsrc = reinterpret_cast<const uint4*>(bias);
 
-  float a[kMaxVec][V];
+  float a[VECS][V];
   float ssq = 0.f;
 #pragma unroll
-  for (int j = 0; j < kMaxVec; ++j) {
-    const int v = lane + 32 * j;
-    if (v < nvec) {
+  for (int j = 0; j < VECS; ++j) {
+    const int v = lane + LANES * j;
+    if (live && v < nvec) {
       uint4 raw = src[v];
       const T* e = reinterpret_cast<const T*>(&raw);
       uint4 braw = make_uint4(0, 0, 0, 0);
@@ -63,13 +105,14 @@ rownorm_kernel(const T* __restrict__ y, const T* __restrict__ bias,
       for (int k = 0; k < V; ++k) a[j][k] = 0.f;
     }
   }
-  ssq = pgx::warp_sum(ssq);
+  ssq = group_sum<LANES>(ssq);
+  if (!live) return;
   const float r = rsqrtf(ssq * (1.f / c) + eps);
 
   uint4* dst = reinterpret_cast<uint4*>(out + row * c);
 #pragma unroll
-  for (int j = 0; j < kMaxVec; ++j) {
-    const int v = lane + 32 * j;
+  for (int j = 0; j < VECS; ++j) {
+    const int v = lane + LANES * j;
     if (v < nvec) {
       uint4 raw;
       T* e = reinterpret_cast<T*>(&raw);
@@ -82,23 +125,28 @@ rownorm_kernel(const T* __restrict__ y, const T* __restrict__ bias,
 
 template <typename T>
 int launch(const void* y, const void* b, void* out, int64_t rows, int c,
-           float slope, float eps, void* stream) {
-  const int64_t blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  if (blocks > 0) {
-    rownorm_kernel<T><<<(unsigned)blocks, 32 * kRowsPerBlock, 0,
-                        (cudaStream_t)stream>>>(
-        (const T*)y, (const T*)b, (T*)out, rows, c, slope, eps);
-  }
-  return (int)cudaGetLastError();
+           float slope, float eps, cudaStream_t stream) {
+  return with_groups<T>(c, [&](auto grp) {
+    using G = decltype(grp);
+    constexpr int kRows = kThreads / G::LANES;
+    const int64_t blocks = (rows + kRows - 1) / kRows;
+    if (blocks > 0) {
+      rownorm_kernel<T, G::LANES, G::VECS>
+          <<<(unsigned)blocks, kThreads, 0, stream>>>(
+              (const T*)y, (const T*)b, (T*)out, rows, c, slope, eps);
+    }
+    return (int)cudaGetLastError();
+  });
 }
 
 int dispatch(const void* y, const void* b, void* out, int64_t rows, int c,
              int dtype, float slope, float eps, void* stream) {
   if (c <= 0 || c > kMaxC || c % 8 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   if (dtype == pgx::kFloat32)
-    return launch<float>(y, b, out, rows, c, slope, eps, stream);
+    return launch<float>(y, b, out, rows, c, slope, eps, s);
   if (dtype == pgx::kBFloat16)
-    return launch<__nv_bfloat16>(y, b, out, rows, c, slope, eps, stream);
+    return launch<__nv_bfloat16>(y, b, out, rows, c, slope, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -110,33 +158,50 @@ int dispatch(const void* y, const void* b, void* out, int64_t rows, int c,
 // that XLA fuses).  Per row, with a = y + b (in y's dtype, then f32),
 // s = lrelu's slope at a, r = rsqrt(mean(a^2) + eps), m = mean(s g a):
 //     dy = r s g - r^3 m a,        db = sum over rows of dy (f32)
-// Bound: bytes (read y and g, write dy: 1.5x the forward's traffic).  Design
-// as the forward: one warp owns one row in registers, both row sums by warp
-// shuffle.  A block's warps walk rows with a stride and each lane keeps the
-// f32 column sums of its channels in registers; the block writes them to
-// its row of a [blocks][C] scratch, which a second kernel sums in a fixed
-// order (no atomics: db is the same from run to run).
+// Bound: bytes (read y and g, write dy: 1.5x the forward's traffic; the
+// bias and db are C-wide).  Design: the forward's lane groups, on a grid
+// sized to what the card holds at once (blocks a multiprocessor keeps
+// resident x the multiprocessors), each group walking rows with the grid's
+// stride.  A group loads its next row before the current row's shuffles, so
+// two rows' bytes are in flight per group.  Each lane keeps the f32 column
+// sums of its vectors in registers.  At the end they are added in a fixed
+// order: over a warp's groups by shuffles on the group-index bits, over the
+// block's warps in shared memory into the block's row of a [blocks][C]
+// scratch, and over the blocks by rownorm_bwd_colsum_kernel (no atomics: db
+// is the same from run to run).
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdMaxBlocks = 1024;
+// a group's vectors of one row into registers; zeros past its end and for
+// a row that is not live
+template <int LANES, typename T, int N>
+__device__ __forceinline__ void load_row(const T* __restrict__ p, int64_t row,
+                                         int c, bool live, int lane, int nvec,
+                                         uint4 (&raw)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int v = lane + LANES * j;
+    raw[j] = make_uint4(0, 0, 0, 0);
+    if (live && v < nvec) raw[j] = reinterpret_cast<const uint4*>(p + row * c)[v];
+  }
+}
 
-template <typename T>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
+template <typename T, int LANES, int VECS>
+__global__ void __launch_bounds__(kThreads)
 rownorm_bwd_kernel(const T* __restrict__ y, const T* __restrict__ bias,
                    const T* __restrict__ g, T* __restrict__ dy,
                    float* __restrict__ db_partial, int64_t rows, int c,
                    float slope, float eps) {
   constexpr int V = VecWidth<T>::N;
-  constexpr int kMaxVec = kMaxC / (32 * V);
-  __shared__ float colsum[kRowsPerBlock][kMaxC];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kGroups = kThreads / LANES;
+  __shared__ float colsum[kThreads / 32][kMaxC];
+  const int lane = threadIdx.x % LANES, warp = threadIdx.x / 32;
   const int nvec = c / V;
   const float inv_c = 1.f / c;
 
-  float bv[kMaxVec][V], dbs[kMaxVec][V];
+  float bv[VECS][V], dbs[VECS][V];
 #pragma unroll
-  for (int j = 0; j < kMaxVec; ++j) {
-    const int v = lane + 32 * j;
+  for (int j = 0; j < VECS; ++j) {
+    const int v = lane + LANES * j;
     uint4 braw = make_uint4(0, 0, 0, 0);
     if (v < nvec) braw = reinterpret_cast<const uint4*>(bias)[v];
     const T* be = reinterpret_cast<const T*>(&braw);
@@ -147,22 +212,22 @@ rownorm_bwd_kernel(const T* __restrict__ y, const T* __restrict__ bias,
     }
   }
 
-  for (int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + warp; row < rows;
-       row += (int64_t)gridDim.x * kRowsPerBlock) {
-    const uint4* ysrc = reinterpret_cast<const uint4*>(y + row * c);
-    const uint4* gsrc = reinterpret_cast<const uint4*>(g + row * c);
-    float a[kMaxVec][V], dpn[kMaxVec][V];
+  const int64_t stride = (int64_t)gridDim.x * kGroups;
+  int64_t row = (int64_t)blockIdx.x * kGroups + threadIdx.x / LANES;
+  // the row of the warp's first group: the warp walks while it is live, so
+  // every lane takes part in every shuffle (the rows of later groups may
+  // already be past the end)
+  int64_t lead = row - (threadIdx.x % 32) / LANES;
+  uint4 yraw[VECS], graw[VECS];
+  load_row<LANES>(y, row, c, row < rows, lane, nvec, yraw);
+  load_row<LANES>(g, row, c, row < rows, lane, nvec, graw);
+  for (; lead < rows; row += stride, lead += stride) {
+    float a[VECS][V], dpn[VECS][V];
     float ssq = 0.f, dot = 0.f;
 #pragma unroll
-    for (int j = 0; j < kMaxVec; ++j) {
-      const int v = lane + 32 * j;
-      uint4 yraw = make_uint4(0, 0, 0, 0), graw = make_uint4(0, 0, 0, 0);
-      if (v < nvec) {
-        yraw = ysrc[v];
-        graw = gsrc[v];
-      }
-      const T* ye = reinterpret_cast<const T*>(&yraw);
-      const T* ge = reinterpret_cast<const T*>(&graw);
+    for (int j = 0; j < VECS; ++j) {
+      const T* ye = reinterpret_cast<const T*>(&yraw[j]);
+      const T* ge = reinterpret_cast<const T*>(&graw[j]);
 #pragma unroll
       for (int k = 0; k < V; ++k) {
         // y + b in the input type, as the forward takes it
@@ -174,14 +239,19 @@ rownorm_bwd_kernel(const T* __restrict__ y, const T* __restrict__ bias,
         dot += d * t;
       }
     }
-    ssq = pgx::warp_sum(ssq);
-    dot = pgx::warp_sum(dot);
+    // the next row's loads go out before this row's shuffles
+    const int64_t next = row + stride;
+    load_row<LANES>(y, next, c, next < rows, lane, nvec, yraw);
+    load_row<LANES>(g, next, c, next < rows, lane, nvec, graw);
+    ssq = group_sum<LANES>(ssq);
+    dot = group_sum<LANES>(dot);
+    if (row >= rows) continue;  // no shuffle below
     const float r = rsqrtf(ssq * inv_c + eps);
     const float r3m = r * r * r * (dot * inv_c);
     uint4* dst = reinterpret_cast<uint4*>(dy + row * c);
 #pragma unroll
-    for (int j = 0; j < kMaxVec; ++j) {
-      const int v = lane + 32 * j;
+    for (int j = 0; j < VECS; ++j) {
+      const int v = lane + LANES * j;
       if (v < nvec) {
         uint4 raw;
         T* e = reinterpret_cast<T*>(&raw);
@@ -196,20 +266,33 @@ rownorm_bwd_kernel(const T* __restrict__ y, const T* __restrict__ bias,
     }
   }
 
-  // the block's column sums: warps in a fixed order
+  // the column sums in a fixed order: the warp's groups by a butterfly on
+  // the group-index bits (every lane ends with the same sum), then the
+  // block's warps in order of their index
 #pragma unroll
-  for (int j = 0; j < kMaxVec; ++j) {
-    const int v = lane + 32 * j;
-    if (v < nvec) {
+  for (int o = LANES; o < 32; o <<= 1) {
 #pragma unroll
-      for (int k = 0; k < V; ++k) colsum[warp][v * V + k] = dbs[j][k];
+    for (int j = 0; j < VECS; ++j) {
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        dbs[j][k] += __shfl_xor_sync(0xffffffffu, dbs[j][k], o);
+    }
+  }
+  if (threadIdx.x % 32 < LANES) {
+#pragma unroll
+    for (int j = 0; j < VECS; ++j) {
+      const int v = lane + LANES * j;
+      if (v < nvec) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) colsum[warp][v * V + k] = dbs[j][k];
+      }
     }
   }
   __syncthreads();
-  for (int col = threadIdx.x; col < c; col += blockDim.x) {
+  for (int col = threadIdx.x; col < c; col += kThreads) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kRowsPerBlock; ++w) s += colsum[w][col];
+    for (int w = 0; w < kThreads / 32; ++w) s += colsum[w][col];
     db_partial[(int64_t)blockIdx.x * c + col] = s;
   }
 }
@@ -236,9 +319,40 @@ rownorm_bwd_colsum_kernel(float* __restrict__ db_partial, int nblocks, int c) {
   }
 }
 
+// A's backward grid for `rows` rows in groups of LANES lanes: as many
+// blocks as the card keeps resident at once, fewer if the rows fill fewer.
+// The same on every call for one card, which keeps db's order fixed.
+template <typename T, int LANES, int VECS>
+int bwd_grid(int64_t rows) {
+  static const int per_sm = [] {
+    int n = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, rownorm_bwd_kernel<T, LANES, VECS>, kThreads, 0);
+    return n > 0 ? n : 1;
+  }();
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t groups = kThreads / LANES;
+  const int64_t want = (rows + groups - 1) / groups;
+  const int64_t cap = (int64_t)per_sm * (sms > 0 ? sms : 1);
+  return (int)(want < cap ? want : cap);
+}
+
+template <typename T>
+int bwd_partials(int64_t rows, int c) {
+  return with_groups<T>(c, [&](auto grp) {
+    using G = decltype(grp);
+    return bwd_grid<T, G::LANES, G::VECS>(rows);
+  });
+}
+
+// the second derivative's grid: a warp a row, at most kBwd2MaxBlocks blocks
+constexpr int kBwd2MaxBlocks = 1024;
+
 int bwd_blocks(int64_t rows) {
   const int64_t want = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  return (int)(want < kBwdMaxBlocks ? want : kBwdMaxBlocks);
+  return (int)(want < kBwd2MaxBlocks ? want : kBwd2MaxBlocks);
 }
 
 // ---------------------------------------------------------------------------
@@ -383,16 +497,19 @@ template <typename T>
 int launch_bwd(const void* y, const void* b, const void* g, void* dy,
                float* db_partial, int64_t rows, int c, float slope, float eps,
                cudaStream_t stream) {
-  const int blocks = bwd_blocks(rows);
-  if (blocks == 0) return (int)cudaSuccess;
-  rownorm_bwd_kernel<T><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(
-      (const T*)y, (const T*)b, (const T*)g, (T*)dy, db_partial, rows, c,
-      slope, eps);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  rownorm_bwd_colsum_kernel<<<(c + 31) / 32, dim3(32, 32), 0, stream>>>(
-      db_partial, blocks, c);
-  return (int)cudaGetLastError();
+  return with_groups<T>(c, [&](auto grp) {
+    using G = decltype(grp);
+    const int blocks = bwd_grid<T, G::LANES, G::VECS>(rows);
+    if (blocks == 0) return (int)cudaSuccess;
+    rownorm_bwd_kernel<T, G::LANES, G::VECS><<<blocks, kThreads, 0, stream>>>(
+        (const T*)y, (const T*)b, (const T*)g, (T*)dy, db_partial, rows, c,
+        slope, eps);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    rownorm_bwd_colsum_kernel<<<(c + 31) / 32, dim3(32, 32), 0, stream>>>(
+        db_partial, blocks, c);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename T>
@@ -429,14 +546,6 @@ int launch_bwd2(const void* y, const void* b, const void* g, const void* ddy,
 // the group, the row kept in registers between the sums and the store.
 // db may be null (no bias tangent).
 // ---------------------------------------------------------------------------
-
-template <int LANES>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = LANES / 2; o > 0; o >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 template <typename T, int LANES>
 __global__ void __launch_bounds__(256)
@@ -510,36 +619,21 @@ rownorm_jvp_kernel(const T* __restrict__ y, const T* __restrict__ bias,
   }
 }
 
-template <typename T, int LANES>
-int launch_jvp_lanes(const void* y, const void* b, const void* dy,
-                     const void* db, void* dout, int64_t rows, int c,
-                     float slope, float eps, cudaStream_t stream) {
-  constexpr int kRows = 256 / LANES;
-  const int64_t blocks = (rows + kRows - 1) / kRows;
-  if (blocks == 0) return (int)cudaSuccess;
-  rownorm_jvp_kernel<T, LANES><<<(unsigned)blocks, 256, 0, stream>>>(
-      (const T*)y, (const T*)b, (const T*)dy, (const T*)db, (T*)dout, rows,
-      c, slope, eps);
-  return (int)cudaGetLastError();
-}
-
 // the group width of a row: the power of two that covers its vectors
 template <typename T>
 int launch_jvp(const void* y, const void* b, const void* dy, const void* db,
                void* dout, int64_t rows, int c, float slope, float eps,
                cudaStream_t stream) {
-  const int nvec = c / VecWidth<T>::N;
-  if (nvec <= 1)
-    return launch_jvp_lanes<T, 1>(y, b, dy, db, dout, rows, c, slope, eps, stream);
-  if (nvec <= 2)
-    return launch_jvp_lanes<T, 2>(y, b, dy, db, dout, rows, c, slope, eps, stream);
-  if (nvec <= 4)
-    return launch_jvp_lanes<T, 4>(y, b, dy, db, dout, rows, c, slope, eps, stream);
-  if (nvec <= 8)
-    return launch_jvp_lanes<T, 8>(y, b, dy, db, dout, rows, c, slope, eps, stream);
-  if (nvec <= 16)
-    return launch_jvp_lanes<T, 16>(y, b, dy, db, dout, rows, c, slope, eps, stream);
-  return launch_jvp_lanes<T, 32>(y, b, dy, db, dout, rows, c, slope, eps, stream);
+  return with_groups<T>(c, [&](auto grp) {
+    constexpr int L = decltype(grp)::LANES;
+    constexpr int kRows = 256 / L;
+    const int64_t blocks = (rows + kRows - 1) / kRows;
+    if (blocks == 0) return (int)cudaSuccess;
+    rownorm_jvp_kernel<T, L><<<(unsigned)blocks, 256, 0, stream>>>(
+        (const T*)y, (const T*)b, (const T*)dy, (const T*)db, (T*)dout, rows,
+        c, slope, eps);
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -587,15 +681,27 @@ extern "C" int pgx_bias_pixelnorm_lrelu_bwd2(
   return (int)cudaErrorInvalidValue;
 }
 
-// Rows of the [blocks][C] f32 scratch that pgx_bias_pixelnorm_lrelu_bwd
+// Rows of the [blocks][C] f32 scratch that pgx_bias_pixelnorm_lrelu_bwd2
 // takes for `rows` rows.
 extern "C" int pgx_bias_pixelnorm_lrelu_bwd_blocks(int64_t rows) {
   return bwd_blocks(rows);
 }
 
+// Rows of the [blocks][C] f32 scratch that pgx_bias_pixelnorm_lrelu_bwd
+// takes for `rows` rows of C channels in `dtype` (its grid), or -1 for a
+// width or dtype it does not take.
+extern "C" int pgx_bias_pixelnorm_lrelu_bwd_partials(int64_t rows, int c,
+                                                     int dtype) {
+  if (c <= 0 || c > kMaxC || c % 8 != 0) return -1;
+  if (dtype == pgx::kFloat32) return bwd_partials<float>(rows, c);
+  if (dtype == pgx::kBFloat16) return bwd_partials<__nv_bfloat16>(rows, c);
+  return -1;
+}
+
 // Kernel A's backward for the cotangent g of its output: dy (y's dtype, y's
-// shape) and db (f32, C values), left in row 0 of db_partial.  y, b, g share
-// one dtype.
+// shape) and db (f32, C values), left in row 0 of db_partial, a
+// [pgx_bias_pixelnorm_lrelu_bwd_partials(rows, c, dtype)][C] f32 scratch.
+// y, b, g share one dtype.
 extern "C" int pgx_bias_pixelnorm_lrelu_bwd(const void* y, const void* b,
                                             const void* g, void* dy_out,
                                             void* db_partial, int64_t rows,

@@ -8,9 +8,10 @@ body ``_fwd_kernel``).  Per NHWC row of C channels::
     out = lrelu(a * r, slope)        (stored in y's dtype)
 
 Bound: bytes (read y once, write out once; a few operations per element).
-The CUDA kernel (``csrc/epilogue.cu``) gives each row to one warp, keeps the
-row in registers between the reduction and the store, and so moves exactly
-those bytes.
+The CUDA kernel (``csrc/epilogue.cu``) gives each row a group of lanes sized
+to it (the power of two that covers its 16-byte vectors, at most a warp),
+keeps the row in registers between the reduction and the store, and so moves
+exactly those bytes.
 
 Differentiation.  The wrapper is a ``torch.autograd.Function`` whose forward
 launches the kernel.  Its backward is a second Function,
@@ -192,9 +193,12 @@ def _launch_backward(y: torch.Tensor, b: torch.Tensor, g: torch.Tensor,
     rows = y.numel() // c
     lib = build.load_library()
     dy = torch.empty_like(y)
-    # f32 column sums of each block; the kernel leaves db in row 0
-    part = torch.empty((max(lib.pgx_bias_pixelnorm_lrelu_bwd_blocks(rows), 1),
-                        c), dtype=torch.float32, device=y.device)
+    # f32 column sums of each block of the kernel's grid (sized to the card,
+    # the width and the dtype); the kernel leaves db in row 0
+    blocks = lib.pgx_bias_pixelnorm_lrelu_bwd_partials(rows, c,
+                                                       build.dtype_code(y))
+    part = torch.empty((max(blocks, 1), c), dtype=torch.float32,
+                       device=y.device)
     if rows == 0:
         part.zero_()
     build.check(lib.pgx_bias_pixelnorm_lrelu_bwd(

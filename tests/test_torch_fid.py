@@ -66,7 +66,7 @@ def _batches():
 def test_preprocess_equals_pgx_pil_chain(kind):
     x = _batches()[kind]
     want = jfid.preprocess(x)
-    got = tfid.preprocess(x)
+    got = tfid.preprocess(x, device="cpu")
     assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
     np.testing.assert_array_equal(got.numpy(), want)
     if x.dtype.kind == "f":
@@ -88,14 +88,25 @@ def test_torch_resize_equals_numpy_resize(size):
     # the device path's floats: the lookup table is the host float chain
     np.testing.assert_array_equal(
         tfid._preprocess_tensor(torch.from_numpy(u8)).numpy(),
-        tfid.preprocess(u8).numpy())
+        tfid.preprocess(u8, device="cpu").numpy())
+
+
+def test_preprocess_defaults_to_the_card():
+    """Without a device, ``preprocess`` runs on the card: without one it
+    raises ``resolve_device``'s error and never drops to the CPU."""
+    x = _batches()["uint8_nhwc"]
+    if torch.cuda.is_available():
+        assert tfid.preprocess(x).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device found"):
+            tfid.preprocess(x)
 
 
 def test_preprocess_refuses_other_layouts():
     with pytest.raises(ValueError):
-        tfid.preprocess(np.zeros((2, 8, 8, 4), np.uint8))
+        tfid.preprocess(np.zeros((2, 8, 8, 4), np.uint8), device="cpu")
     with pytest.raises(TypeError):
-        tfid.preprocess(np.zeros((2, 8, 8, 3), np.int32))
+        tfid.preprocess(np.zeros((2, 8, 8, 3), np.int32), device="cpu")
 
 
 @needs_pgx
@@ -223,7 +234,7 @@ def test_gpu_preprocess_equals_the_host_path(cuda, kind):
     got = tfid.preprocess(x, cuda)
     assert got.device.type == "cuda"
     np.testing.assert_array_equal(got.cpu().numpy(),
-                                  tfid.preprocess(x).numpy())
+                                  tfid.preprocess(x, device="cpu").numpy())
 
 
 @pytest.mark.gpu
@@ -234,7 +245,8 @@ def test_gpu_features_equal_the_cpu_features(cuda):
     caller's TF32 flag stays on around the call and does not change the
     features."""
     sd = tinc.init_inception(torch.Generator().manual_seed(0))
-    x = tfid.preprocess(_batches()["float32_128"].repeat(2, axis=0))
+    x = tfid.preprocess(_batches()["float32_128"].repeat(2, axis=0),
+                        device="cpu")
     want = tfid.make_extractor(sd, device="cpu")(x)
     ext = tfid.make_extractor(sd, device=cuda)
     flag = torch.backends.cudnn.allow_tf32

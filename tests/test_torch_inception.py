@@ -135,6 +135,17 @@ def test_init_inception_is_pgx_init_from_a_generator():
                            c["Conv2d_1a_3x3.conv.weight"])
 
 
+def test_build_inception_defaults_to_the_card():
+    """Without a device, ``build_inception`` builds on the card: without
+    one it raises ``resolve_device``'s error and never drops to the CPU."""
+    sd = tinc.init_inception(torch.Generator().manual_seed(0))
+    if torch.cuda.is_available():
+        assert next(tinc.build_inception(sd).parameters()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device found"):
+            tinc.build_inception(sd)
+
+
 def test_batchnorm_fold_is_made_at_load(weights):
     """Every BatchNorm's scale and shift are folded when the weights load,
     with pgx's operations in pgx's order (``gamma * rsqrt(var + 1e-3)``,
@@ -142,7 +153,7 @@ def test_batchnorm_fold_is_made_at_load(weights):
     loading other weights into a built network folds those."""
     _, path, _, _, _ = weights
     sd = {k: v.double() for k, v in tinc.load_torch_weights(path).items()}
-    model = tinc.build_inception(dtype=torch.float64)
+    model = tinc.build_inception(device="cpu", dtype=torch.float64)
     assert set(model.state_dict()) == set(sd)
     model.load_state_dict(sd)
     bns = [(n[:-len(".bn")], m) for n, m in model.named_modules()

@@ -350,11 +350,41 @@ def _on(arr, dev, dtype):
     return torch.from_numpy(arr).to(dev, dtype)
 
 
+# Kernel A's row mappings (A, B, A's backward): a row of C channels goes to
+# a group of lanes, the power of two that covers its 16-byte vectors (8 bf16
+# or 4 f32), a warp above 16 vectors.  Widths of 1 to 64 vectors, powers of
+# two and not; rows that fill a block in part; "past_stride" is one stride
+# of A's backward grid and 257 rows more (a partial last stride and block);
+# and the 512px recipe's layers at batch 1.
+A_WIDTHS = (8, 16, 24, 32, 40, 64, 96, 128, 200, 256, 264, 512)
+A_ROW_SHAPES = [(rows, 1, 1, c) for c in A_WIDTHS
+                for rows in (1, 7, 65, "past_stride")]
+RECIPE_512_SHAPES = [(1, 4, 4, 512), (1, 8, 8, 512), (1, 16, 16, 512),
+                     (1, 32, 32, 512), (1, 64, 64, 256), (1, 128, 128, 128),
+                     (1, 256, 256, 64), (1, 512, 512, 32)]
+
+
+def _a_shape(shape, dtype):
+    """``shape`` with a "past_stride" row count resolved on this card."""
+    if shape[0] != "past_stride":
+        return shape
+    from pgx_torch.ops.kernels import build
+    c = shape[-1]
+    nvec = c * torch.finfo(dtype).bits // 128
+    lanes = min(32, 1 << (nvec - 1).bit_length())
+    blocks = build.load_library().pgx_bias_pixelnorm_lrelu_bwd_partials(
+        1 << 40, c, build.dtype_code(torch.empty(0, dtype=dtype)))
+    assert blocks > 0
+    return (blocks * (256 // lanes) + 257,) + tuple(shape[1:])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(8, 4, 4, 512), (2, 64, 64, 256),
-                                   (2, 17, 3, 40)])
+                                   (2, 17, 3, 40)] + RECIPE_512_SHAPES
+                         + A_ROW_SHAPES)
 def test_gpu_rownorm_kernels_match_plain(cuda, dtype, shape):
+    shape = _a_shape(shape, dtype)
     y, b = _on(_rand(shape, 1), cuda, dtype), _on(_rand(shape[-1:], 2),
                                                    cuda, torch.float32)
     with torch.no_grad():
@@ -425,13 +455,16 @@ def test_gpu_conv3x3_epilogue_box_shapes_match_plain(cuda, shape, cout,
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(32, 4, 4, 512), (8, 64, 64, 256),
-                                   (2, 17, 3, 40), (9000, 1, 1, 64)])
+                                   (2, 17, 3, 40), (9000, 1, 1, 64)]
+                         + RECIPE_512_SHAPES + A_ROW_SHAPES)
 def test_gpu_kernel_a_backward_matches_plain(cuda, dtype, shape):
     """A's backward kernel against its plain version: dy to one f32
     rounding (f32) or two bf16 steps (bf16) at the largest entry; db, an
     f32 sum over the rows in another order, to 1e-5 of its largest
-    entry."""
+    entry.  A second launch on the same inputs gives dy and db bit for
+    bit (db's sums run in a fixed order)."""
     from pgx_torch.ops.kernels import epilogue as E
+    shape = _a_shape(shape, dtype)
     y = _on(_rand(shape, 1), cuda, dtype)
     b = _on(_rand(shape[-1:], 2, 0.3), cuda, torch.float32)
     g = _on(_rand(shape, 3), cuda, dtype)
@@ -449,6 +482,10 @@ def test_gpu_kernel_a_backward_matches_plain(cuda, dtype, shape):
         <= tol * scale
     db_scale = want_db.abs().max().item()
     assert (got_db - want_db).abs().max().item() <= 1e-5 * db_scale
+    with torch.no_grad():
+        again_dy, again_db = E._BiasPixelNormLreluGrad.apply(y, b, g, 0.2,
+                                                             1e-8)
+    assert torch.equal(again_dy, got_dy) and torch.equal(again_db, got_db)
     # the same kernel from autograd: one launch per first-order backward
     leaf = y.clone().requires_grad_(True)
     before = K.launch_counts()["bias_pixelnorm_lrelu_bwd"]
@@ -721,10 +758,13 @@ def _misaligned(shape, dtype, dev, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_misaligned_views_are_copied_and_launched(cuda, dtype):
-    """A, B, C, D, E and F take a contiguous view whose pointer is not
-    16-byte aligned (copied first) and match their plain versions."""
+    """A, A's backward, B, C, D, E and F take a contiguous view whose
+    pointer is not 16-byte aligned (copied first) and match their plain
+    versions."""
     from pgx_torch.ops import bias_act
+    from pgx_torch.ops.kernels import epilogue as E
     y = _misaligned((2, 5, 5, 40), dtype, cuda, 1)
+    g = _misaligned((2, 5, 5, 40), dtype, cuda, 5)
     b = _on(_rand((40,), 2, 0.1), cuda, torch.float32)
     w = _on(_rand((3, 3, 40, 24), 3, 0.1), cuda, torch.float32)
     img = _misaligned((2, 3, 24, 36), dtype, cuda, 4)
@@ -733,6 +773,9 @@ def test_gpu_misaligned_views_are_copied_and_launched(cuda, dtype):
     cases = {
         "bias_pixelnorm_lrelu": (lambda: K.bias_pixelnorm_lrelu(y, b),
                                  lambda: K.bias_pixelnorm_lrelu_ref(y, b)),
+        "bias_pixelnorm_lrelu_bwd": (
+            lambda: E._BiasPixelNormLreluGrad.apply(y, b, g, 0.2, 1e-8)[0],
+            lambda: E.bias_pixelnorm_lrelu_backward_ref(y, b, g)[0]),
         "pixel_norm_lrelu": (lambda: K.pixel_norm_lrelu(y),
                              lambda: K.pixel_norm_lrelu_ref(y)),
         "conv3x3_epilogue": (lambda: K.conv3x3_epilogue(y, w, b[:24]),
