@@ -8,7 +8,10 @@ them.
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
 
-1. build   — build the CUDA kernel library from pgx_torch/ops/kernels/csrc.
+1. build   — build the CUDA kernel library from pgx_torch/ops/kernels/csrc;
+   ptxas's registers, spills and shared memory for every kernel
+   instantiation, and the resident grids of A's backward and second
+   derivative at each width.
 2. kernels — record the shapes the 128px flagship hands each kernel (A
    bias_pixelnorm_lrelu, B pixel_norm_lrelu, C conv3x3_epilogue and C's
    residual-emitting entry conv3x3_epilogue_r, and A's backward
@@ -107,7 +110,10 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    derivative against their plain versions at every launch of one jvp
    penalty iteration (recorded where they launch, with the tangent's),
    with device time from a CUDA graph against the byte bound: sums per
-   kernel and one row per shape (C, rows, device ms, bound, share).
+   kernel and one row per shape (C, rows, device ms, bound, share); and
+   kernel C's residual-emitting entry at its launches of the same
+   iteration, in bf16 and f32, against its operations bound and cuDNN's
+   conv + bias, summed and per shape.
 8. eval    — at the flagship's full width: the device preprocess (PIL's
    bilinear fixed point as torch integer ops, the float chain by lookup)
    against the numpy path, bytes and floats equal, at 32px, 128px and
@@ -254,6 +260,44 @@ def bf16_tol(ref_max: float) -> float:
     once, the plain version after each of its stages."""
     import math
     return 2.0 * 2.0 ** (math.floor(math.log2(max(ref_max, 1e-3))) - 7)
+
+
+def ptxas_usage(log: str) -> list:
+    """Registers, spill bytes and static shared memory of every kernel
+    instantiation in ptxas's report of the build (``build.ptxas_log``),
+    the names demangled by c++filt where the machine has it."""
+    import re
+    import shutil
+    rows, open_entry = [], False
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            rows.append({"kernel": m.group(1)})
+            open_entry = True
+            continue
+        if not open_entry:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            rows[-1].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[-1].update(registers=int(m.group(1)),
+                            smem_bytes=int(smem.group(1)) if smem else 0)
+            open_entry = False
+    filt = shutil.which("c++filt")
+    if filt and rows:
+        names = subprocess.run([filt], input="\n".join(
+            r["kernel"] for r in rows), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r["kernel"] = re.sub(r"\(.*", "", n.replace(
+                    "(anonymous namespace)::", "")).removeprefix("void ")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -487,8 +531,10 @@ def kernel_phase(torch, calls, per: str, reps: int = 10):
                 "t_bytes": 0.0, "err": 0.0, "tol": 0.0, "conv_ms": 0.0,
                 "calls": 0, "per_shape": []})
             agg["per_shape"].append({"shape": list(shape), "calls": mult,
+                                     "wshapes": [list(w) for w in wshapes],
                                      "device_ms": device_ms,
-                                     "bound_ms": max(t_ops, t_bytes)})
+                                     "bound_ms": max(t_ops, t_bytes),
+                                     "cudnn_conv_bias_ms": conv_ms})
             agg["ms"] += mult * ms
             agg["device_ms"] += mult * (device_ms or 0.0)
             agg["plain_ms"] += mult * plain_ms
@@ -1261,6 +1307,7 @@ def second_order_phase(torch, second, reps: int = 5):
                        autograd_through_plain_backward_ms=autograd_ms,
                        bound_ms=max(t_bytes, t_ops),
                        bound_by="operations" if t_ops > t_bytes else "bytes",
+                       share_of_bound=max(t_bytes, t_ops) / device_ms,
                        max_abs_err=worst, tol=tol_at,
                        kernel_vs_autograd_err=err)
         out["per_shape"].append(row)
@@ -3096,18 +3143,20 @@ def recipe_cli_phase(torch) -> dict:
 
 
 def record_a_calls_512(torch, gcfg, dcfg):
-    """Every launch of kernel A's family in one bf16 512px jvp penalty
-    iteration, recorded where it launches: A, B and A's backward as
-    kernel_phase's (name, shape, bias shape, slope) calls; A's second
-    derivative as second_order_phase's (shape, slope, ddy given, ddb
-    given, the outputs it needs); A's tangent as (shape, db given).  The
-    counts are held against the routing rules."""
+    """Every launch of kernel A's family and of kernel C in one bf16 512px
+    jvp penalty iteration, recorded where it launches: A, B, A's backward
+    and C (its plain or its residual-emitting entry) as kernel_phase's
+    (name, shape, weight shapes, options) calls; A's second derivative as
+    second_order_phase's (shape, slope, ddy given, ddb given, the outputs
+    it needs); A's tangent as (shape, db given).  The counts are held
+    against the routing rules."""
     import importlib
-    from pgx_torch.ops.kernels import epilogue
+    from pgx_torch.ops.kernels import conv_epilogue, epilogue
     pn = importlib.import_module("pgx_torch.ops.kernels.pixel_norm_lrelu")
     calls, second, tangent = [], [], []
     fwd, bwd, pn_fwd = epilogue._launch, epilogue._launch_backward, pn._launch
     so, jvp = epilogue._launch_second_order, epilogue._launch_jvp
+    conv = conv_epilogue._launch
 
     def rec(name, fn):
         def run(y, *rest):
@@ -3125,21 +3174,34 @@ def record_a_calls_512(torch, gcfg, dcfg):
     def rec_jvp(y, b, dy, db, slope, eps):
         tangent.append((tuple(y.shape), db is not None))
         return jvp(y, b, dy, db, slope, eps)
+
+    def rec_conv(x, w, b, use_pixel_norm, slope, eps, emit_r):
+        opts = {"slope": slope}
+        if not emit_r:
+            opts["use_pixel_norm"] = use_pixel_norm
+        calls.append((C_R if emit_r else C, tuple(x.shape),
+                      (tuple(w.shape), tuple(b.shape)),
+                      json.dumps(opts, sort_keys=True)))
+        return conv(x, w, b, use_pixel_norm, slope, eps, emit_r)
     _, state, steps = recipe_state(gcfg, dcfg, gp_mode="jvp")
     real, labels, draws = recipe_draws(torch, gcfg, seed=901)
     with mock.patch.object(epilogue, "_launch", rec(A, fwd)), \
             mock.patch.object(epilogue, "_launch_backward", rec(A_BWD, bwd)), \
             mock.patch.object(pn, "_launch", rec(B, pn_fwd)), \
             mock.patch.object(epilogue, "_launch_second_order", rec_so), \
-            mock.patch.object(epilogue, "_launch_jvp", rec_jvp):
+            mock.patch.object(epilogue, "_launch_jvp", rec_jvp), \
+            mock.patch.object(conv_epilogue, "_launch", rec_conv):
         steps[True](state, real, labels, 1.0, **draws)
         torch.cuda.synchronize()
     want = recipe_launches(state["g"], dcfg, "jvp", True)
     del state, steps
-    got = {**count_calls(calls), A_BWD2: len(second), A_JVP: len(tangent)}
-    require(got == {k: want[k] for k in (A, B, A_BWD, A_BWD2, A_JVP)},
-            f"recorded launches of A's family {got}, the routing rules give "
-            f"{want}")
+    counted = {**count_calls(calls), A_BWD2: len(second),
+               A_JVP: len(tangent)}
+    keys = (A, B, A_BWD, A_BWD2, A_JVP, C, C_R)
+    got = {k: counted.get(k, 0) for k in keys}
+    require(got == {k: want[k] for k in keys},
+            f"recorded launches of A's family and C {got}, the routing rules "
+            f"give {want}")
     return calls, second, tangent
 
 
@@ -3162,11 +3224,51 @@ def a512_rows(kernel, per_shape) -> list:
             for r in per_shape]
 
 
+def c512_rows(per_shape) -> list:
+    """Per-shape rows of kernel C's residual-emitting entry: C_in, C_out,
+    rows, launches, device ms a launch, its bound, the share, and cuDNN's
+    conv + bias at the same shape."""
+    import math
+    return [{"kernel": C_R, "c_in": r["shape"][-1],
+             "c_out": r["wshapes"][0][-1],
+             "rows": math.prod(r["shape"][:-1]), "launches": r["calls"],
+             "device_ms": r["device_ms"], "bound_ms": r["bound_ms"],
+             "share_of_bound": r["bound_ms"] / r["device_ms"],
+             "cudnn_conv_bias_ms": r["cudnn_conv_bias_ms"]}
+            for r in per_shape]
+
+
+def c512_phase(torch, calls, per: str) -> dict:
+    """Kernel C's residual-emitting entry (the recipe's generator runs no
+    plain C: record_a_calls_512 holds that) at every launch of one bf16
+    512px jvp penalty iteration: kernel_phase's checks against the plain
+    version and its times in bf16 and f32 (its operations bound, cuDNN's
+    conv + bias beside it), summed and per shape."""
+    t0 = time.monotonic()
+    per_c = kernel_phase(torch, calls, per, reps=3)
+    agg, f32 = per_c[(C_R, "bfloat16")], per_c[(C_R, "float32")]
+    return {
+        **a512_summary(
+            agg["calls"], agg["device_ms"], agg["ms"], agg["plain_ms"],
+            max(agg["t_ops"], agg["t_bytes"]),
+            "operations" if agg["t_ops"] > agg["t_bytes"] else "bytes",
+            agg["err"], agg["tol"]),
+        "cudnn_conv_bias_ms": agg["conv_ms"],
+        "f32": {"ms": f32["ms"], "plain_ms": f32["plain_ms"],
+                "bound_ms": max(f32["t_ops"], f32["t_bytes"]),
+                "cudnn_conv_bias_ms": f32["conv_ms"],
+                "max_abs_err": f32["err"], "tol": f32["tol"]},
+        "per_shape": c512_rows(agg["per_shape"]),
+        "seconds": time.monotonic() - t0}
+
+
 def recipe_phase(torch) -> dict:
     """Phase 7: the 512px production recipe at full width."""
     gcfg, dcfg = recipe_pair("bfloat16")
     per = "one bf16 jvp penalty iteration at 512px, batch 8"
     calls, second, tangent_calls = record_a_calls_512(torch, gcfg, dcfg)
+    c_calls = [c for c in calls if c[0] in (C, C_R)]
+    calls = [c for c in calls if c[0] not in (C, C_R)]
     tangent = tangent_kernel_phase(torch, tangent_calls)
     emit({"phase": "kernel_a_tangent", "per": per, **tangent})
     per_a = kernel_phase(torch, calls, per, reps=3)
@@ -3192,6 +3294,9 @@ def recipe_phase(torch) -> dict:
     rows += a512_rows(A_JVP, tangent["per_shape"])
     emit({"phase": "kernel_a_512px", "per": per + " (sum over its "
           "launches)", **a512, "per_shape": rows})
+    c512 = c512_phase(torch, c_calls, per)
+    emit({"phase": "kernel_c_512px", "kernel": C_R, "per": per + " (sum "
+          "over its launches; f32 timed at every shape)", **c512})
     emit({"phase": "train_512_penalty_f32_check",
           **penalty_f32_check(torch, gcfg, dcfg)})
     bare = recipe_bare_phase(torch, gcfg, dcfg)
@@ -3204,7 +3309,8 @@ def recipe_phase(torch) -> dict:
           **memory_variants_phase(torch, gcfg, dcfg)})
     cli_run = recipe_cli_phase(torch)
     emit({"phase": "train_512_cli", **cli_run})
-    return {"tangent": tangent, "bare": bare, "cli": cli_run, "a512": a512}
+    return {"tangent": tangent, "bare": bare, "cli": cli_run, "a512": a512,
+            "c512": c512}
 
 
 # ---------------------------------------------------------------------------
@@ -3743,9 +3849,18 @@ def main() -> int:
 
     # 1. build
     t0 = time.monotonic()
-    build.load_library()
+    lib = build.load_library()
     emit({"phase": "build", "seconds": time.monotonic() - t0,
-          "nvcc_seconds": build.build_seconds})
+          "nvcc_seconds": build.build_seconds,
+          "ptxas": ptxas_usage(build.ptxas_log()),
+          "resident_blocks": {
+              f"{dt} C={c}": {
+                  A_BWD: lib.pgx_bias_pixelnorm_lrelu_bwd_partials(
+                      1 << 40, c, code),
+                  A_BWD2: lib.pgx_bias_pixelnorm_lrelu_bwd2_partials(
+                      1 << 40, c, code)}
+              for dt, code in build.DTYPE_CODES.items()
+              for c in (8, 16, 32, 64, 128, 256, 512)}})
 
     # 2. kernels at the shapes of both main paths, and their gradients
     cfg, dcfg, params, calls = flagship(torch)
@@ -3903,6 +4018,11 @@ def main() -> int:
         if name in (A, B, A_BWD):
             # every launch of one 512px jvp penalty iteration (recipe_phase)
             entry["train_512_recipe"] = recipe["a512"][name]
+        if name == C_R:
+            # every launch of one 512px jvp penalty iteration (recipe_phase)
+            entry["train_512_recipe"] = {
+                k: v for k, v in recipe["c512"].items()
+                if k not in ("per_shape", "seconds")}
         if on_serve:
             # held at the eval paths' sampling shapes (eval_kernel_phase)
             for key, per in (("eval_sweep", "one sampling batch of 50 at "

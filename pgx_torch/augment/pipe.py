@@ -209,6 +209,18 @@ def _rotate3d(v, theta):
     ])
 
 
+def _reflect_index(n: int, pad: int, device) -> torch.Tensor:
+    """Indices of numpy's "reflect" pad of a size-``n`` axis by ``pad`` on
+    each side: reflected again and again where ``pad`` reaches past the
+    axis, as ``jnp.pad`` does (torch's reflect pad needs ``pad < n``)."""
+    i = torch.arange(-pad, n + pad, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    i = torch.remainder(i, period)
+    return torch.where(i < n, i, period - i)
+
+
 def _full(b: int, value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((b,), value, dtype=torch.float32, device=like.device)
 
@@ -444,7 +456,8 @@ def augment_pipe(draws, images: torch.Tensor, cfg: AugmentConfig, p,
         dt = torch.promote_types(images.dtype, torch.float32)
         x = images.to(dt).permute(0, 3, 1, 2).reshape(1, b * c, height,
                                                       width)
-        x = F.pad(x, (pad, pad, pad, pad), mode="reflect")
+        x = x.index_select(2, _reflect_index(height, pad, dev))
+        x = x.index_select(3, _reflect_index(width, pad, dev))
         k = torch.repeat_interleave(hz_prime, c, dim=0).to(dt)  # (B*C, taps)
         x = F.conv2d(x, k.reshape(b * c, 1, taps, 1), groups=b * c)
         x = F.conv2d(x, k.reshape(b * c, 1, 1, taps), groups=b * c)

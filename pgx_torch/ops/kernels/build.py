@@ -22,8 +22,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
+# -Xptxas -v: each kernel's registers, spills and shared memory, kept in
+# ptxas.txt beside the library (ptxas_log)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
@@ -69,13 +71,15 @@ def _compile(out_dir: Path, lib_path: Path) -> None:
                "-o", str(obj)]
         procs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    errors = []
+    errors, log = [], []
     for cmd, _, p in procs:
         out, err = p.communicate()
         if p.returncode != 0:
             errors.append(f"$ {' '.join(cmd)}\n{out}{err}")
+        log.append(out + err)
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    (out_dir / "ptxas.txt").write_text("".join(log))
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs),
            "-lcudart"]
@@ -102,11 +106,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     # null
     lib.pgx_bias_pixelnorm_lrelu_jvp.argtypes = [p, p, p, p, p, i64, i, i, f,
                                                  f, p]
-    lib.pgx_bias_pixelnorm_lrelu_bwd_blocks.argtypes = [i64]
-    lib.pgx_bias_pixelnorm_lrelu_bwd_blocks.restype = ctypes.c_int
-    # (rows, c, dtype)
-    lib.pgx_bias_pixelnorm_lrelu_bwd_partials.argtypes = [i64, i, i]
-    lib.pgx_bias_pixelnorm_lrelu_bwd_partials.restype = ctypes.c_int
+    # (rows, c, dtype): the rows of the backward's and the second
+    # derivative's column-sum scratch
+    for fn in (lib.pgx_bias_pixelnorm_lrelu_bwd_partials,
+               lib.pgx_bias_pixelnorm_lrelu_bwd2_partials):
+        fn.argtypes = [i64, i, i]
+        fn.restype = ctypes.c_int
     lib.pgx_conv3x3_epilogue.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f,
                                          f, p]
     # the residual-emitting entry: (x, w, b, out, r, nb, h, wd, cin, cout,
@@ -141,13 +146,23 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _out_dir() -> Path:
+    return BUILD_ROOT / f"kernels-{_source_hash()}"
+
+
+def ptxas_log() -> str:
+    """ptxas's report (``-v``) from the build of this checkout's library:
+    registers, spills and shared memory of every kernel instantiation."""
+    return (_out_dir() / "ptxas.txt").read_text()
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; cached per process."""
     global _lib, build_seconds
     with _lib_lock:
         if _lib is not None:
             return _lib
-        out_dir = BUILD_ROOT / f"kernels-{_source_hash()}"
+        out_dir = _out_dir()
         lib_path = out_dir / "libpgx_torch_kernels.so"
         out_dir.mkdir(parents=True, exist_ok=True)
         # one build per checkout: other processes wait on the lock and

@@ -26,8 +26,8 @@
 namespace {
 
 constexpr int kMaxC = 512;
-constexpr int kThreads = 256;     // a block of A, B and A's backward
-constexpr int kRowsPerBlock = 8;  // the second derivative: a warp a row
+constexpr int kThreads = 256;  // a block of A, B, A's backward and its
+                               // second derivative
 
 template <typename T> struct VecWidth;
 template <> struct VecWidth<float> { static constexpr int N = 4; };
@@ -185,6 +185,45 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p, int64_t row,
   }
 }
 
+// The block's row of the [blocks][C] column-sum scratch, from each lane's
+// f32 column sums `dbs` of the rows its group walked, in a fixed order: the
+// warp's groups by a butterfly on the group-index bits (every lane ends with
+// the same sum), then the block's warps in order of their index.  Called by
+// every thread of the block.
+template <int LANES, int VECS, int V>
+__device__ __forceinline__ void block_colsums(float (&dbs)[VECS][V],
+                                              float* __restrict__ db_partial,
+                                              int c, int nvec) {
+  __shared__ float colsum[kThreads / 32][kMaxC];
+  const int lane = threadIdx.x % LANES, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int o = LANES; o < 32; o <<= 1) {
+#pragma unroll
+    for (int j = 0; j < VECS; ++j) {
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        dbs[j][k] += __shfl_xor_sync(0xffffffffu, dbs[j][k], o);
+    }
+  }
+  if (threadIdx.x % 32 < LANES) {
+#pragma unroll
+    for (int j = 0; j < VECS; ++j) {
+      const int v = lane + LANES * j;
+      if (v < nvec) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) colsum[warp][v * V + k] = dbs[j][k];
+      }
+    }
+  }
+  __syncthreads();
+  for (int col = threadIdx.x; col < c; col += kThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) s += colsum[w][col];
+    db_partial[(int64_t)blockIdx.x * c + col] = s;
+  }
+}
+
 template <typename T, int LANES, int VECS>
 __global__ void __launch_bounds__(kThreads)
 rownorm_bwd_kernel(const T* __restrict__ y, const T* __restrict__ bias,
@@ -193,8 +232,7 @@ rownorm_bwd_kernel(const T* __restrict__ y, const T* __restrict__ bias,
                    float slope, float eps) {
   constexpr int V = VecWidth<T>::N;
   constexpr int kGroups = kThreads / LANES;
-  __shared__ float colsum[kThreads / 32][kMaxC];
-  const int lane = threadIdx.x % LANES, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % LANES;
   const int nvec = c / V;
   const float inv_c = 1.f / c;
 
@@ -266,35 +304,7 @@ rownorm_bwd_kernel(const T* __restrict__ y, const T* __restrict__ bias,
     }
   }
 
-  // the column sums in a fixed order: the warp's groups by a butterfly on
-  // the group-index bits (every lane ends with the same sum), then the
-  // block's warps in order of their index
-#pragma unroll
-  for (int o = LANES; o < 32; o <<= 1) {
-#pragma unroll
-    for (int j = 0; j < VECS; ++j) {
-#pragma unroll
-      for (int k = 0; k < V; ++k)
-        dbs[j][k] += __shfl_xor_sync(0xffffffffu, dbs[j][k], o);
-    }
-  }
-  if (threadIdx.x % 32 < LANES) {
-#pragma unroll
-    for (int j = 0; j < VECS; ++j) {
-      const int v = lane + LANES * j;
-      if (v < nvec) {
-#pragma unroll
-        for (int k = 0; k < V; ++k) colsum[warp][v * V + k] = dbs[j][k];
-      }
-    }
-  }
-  __syncthreads();
-  for (int col = threadIdx.x; col < c; col += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += colsum[w][col];
-    db_partial[(int64_t)blockIdx.x * c + col] = s;
-  }
+  block_colsums<LANES>(dbs, db_partial, c, nvec);
 }
 
 // db[col] = sum over blocks of db_partial[block][col], written to row 0 of
@@ -319,42 +329,6 @@ rownorm_bwd_colsum_kernel(float* __restrict__ db_partial, int nblocks, int c) {
   }
 }
 
-// A's backward grid for `rows` rows in groups of LANES lanes: as many
-// blocks as the card keeps resident at once, fewer if the rows fill fewer.
-// The same on every call for one card, which keeps db's order fixed.
-template <typename T, int LANES, int VECS>
-int bwd_grid(int64_t rows) {
-  static const int per_sm = [] {
-    int n = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, rownorm_bwd_kernel<T, LANES, VECS>, kThreads, 0);
-    return n > 0 ? n : 1;
-  }();
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t groups = kThreads / LANES;
-  const int64_t want = (rows + groups - 1) / groups;
-  const int64_t cap = (int64_t)per_sm * (sms > 0 ? sms : 1);
-  return (int)(want < cap ? want : cap);
-}
-
-template <typename T>
-int bwd_partials(int64_t rows, int c) {
-  return with_groups<T>(c, [&](auto grp) {
-    using G = decltype(grp);
-    return bwd_grid<T, G::LANES, G::VECS>(rows);
-  });
-}
-
-// the second derivative's grid: a warp a row, at most kBwd2MaxBlocks blocks
-constexpr int kBwd2MaxBlocks = 1024;
-
-int bwd_blocks(int64_t rows) {
-  const int64_t want = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  return (int)(want < kBwd2MaxBlocks ? want : kBwd2MaxBlocks);
-}
-
 // ---------------------------------------------------------------------------
 // Kernel A's second derivative: the backward of A's backward, one pass.
 //
@@ -369,33 +343,41 @@ int bwd_blocks(int64_t rows) {
 //     d_a = (3 r^5 m q - r^3 p) a - r^3 q dpn - r^3 m u
 //     d_y = d_a,  d_b = sum over rows of d_a (f32)
 // Bound: bytes (read y, g and ddy, write d_y and d_g: five tensors of the
-// row shape; the bias and ddb are C-wide).  Design: A's backward kernel with
-// a third input and four row sums: one warp owns one row in registers,
-// 16-byte loads and stores, the sums by warp shuffle, every output rounded
-// once; d_b from per-block f32 column sums added in a fixed order by
-// rownorm_bwd_colsum_kernel (deterministic).  ddy, ddb, d_y, d_g and the d_b
-// scratch may each be null: what is absent is neither read nor written.
+// row shape; the bias and ddb are C-wide).  Design: A's backward's, with a
+// third input and four row sums.  A row goes to a group of LANES lanes
+// sized to its 16-byte vectors (VECS a lane, registers sized to the row), so
+// the 32-64 channel rows of the 512px stages keep every lane loading.  The
+// grid is the blocks the card keeps resident; each group walks rows with
+// the grid's stride and issues its next row's y, g and ddy loads before the
+// current row's four shuffle chains, so two rows are in flight per group.
+// The current row waits as f32 a, s g and u beside the next row's raw
+// vectors: no bf16 width spills (ptxas -v; f32 at 64 channels spills 8
+// bytes), the widest (512 bf16 channels, two vectors a lane) at one
+// resident block an SM.  Every output is rounded once.  d_b as A's
+// backward's db: per-lane f32 column sums added in a fixed order
+// (block_colsums, then rownorm_bwd_colsum_kernel over the blocks), the same
+// bits on every launch.  ddy, ddb, d_y, d_g and the d_b scratch may each be
+// null: what is absent is neither read nor written.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(32 * kRowsPerBlock)
+template <typename T, int LANES, int VECS>
+__global__ void __launch_bounds__(kThreads)
 rownorm_bwd2_kernel(const T* __restrict__ y, const T* __restrict__ bias,
                     const T* __restrict__ g, const T* __restrict__ ddy,
                     const float* __restrict__ ddb, T* __restrict__ d_y,
                     T* __restrict__ d_g, float* __restrict__ db_partial,
                     int64_t rows, int c, float slope, float eps) {
   constexpr int V = VecWidth<T>::N;
-  constexpr int kMaxVec = kMaxC / (32 * V);
-  __shared__ float colsum[kRowsPerBlock][kMaxC];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kGroups = kThreads / LANES;
+  const int lane = threadIdx.x % LANES;
   const int nvec = c / V;
   const float inv_c = 1.f / c;
 
   // the bias and ddb are the same for every row: kept in registers
-  float bv[kMaxVec][V], uv[kMaxVec][V], dbs[kMaxVec][V];
+  float bv[VECS][V], uv[VECS][V], dbs[VECS][V];
 #pragma unroll
-  for (int j = 0; j < kMaxVec; ++j) {
-    const int v = lane + 32 * j;
+  for (int j = 0; j < VECS; ++j) {
+    const int v = lane + LANES * j;
     uint4 braw = make_uint4(0, 0, 0, 0);
     if (v < nvec) braw = reinterpret_cast<const uint4*>(bias)[v];
     const T* be = reinterpret_cast<const T*>(&braw);
@@ -407,36 +389,32 @@ rownorm_bwd2_kernel(const T* __restrict__ y, const T* __restrict__ bias,
     }
   }
 
-  for (int64_t row = (int64_t)blockIdx.x * kRowsPerBlock + warp; row < rows;
-       row += (int64_t)gridDim.x * kRowsPerBlock) {
-    const uint4* ysrc = reinterpret_cast<const uint4*>(y + row * c);
-    const uint4* gsrc = reinterpret_cast<const uint4*>(g + row * c);
-    const uint4* usrc = reinterpret_cast<const uint4*>(ddy + row * c);
-    float a[kMaxVec][V], gv[kMaxVec][V], u[kMaxVec][V];
+  const int64_t stride = (int64_t)gridDim.x * kGroups;
+  int64_t row = (int64_t)blockIdx.x * kGroups + threadIdx.x / LANES;
+  // the warp walks while its first group's row is live, as A's backward's
+  int64_t lead = row - (threadIdx.x % 32) / LANES;
+  const bool has_ddy = ddy != nullptr;
+  uint4 yraw[VECS], graw[VECS], uraw[VECS];
+  load_row<LANES>(y, row, c, row < rows, lane, nvec, yraw);
+  load_row<LANES>(g, row, c, row < rows, lane, nvec, graw);
+  load_row<LANES>(ddy, row, c, has_ddy && row < rows, lane, nvec, uraw);
+  for (; lead < rows; row += stride, lead += stride) {
+    float a[VECS][V], dpn[VECS][V], u[VECS][V];
     float ssq = 0.f, msum = 0.f, psum = 0.f, qsum = 0.f;
 #pragma unroll
-    for (int j = 0; j < kMaxVec; ++j) {
-      const int v = lane + 32 * j;
-      uint4 yraw = make_uint4(0, 0, 0, 0), graw = make_uint4(0, 0, 0, 0);
-      uint4 uraw = make_uint4(0, 0, 0, 0);
-      if (v < nvec) {
-        yraw = ysrc[v];
-        graw = gsrc[v];
-        if (ddy != nullptr) uraw = usrc[v];
-      }
-      const T* ye = reinterpret_cast<const T*>(&yraw);
-      const T* ge = reinterpret_cast<const T*>(&graw);
-      const T* ue = reinterpret_cast<const T*>(&uraw);
+    for (int j = 0; j < VECS; ++j) {
+      const T* ye = reinterpret_cast<const T*>(&yraw[j]);
+      const T* ge = reinterpret_cast<const T*>(&graw[j]);
+      const T* ue = reinterpret_cast<const T*>(&uraw[j]);
 #pragma unroll
       for (int k = 0; k < V; ++k) {
         // y + b in the input type, as the forward takes it
         const float t = pgx::to_f(pgx::from_f<T>(pgx::to_f(ye[k]) + bv[j][k]));
-        const float gk = pgx::to_f(ge[k]);
-        // ddy + ddb, zero past the row's end (uv is zero there too)
-        const float uk = (ddy != nullptr ? pgx::to_f(ue[k]) : 0.f) + uv[j][k];
-        const float d = (t < 0.f ? slope : 1.f) * gk;
+        // ddy + ddb: zero past the row's end, ddy's part zero when absent
+        const float uk = pgx::to_f(ue[k]) + uv[j][k];
+        const float d = (t < 0.f ? slope : 1.f) * pgx::to_f(ge[k]);
         a[j][k] = t;
-        gv[j][k] = gk;
+        dpn[j][k] = d;
         u[j][k] = uk;
         ssq += t * t;
         msum += d * t;
@@ -444,18 +422,24 @@ rownorm_bwd2_kernel(const T* __restrict__ y, const T* __restrict__ bias,
         qsum += uk * t;
       }
     }
-    ssq = pgx::warp_sum(ssq);
-    msum = pgx::warp_sum(msum);
-    psum = pgx::warp_sum(psum);
-    qsum = pgx::warp_sum(qsum);
+    // the next row's loads go out before this row's shuffles
+    const int64_t next = row + stride;
+    load_row<LANES>(y, next, c, next < rows, lane, nvec, yraw);
+    load_row<LANES>(g, next, c, next < rows, lane, nvec, graw);
+    load_row<LANES>(ddy, next, c, has_ddy && next < rows, lane, nvec, uraw);
+    ssq = group_sum<LANES>(ssq);
+    msum = group_sum<LANES>(msum);
+    psum = group_sum<LANES>(psum);
+    qsum = group_sum<LANES>(qsum);
+    if (row >= rows) continue;  // no shuffle below
     const float r = rsqrtf(ssq * inv_c + eps);
     const float m = msum * inv_c, p = psum * inv_c, q = qsum * inv_c;
     const float r3 = r * r * r;
     const float r3q = r3 * q, r3m = r3 * m;
     const float coef_a = 3.f * r3 * r * r * m * q - r3 * p;
 #pragma unroll
-    for (int j = 0; j < kMaxVec; ++j) {
-      const int v = lane + 32 * j;
+    for (int j = 0; j < VECS; ++j) {
+      const int v = lane + LANES * j;
       if (v < nvec) {
         uint4 yout, gout;
         T* ye = reinterpret_cast<T*>(&yout);
@@ -463,7 +447,7 @@ rownorm_bwd2_kernel(const T* __restrict__ y, const T* __restrict__ bias,
 #pragma unroll
         for (int k = 0; k < V; ++k) {
           const float s = a[j][k] < 0.f ? slope : 1.f;
-          const float da = coef_a * a[j][k] - r3q * (s * gv[j][k])
+          const float da = coef_a * a[j][k] - r3q * dpn[j][k]
                            - r3m * u[j][k];
           dbs[j][k] += da;
           ye[k] = pgx::from_f<T>(da);
@@ -476,21 +460,52 @@ rownorm_bwd2_kernel(const T* __restrict__ y, const T* __restrict__ bias,
   }
 
   if (db_partial == nullptr) return;  // uniform across the block
-#pragma unroll
-  for (int j = 0; j < kMaxVec; ++j) {
-    const int v = lane + 32 * j;
-    if (v < nvec) {
-#pragma unroll
-      for (int k = 0; k < V; ++k) colsum[warp][v * V + k] = dbs[j][k];
-    }
-  }
-  __syncthreads();
-  for (int col = threadIdx.x; col < c; col += blockDim.x) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kRowsPerBlock; ++w) s += colsum[w][col];
-    db_partial[(int64_t)blockIdx.x * c + col] = s;
-  }
+  block_colsums<LANES>(dbs, db_partial, c, nvec);
+}
+
+// The grid of A's backward (kSecond false) or its second derivative (true)
+// for `rows` rows in groups of LANES lanes: as many blocks as the card keeps
+// resident at once, fewer if the rows fill fewer.  The same on every call
+// for one card, width and dtype, which keeps the column sums' order fixed.
+template <bool kSecond, typename T, int LANES, int VECS>
+int bwd_grid(int64_t rows) {
+  static const int per_sm = [] {
+    int n = 0;
+    if constexpr (kSecond)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, rownorm_bwd2_kernel<T, LANES, VECS>, kThreads, 0);
+    else
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, rownorm_bwd_kernel<T, LANES, VECS>, kThreads, 0);
+    return n > 0 ? n : 1;
+  }();
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t groups = kThreads / LANES;
+  const int64_t want = (rows + groups - 1) / groups;
+  const int64_t cap = (int64_t)per_sm * (sms > 0 ? sms : 1);
+  return (int)(want < cap ? want : cap);
+}
+
+template <bool kSecond, typename T>
+int bwd_grid_for(int64_t rows, int c) {
+  return with_groups<T>(c, [&](auto grp) {
+    using G = decltype(grp);
+    return bwd_grid<kSecond, T, G::LANES, G::VECS>(rows);
+  });
+}
+
+// Rows of the [blocks][C] f32 scratch that A's backward (kSecond false) or
+// its second derivative (true) takes for `rows` rows of C channels in
+// `dtype` (its grid), or -1 for a width or dtype it does not take.
+template <bool kSecond>
+int bwd_partials(int64_t rows, int c, int dtype) {
+  if (c <= 0 || c > kMaxC || c % 8 != 0) return -1;
+  if (dtype == pgx::kFloat32) return bwd_grid_for<kSecond, float>(rows, c);
+  if (dtype == pgx::kBFloat16)
+    return bwd_grid_for<kSecond, __nv_bfloat16>(rows, c);
+  return -1;
 }
 
 template <typename T>
@@ -499,7 +514,7 @@ int launch_bwd(const void* y, const void* b, const void* g, void* dy,
                cudaStream_t stream) {
   return with_groups<T>(c, [&](auto grp) {
     using G = decltype(grp);
-    const int blocks = bwd_grid<T, G::LANES, G::VECS>(rows);
+    const int blocks = bwd_grid<false, T, G::LANES, G::VECS>(rows);
     if (blocks == 0) return (int)cudaSuccess;
     rownorm_bwd_kernel<T, G::LANES, G::VECS><<<blocks, kThreads, 0, stream>>>(
         (const T*)y, (const T*)b, (const T*)g, (T*)dy, db_partial, rows, c,
@@ -517,16 +532,19 @@ int launch_bwd2(const void* y, const void* b, const void* g, const void* ddy,
                 const float* ddb, void* d_y, void* d_g, float* db_partial,
                 int64_t rows, int c, float slope, float eps,
                 cudaStream_t stream) {
-  const int blocks = bwd_blocks(rows);
-  if (blocks == 0) return (int)cudaSuccess;
-  rownorm_bwd2_kernel<T><<<blocks, 32 * kRowsPerBlock, 0, stream>>>(
-      (const T*)y, (const T*)b, (const T*)g, (const T*)ddy, ddb, (T*)d_y,
-      (T*)d_g, db_partial, rows, c, slope, eps);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || db_partial == nullptr) return (int)e;
-  rownorm_bwd_colsum_kernel<<<(c + 31) / 32, dim3(32, 32), 0, stream>>>(
-      db_partial, blocks, c);
-  return (int)cudaGetLastError();
+  return with_groups<T>(c, [&](auto grp) {
+    using G = decltype(grp);
+    const int blocks = bwd_grid<true, T, G::LANES, G::VECS>(rows);
+    if (blocks == 0) return (int)cudaSuccess;
+    rownorm_bwd2_kernel<T, G::LANES, G::VECS><<<blocks, kThreads, 0, stream>>>(
+        (const T*)y, (const T*)b, (const T*)g, (const T*)ddy, ddb, (T*)d_y,
+        (T*)d_g, db_partial, rows, c, slope, eps);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess || db_partial == nullptr) return (int)e;
+    rownorm_bwd_colsum_kernel<<<(c + 31) / 32, dim3(32, 32), 0, stream>>>(
+        db_partial, blocks, c);
+    return (int)cudaGetLastError();
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -660,7 +678,7 @@ extern "C" int pgx_bias_pixelnorm_lrelu_jvp(const void* y, const void* b,
 // Kernel A's second derivative for the cotangents ddy (y's dtype, y's
 // shape) and ddb (f32, C values) of its backward's outputs: d_y and d_g (y's
 // dtype and shape) and d_b (f32, C values, left in row 0 of db_partial, a
-// [pgx_bias_pixelnorm_lrelu_bwd_blocks(rows)][C] f32 scratch).  y, b, g,
+// [pgx_bias_pixelnorm_lrelu_bwd2_partials(rows, c, dtype)][C] f32 scratch).  y, b, g,
 // ddy share one dtype.  ddy or ddb may be null (not both); any of d_y, d_g
 // and db_partial may be null, and is then not computed.
 extern "C" int pgx_bias_pixelnorm_lrelu_bwd2(
@@ -682,9 +700,11 @@ extern "C" int pgx_bias_pixelnorm_lrelu_bwd2(
 }
 
 // Rows of the [blocks][C] f32 scratch that pgx_bias_pixelnorm_lrelu_bwd2
-// takes for `rows` rows.
-extern "C" int pgx_bias_pixelnorm_lrelu_bwd_blocks(int64_t rows) {
-  return bwd_blocks(rows);
+// takes for `rows` rows of C channels in `dtype` (its grid), or -1 for a
+// width or dtype it does not take.
+extern "C" int pgx_bias_pixelnorm_lrelu_bwd2_partials(int64_t rows, int c,
+                                                      int dtype) {
+  return bwd_partials<true>(rows, c, dtype);
 }
 
 // Rows of the [blocks][C] f32 scratch that pgx_bias_pixelnorm_lrelu_bwd
@@ -692,10 +712,7 @@ extern "C" int pgx_bias_pixelnorm_lrelu_bwd_blocks(int64_t rows) {
 // width or dtype it does not take.
 extern "C" int pgx_bias_pixelnorm_lrelu_bwd_partials(int64_t rows, int c,
                                                      int dtype) {
-  if (c <= 0 || c > kMaxC || c % 8 != 0) return -1;
-  if (dtype == pgx::kFloat32) return bwd_partials<float>(rows, c);
-  if (dtype == pgx::kBFloat16) return bwd_partials<__nv_bfloat16>(rows, c);
-  return -1;
+  return bwd_partials<false>(rows, c, dtype);
 }
 
 // Kernel A's backward for the cotangent g of its output: dy (y's dtype, y's

@@ -313,10 +313,12 @@ def _launch_second_order(y, b, g, ddy, ddb, slope, eps, needs):
     d_g = torch.empty_like(y) if needs[2] else None
     part = None
     if needs[1]:
-        # f32 column sums of each block; the kernel leaves d_b in row 0
-        part = torch.empty(
-            (max(lib.pgx_bias_pixelnorm_lrelu_bwd_blocks(rows), 1), c),
-            dtype=torch.float32, device=y.device)
+        # f32 column sums of each block of the kernel's grid (sized to the
+        # card, the width and the dtype); the kernel leaves d_b in row 0
+        blocks = lib.pgx_bias_pixelnorm_lrelu_bwd2_partials(
+            rows, c, build.dtype_code(y))
+        part = torch.empty((max(blocks, 1), c), dtype=torch.float32,
+                           device=y.device)
         if rows == 0:
             part.zero_()
 

@@ -118,6 +118,26 @@ def test_imgfilter_matches_pgx(dp):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("dp", [None, 0.6])
+@pytest.mark.parametrize("size", [4, 8, 16])
+def test_imgfilter_below_its_pad_matches_pgx(size, dp):
+    """Images smaller than the filter bank's pad of 21: the pad reflects
+    again and again, as pgx's ``jnp.pad(..., mode="reflect")`` does."""
+    x = _images(b=2, h=size, w=size, seed=size)
+    got, want, _ = _both({"imgfilter": 1}, x, p=1.0, dp=dp)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n", range(1, 41))
+def test_reflect_index_matches_numpy_pad(n):
+    """The folded index against numpy's reflect pad, pads 1 to 21."""
+    axis = np.arange(n)
+    for pad in range(1, 22):
+        got = tpipe._reflect_index(n, pad, "cpu").numpy()
+        np.testing.assert_array_equal(got, np.pad(axis, pad, mode="reflect"),
+                                      err_msg=f"pad {pad}")
+
+
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("impl", ["shear", "gather"])
 def test_bgc_policy_matches_pgx(impl, dtype):

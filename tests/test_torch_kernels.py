@@ -364,15 +364,17 @@ RECIPE_512_SHAPES = [(1, 4, 4, 512), (1, 8, 8, 512), (1, 16, 16, 512),
                      (1, 256, 256, 64), (1, 512, 512, 32)]
 
 
-def _a_shape(shape, dtype):
-    """``shape`` with a "past_stride" row count resolved on this card."""
+def _a_shape(shape, dtype, grid="pgx_bias_pixelnorm_lrelu_bwd_partials"):
+    """``shape`` with a "past_stride" row count resolved on this card: one
+    stride of the grid that the library's entry ``grid`` gives (A's
+    backward's or its second derivative's) and 257 rows more."""
     if shape[0] != "past_stride":
         return shape
     from pgx_torch.ops.kernels import build
     c = shape[-1]
     nvec = c * torch.finfo(dtype).bits // 128
     lanes = min(32, 1 << (nvec - 1).bit_length())
-    blocks = build.load_library().pgx_bias_pixelnorm_lrelu_bwd_partials(
+    blocks = getattr(build.load_library(), grid)(
         1 << 40, c, build.dtype_code(torch.empty(0, dtype=dtype)))
     assert blocks > 0
     return (blocks * (256 // lanes) + 257,) + tuple(shape[1:])
@@ -595,18 +597,29 @@ def test_gpu_kernel_a_second_derivative_matches_plain(cuda):
         assert (got - want).abs().max().item() <= 1e-4 * scale
 
 
+# The second derivative's row mappings: the 128px iteration's widths (128,
+# 256, 512), narrow and odd widths (lane groups of 2 to 8 lanes) at row
+# counts that fill a block in part, one stride of its grid and 257 rows more
+# at 32 and 64 channels, and the 512px recipe's layers at batch 1.
+A2_SHAPES = [(2, 16, 16, 128), (2, 16, 16, 256), (4, 8, 8, 512),
+             (2, 17, 3, 40), (9000, 1, 1, 8), (2, 17, 3, 16),
+             (3, 17, 5, 32), (1, 1, 1001, 64), (7, 1, 37, 24),
+             ("past_stride", 1, 1, 32), ("past_stride", 1, 1, 64)] \
+    + RECIPE_512_SHAPES
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 16, 16, 128), (2, 16, 16, 256),
-                                   (4, 8, 8, 512), (2, 17, 3, 40),
-                                   (9000, 1, 1, 8)])
+@pytest.mark.parametrize("shape", A2_SHAPES)
 def test_gpu_kernel_a_second_order_kernel_matches_plain(cuda, dtype, shape):
     """The second-order kernel against its plain closed form at the
-    channel counts of the iteration's calls (128, 256, 512) and at odd row
-    counts: f32 to 1e-5 of each output's largest entry, bf16 to two bf16
-    steps (d_b, an f32 sum in another order, to 1e-5 relative), for
-    cotangents on dy, db and both and each pattern of needed outputs."""
+    channel counts of the iteration's calls (128, 256, 512), at the narrow
+    and odd widths of its lane groups and at odd row counts: f32 to 1e-5
+    of each output's largest entry, bf16 to two bf16 steps (d_b, an f32 sum
+    in another order, to 1e-5 relative), for cotangents on dy, db and both
+    and each pattern of needed outputs."""
     from pgx_torch.ops.kernels import epilogue as E
+    shape = _a_shape(shape, dtype, "pgx_bias_pixelnorm_lrelu_bwd2_partials")
     y = _on(_rand(shape, 1), cuda, dtype)
     b = _on(_rand(shape[-1:], 2, 0.3), cuda, torch.float32)
     g = _on(_rand(shape, 3), cuda, dtype)
@@ -635,6 +648,31 @@ def test_gpu_kernel_a_second_order_kernel_matches_plain(cuda, dtype, shape):
                            np.floor(np.log2(max(scale, 1e-3))) - 7))
                 err = (x.float() - w.float()).abs().max().item()
                 assert err <= tol, (name, ddy is None, ddb is None, err, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 17, 5, 32), ("past_stride", 1, 1, 32),
+                                   ("past_stride", 1, 1, 64),
+                                   (2, 16, 16, 128), (4, 8, 8, 512)])
+def test_gpu_kernel_a_second_order_is_repeatable(cuda, dtype, shape):
+    """Two launches of the second-order kernel on the same inputs give
+    d_y, d_g and d_b bit for bit: d_b's column sums run in a fixed order on
+    a grid that depends only on the card, the width and the dtype."""
+    from pgx_torch.ops.kernels import epilogue as E
+    shape = _a_shape(shape, dtype, "pgx_bias_pixelnorm_lrelu_bwd2_partials")
+    y = _on(_rand(shape, 1), cuda, dtype)
+    b = _on(_rand(shape[-1:], 2, 0.3), cuda, torch.float32)
+    g = _on(_rand(shape, 3), cuda, dtype)
+    ddy = _on(_rand(shape, 4), cuda, dtype)
+    ddb = _on(_rand(shape[-1:], 5), cuda, torch.float32)
+    with torch.no_grad():
+        first, again = (E._BiasPixelNormLreluGrad2.apply(
+            y, b, g, ddy, ddb, 0.2, 1e-8, (True, True, True))
+            for _ in range(2))
+    torch.cuda.synchronize()
+    for x, w in zip(first, again):
+        assert torch.equal(x, w)
 
 
 @pytest.mark.gpu

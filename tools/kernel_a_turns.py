@@ -17,7 +17,9 @@ this, other, each import the package and ``chip_smoke.py`` of their tree
 
 - each recorded shape's launch on the device (``chip_smoke.graph_ms``: 20
   launches captured in a CUDA graph and replayed, after one untimed graph),
-  summed per path and kernel over the recorded launches;
+  summed per path and kernel over the recorded launches, and for the
+  second derivative also per shape (``per_shape``, keyed ``NxHxWxC``) and
+  in f32 back to back (``f32_b2b_ms``: CUDA events, median of 10);
 - one 128px training iteration (device ms: CUDA events, median of 7; host
   wall ms: synchronized, median of 5);
 - one ``gp_every`` group of the 512px recipe with the jvp penalty, per
@@ -108,10 +110,11 @@ def child(root: str, shapes_path: str) -> dict:
                 cs.A_BWD: lambda: epilogue._launch_backward(
                     y, b, g, slope, 1e-8)}[name]
 
-    def second_launcher(shape, slope, has_ddy, has_ddb, needs):
-        y, g = rand(shape), rand(shape)
+    def second_launcher(shape, slope, has_ddy, has_ddb, needs,
+                        dtype=torch.bfloat16):
+        y, g = rand(shape, dtype), rand(shape, dtype)
         b = rand(shape[-1:], torch.float32, 0.1)
-        ddy = rand(shape) if has_ddy else None
+        ddy = rand(shape, dtype) if has_ddy else None
         ddb = rand(shape[-1:], torch.float32) if has_ddb else None
         return lambda: epilogue._launch_second_order(
             y, b, g, ddy, ddb, slope, 1e-8, tuple(needs))
@@ -129,13 +132,22 @@ def child(root: str, shapes_path: str) -> dict:
             agg["launches"] += n
             agg["device_ms"] += n * ms
     for path, calls in rec["second"].items():
-        agg = kernels[path].setdefault(cs.A_BWD2, {"launches": 0,
-                                                   "device_ms": 0.0})
+        agg = kernels[path].setdefault(cs.A_BWD2, {
+            "launches": 0, "device_ms": 0.0, "f32_b2b_ms": 0.0,
+            "per_shape": {}})
         for key, n in collections.Counter(
                 json.dumps(c) for c in calls).items():
-            agg["launches"] += n
-            agg["device_ms"] += n * device_ms(
-                second_launcher(*json.loads(key)))
+            call = json.loads(key)
+            ms = device_ms(second_launcher(*call))
+            with torch.inference_mode():
+                agg["f32_b2b_ms"] += n * cs.cuda_ms(torch, second_launcher(
+                    *call, dtype=torch.float32))
+            row = agg["per_shape"].setdefault(
+                "x".join(map(str, call[0])), {"launches": 0,
+                                              "device_ms": 0.0})
+            for a in (agg, row):
+                a["launches"] += n
+                a["device_ms"] += n * ms
 
     steps = {}
     cfg, dcfg, _, _ = cs.flagship(torch)
