@@ -87,7 +87,31 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    64px and at 128px) with any RuntimeWarning made an error: finite
    in-training entries in fid_score.json and fid_score_meta.json, each
    tick's seconds beside the log windows'.
-7. train_512_recipe — the 512px production recipe at full width
+7. cli     — the remaining entry points of pgx_torch.cli, each in this
+   process on the card with launch counts from 0 around it and one line
+   (seconds, launches, the check's result), in temporary directories the
+   phase deletes.  Each run's launches must equal what its configs
+   predict, and every kernel call it makes is recorded where it launches
+   (the records must account for every launch) and held against its
+   plain version at that shape in bf16 and f32 at the standing
+   tolerances, unless an earlier phase of the run held the same call;
+   each line carries the errors.  cli.generate on the full-width flagship
+   as a bf16 trial (--per-class 10: A 2, B 1, C 9 a batch of 50), its
+   images against the same z through the plain versions (the serve
+   phase's tolerance); cli.grow_checkpoint from that trial to the 512px
+   recipe's widths (512,...,64,32, max_step 8), both equivalence checks
+   passed at step 6 (three G and two D forwards); cli.profile_step at
+   128px (batch 32) and at 512px with --gp-mode jvp (batch 8), launches
+   per iteration as calls_per_iteration gives for its TrainConfig, a trace
+   that names kernels A and C, ms per step over 10 timed steps with the
+   least, median and largest, then each config again with its launches
+   recorded; cli.augmentation_demo at 128px (F twice per p-row); each of
+   the seven family trainers at its default widths on synthetic data, 4-6
+   iterations over two stages, finite CSV rows, launches as
+   calls_per_iteration at each iteration's step plus one generator
+   forward per sample grid; cli.create_gif over one trainer's samples;
+   cli.prepare_data square and facecrop on synthetic faces.
+8. train_512_recipe — the 512px production recipe at full width
    (conditional_correct_grown(8, z_dim=512, channel=512), bf16, batch 8,
    ADA with the controller and the shear warp, gp_every 4, fused_g):
    kernel A's tangent (bias_pixelnorm_lrelu_jvp) at every call of one jvp
@@ -114,7 +138,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    kernel C's residual-emitting entry at its launches of the same
    iteration, in bf16 and f32, against its operations bound and cuDNN's
    conv + bias, summed and per shape.
-8. eval    — at the flagship's full width: the device preprocess (PIL's
+9. eval    — at the flagship's full width: the device preprocess (PIL's
    bilinear fixed point as torch integer ops, the float chain by lookup)
    against the numpy path, bytes and floats equal, at 32px, 128px and
    grey; the card's f32 Inception features against the CPU's (1e-4 of the
@@ -134,7 +158,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    6), in bf16 and f32; G's sampling per batch;
    ``pgx_torch.cli.fid_selftest`` on random weights (exit 2, then
    --allow-unverified).
-9. card    — nvidia-smi's name and power limit.
+10. card   — nvidia-smi's name and power limit.
 
 Every bf16 kernel row of phase 2 also carries the kernel's device time
 from a CUDA graph (``device_ms``), beside the back-to-back time (``ms``).
@@ -203,6 +227,10 @@ SOURCES = {
 }
 PER_FORWARD = {A: 2, B: 1, C: 9}
 DEVICE = "cuda"           # every phase runs on the card
+# every recorded call a phase has held against its plain version in this
+# run: kernel_phase's and fde_phase's call tuples, (A_BWD2, *call) for
+# second_order_phase's; the cli phase holds only calls not in it yet
+HELD = set()
 SERVE_BATCH = 64
 TRAIN_BATCH = 32
 TRAIN_STEP = 6            # 128px
@@ -408,6 +436,7 @@ def kernel_phase(torch, calls, per: str, reps: int = 10):
 
     per_kernel = {}
     for (name, shape, wshapes, opts_s), mult in uniq.items():
+        HELD.add((name, shape, wshapes, opts_s))
         opts = json.loads(opts_s)
         for dt_name in ("bfloat16", "float32"):
             dt = getattr(torch, dt_name)
@@ -478,13 +507,19 @@ def kernel_phase(torch, calls, per: str, reps: int = 10):
                             f"{name} {shape} {dt_name}: db max rel err "
                             f"{db_err} > 1e-5")
                 if name == C_R:
-                    (got, got_r), (want, want_r) = got, want
-                    # r = 1/rms: compared relatively.  In bf16 the plain
-                    # version takes its statistics from a conv output
-                    # already rounded to bf16 (2^-9 relative per term)
-                    r_tol = 4e-3 if dt_name == "bfloat16" else 1e-4
-                    r_err = ((got_r - want_r.float()).abs()
-                             / want_r.float()).max().item()
+                    (got, got_r), (want, _) = got, want
+                    # r = 1/rms of the f32 accumulator plus bias: compared
+                    # relatively with the plain version's statistics in
+                    # f32 on the inputs as the kernel takes them (x, and
+                    # w and b in x's dtype).  The bf16 plain version's own
+                    # r comes from a conv output rounded twice to bf16
+                    # (conv, then + bias): at 8 output channels that r is
+                    # itself 5e-3 off the f32 statistics
+                    want_r = K.conv3x3_epilogue_ref(
+                        x.float(), w.to(dt).float(), b.to(dt).float(),
+                        return_r=True, slope=slope)[1]
+                    r_tol = 1e-4
+                    r_err = ((got_r - want_r).abs() / want_r).max().item()
                     require(got_r.shape == shape[:3] + (1,)
                             and got_r.dtype == torch.float32,
                             f"{name} {shape} {dt_name}: r shape/dtype")
@@ -927,7 +962,16 @@ def g_calls_per_forward(cfg, step: int) -> dict:
     return counts
 
 
-def calls_per_iteration(gcfg, dcfg, step: int, warp=None) -> dict:
+def d_calls_per_forward(dcfg, step: int) -> int:
+    """Kernel A calls of one discriminator forward: two convs on the 4x4
+    block and on every stage of double blocks, one on a single block, each
+    followed by A (D's epilogue pixel-normalizes; kernel C is G's)."""
+    return sum(2 if (k == 0 or dcfg.block_type == "double") else 1
+               for k in range(dcfg.entry_stage(step) + 1))
+
+
+def calls_per_iteration(gcfg, dcfg, step: int, warp=None,
+                        gp_mode: str = "reverse") -> dict:
     """Kernel launches of one training iteration, from the configs: four
     discriminator forwards (real, fake, x_hat; the G step's) of two convs
     per stage, each conv followed by kernel A, never kernel C; two
@@ -946,13 +990,20 @@ def calls_per_iteration(gcfg, dcfg, step: int, warp=None) -> dict:
     so runs A's backward again for every A of the x_hat forward but the
     last, whose output reaches the score through linear layers only
     (d_convs - 1).  That outer pass runs A's second derivative once for
-    every A of the x_hat forward (d_convs)."""
+    every A of the x_hat forward (d_convs).
+
+    With ``gp_mode='jvp'`` the penalty runs in place of the x_hat forward
+    and its outer pass: the frozen inner forward and its backward (n A, n
+    backwards), the dual forward's primal (n A) with n tangents, and in the
+    reverse pass over the tangents n second derivatives, n backwards for
+    the tangents' transposes and n for the primal chain (n = d_convs, the
+    A calls of one D forward)."""
     g = g_calls_per_forward(gcfg, step)
-    d_convs = sum(2 if (k == 0 or dcfg.block_type == "double") else 1
-                  for k in range(dcfg.entry_stage(step) + 1))
-    return {A: 4 * d_convs + 2 * g[A],
-            A_BWD: 4 * d_convs + g[A] + d_convs - 1, A_BWD2: d_convs,
-            A_JVP: 0, B: 2 * g[B], C: g[C], C_R: g[C],
+    n = d_calls_per_forward(dcfg, step)
+    jvp = gp_mode == "jvp"
+    return {A: (5 if jvp else 4) * n + 2 * g[A],
+            A_BWD: (6 * n if jvp else 5 * n - 1) + g[A], A_BWD2: n,
+            A_JVP: n if jvp else 0, B: 2 * g[B], C: g[C], C_R: g[C],
             F_: 8 if warp == "shear" else 0,
             D_: 8 if warp == "gather" else 0, E_: 0}
 
@@ -1152,27 +1203,33 @@ def new_train_state(gcfg, dcfg, dtype: str):
     return g, d, tc, init_train_state(g, d, tc, seed=0, device=DEVICE)
 
 
+@contextlib.contextmanager
+def recording_second(second: list):
+    """Append every launch of kernel A's second derivative (the gradient
+    penalty's outer pass through A's backward, or the reverse pass over a
+    jvp penalty's tangents) to ``second`` as (shape, slope, ddy given, ddb
+    given, the outputs it needs), recorded where it launches."""
+    from pgx_torch.ops.kernels import epilogue
+    inner = epilogue._launch_second_order
+
+    def rec_second(y, b, g, ddy, ddb, slope, eps, needs):
+        second.append((tuple(y.shape), slope, ddy is not None,
+                       ddb is not None, tuple(needs)))
+        return inner(y, b, g, ddy, ddb, slope, eps, needs)
+
+    with mock.patch.object(epilogue, "_launch_second_order", rec_second):
+        yield
+
+
 def record_train_calls(torch, gcfg, dcfg):
     """The kernel calls of one bf16 training iteration at batch 32, and
-    every call of kernel A's second derivative (the gradient penalty's
-    outer pass through A's backward) as (shape, slope, ddy given, ddb
-    given, the outputs it needs)."""
-    from pgx_torch.ops.kernels import epilogue
+    every call of kernel A's second derivative (``recording_second``)."""
     from pgx_torch.train import make_train_step
     g, d, tc, state = new_train_state(gcfg, dcfg, "bfloat16")
     step = make_train_step(g, d, tc, step=TRAIN_STEP, fading=False)
     real, labels, z, eps = train_batch(torch, g, seed=100)
     second = []
-    inner = epilogue._BiasPixelNormLreluGrad.backward
-
-    def rec_second(ctx, ddy, ddb):
-        second.append((tuple(ctx.saved_tensors[0].shape), ctx.slope,
-                       ddy is not None, ddb is not None,
-                       tuple(ctx.needs_input_grad[:3])))
-        return inner(ctx, ddy, ddb)
-
-    with mock.patch.object(epilogue._BiasPixelNormLreluGrad, "backward",
-                           staticmethod(rec_second)):
+    with recording_second(second):
         calls = record_calls(
             torch, lambda: step(state, real, labels, 1.0, z=z, eps=eps))
     want = calls_per_iteration(g, d, TRAIN_STEP)
@@ -1206,6 +1263,7 @@ def second_order_phase(torch, second, reps: int = 5):
                                                    "max_rel_err": 0.0},
            "per_shape": []}
     for (shape, slope, has_ddy, has_ddb, needs), mult in uniq.items():
+        HELD.add((A_BWD2, shape, slope, has_ddy, has_ddb, needs))
         row = {"shape": list(shape), "calls": mult, "ddy": has_ddy,
                "ddb": has_ddb, "needs": list(needs)}
         c = shape[-1]
@@ -1801,6 +1859,7 @@ def fde_phase(torch, calls, per: str, reps: int = 5, sums=None):
         uniq[c] = uniq.get(c, 0) + 1
     sums = {} if sums is None else sums
     for (name, shape, opts_s), mult in uniq.items():
+        HELD.add((name, shape, opts_s))
         opts = json.loads(opts_s)
         for dt_name in ("bfloat16", "float32"):
             dt = getattr(torch, dt_name)
@@ -2540,7 +2599,485 @@ def train_loop_phase(torch, bare: dict):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the 512px production recipe (gp_mode='jvp', steps_per_call)
+# phase 7: the remaining entry points of pgx_torch.cli
+# ---------------------------------------------------------------------------
+
+CLI_GROW_ARGS = ["--target-channels", "512,512,512,512,256,128,64,32",
+                 "--target-max-step", "8", "--check-step", "6"]
+CLI_PER_CLASS = 10        # generate: 10 classes x 10 at batch 50, 2 batches
+# profile_step: (its flags, the step, the penalty mode of its TrainConfig);
+# 10 traced steps, then 10 timed ones, each step's time read
+CLI_PROFILE_RUNS = ((["--step", "6", "--steps", "10"], 6, "reverse"),
+                    (["--step", "8", "--gp-mode", "jvp", "--batch-size", "8",
+                      "--steps", "10"], 8, "jvp"))
+# the same configs once more, one traced and one timed step, with every
+# launch recorded (the timed run above carries no recording wrappers)
+CLI_PROFILE_RECORDED = ["--steps", "1"]
+CLI_AUG_ROWS = 5
+CLI_AUG_ARGS = ["--synthetic", "--rows", str(CLI_AUG_ROWS), "--size", "128"]
+# every trainer at its default widths, 4-6 iterations over two stages, the
+# CSV every iteration, samples every 2 iterations; (flags, iterations)
+CLI_TRAINERS = {
+    "train": (["--total-iter", "6", "--init-step", "2"], 6),
+    "mnist_train": (["--total-iter", "6", "--init-step", "2"], 6),
+    "cifar_train": (["--total-iter", "6", "--init-step", "2"], 6),
+    "proper_cifar_train": (["--images-per-mini-step", "4", "--init-step",
+                            "3"], 4),
+    "conditional_cifar10_wgan_train": (["--total-iter", "6", "--init-step",
+                                        "2"], 6),
+    "conditional_mnist_wgan_train": (["--total-iter", "6", "--init-step",
+                                      "2"], 6),
+    "conditional_proper_wikiart": (["--images-per-mini-step", "4",
+                                    "--init-step", "5"], 4),
+}
+CLI_SAMPLE_EVERY = 2
+CLI_TRAIN_ARGS = ["--synthetic", "--log-every", "1", "--sample-every",
+                  str(CLI_SAMPLE_EVERY), "--checkpoint-every", "1000"]
+CLI_GIF_TRIAL = "cifar_train"     # a 5 x 10 grid, create_gif's default
+CLI_HOLD_REPS = 3         # timing repetitions where the cli phase holds
+
+
+def counted_run(torch, fn):
+    """One main path: ``fn()`` with launch counts from 0 around it; its
+    result, the counts and its seconds."""
+    from pgx_torch.ops import kernels as K
+    # ---- the main path: counts from 0 around it ----
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = K.launch_counts()
+    # -------------------------------------------------
+    return out, launches, seconds
+
+
+def recorded_run(torch, fn):
+    """``counted_run`` with every launch recorded where it is made: A, B,
+    C, C emit-r and A's backward (``record_calls``), A's second derivative
+    (``recording_second``), A's tangent as (shape, db given), F, D and E
+    (``record_launches``).  The records must account for every launch the
+    counts show.  Returns the result, the launches, the seconds and the
+    four lists of calls."""
+    from pgx_torch.ops.kernels import epilogue
+    box, second, tangent = {}, [], []
+    inner_jvp = epilogue._launch_jvp
+
+    def rec_jvp(y, b, dy, db, slope, eps):
+        tangent.append((tuple(y.shape), db is not None))
+        return inner_jvp(y, b, dy, db, slope, eps)
+
+    def run():
+        box["out"] = fn()
+
+    def recorded():
+        with recording_second(second), mock.patch.object(
+                epilogue, "_launch_jvp", rec_jvp):
+            box["calls"] = record_calls(torch, lambda: box.__setitem__(
+                "fde", record_launches(torch, run)))
+
+    _, launches, seconds = counted_run(torch, recorded)
+    got = {**count_calls(box["calls"]), **count_calls(box["fde"]),
+           A_BWD2: len(second), A_JVP: len(tangent)}
+    rec = {k: got.get(k, 0) for k in launches}
+    require(rec == launches, f"recorded calls {rec} != launches {launches}")
+    return (box["out"], launches, seconds,
+            (box["calls"], second, tangent, box["fde"]))
+
+
+def hold(torch, per: str, recorded) -> dict:
+    """Hold every recorded call that no phase of this run has held yet
+    against its plain version, in bf16 and f32 at the standing tolerances
+    (``kernel_phase``, ``second_order_phase``, ``tangent_kernel_phase``,
+    ``fde_phase``; each fails the run on a disagreement).  Per kernel: its
+    distinct calls, how many of them an earlier phase held, and the
+    largest error held here with its tolerance, by dtype."""
+    calls, second, tangent, fde = recorded
+    keyed = ({(c[0], c) for c in calls + fde}
+             | {(A_BWD2, (A_BWD2, *c)) for c in second}
+             | {(A_JVP, (A_JVP, *c)) for c in tangent})
+    out = {}
+    for name, key in sorted(keyed, key=repr):
+        row = out.setdefault(name, {"distinct_calls": 0, "held_earlier": 0})
+        row["distinct_calls"] += 1
+        row["held_earlier"] += key in HELD
+    new = [c for c in calls if c not in HELD]
+    new_second = [c for c in second if (A_BWD2, *c) not in HELD]
+    new_tangent = [c for c in tangent if (A_JVP, *c) not in HELD]
+    new_fde = [c for c in fde if c not in HELD]
+    sums = kernel_phase(torch, new, per, reps=CLI_HOLD_REPS) if new else {}
+    if new_fde:
+        fde_phase(torch, new_fde, per, reps=CLI_HOLD_REPS, sums=sums)
+    for (name, dt), agg in sums.items():
+        if name in out:           # F's per-axis sums are in F's
+            out[name][dt] = {"max_abs_err": agg["err"], "tol": agg["tol"]}
+    if new_second:
+        so = second_order_phase(torch, new_second, reps=CLI_HOLD_REPS)
+        out[A_BWD2]["bfloat16"] = {"max_abs_err": so["max_abs_err"],
+                                   "tol": so["tol"]}
+        out[A_BWD2]["float32"] = {"max_rel_err": so["f32"]["max_rel_err"],
+                                  "rel_tol": 1e-5}
+    if new_tangent:
+        tg = tangent_kernel_phase(torch, new_tangent, reps=CLI_HOLD_REPS)
+        out[A_JVP]["bfloat16"] = {"max_abs_err": tg["max_abs_err"],
+                                  "tol": tg["tol"]}
+        out[A_JVP]["float32"] = {"max_rel_err": tg["f32"]["max_rel_err"],
+                                 "rel_tol": 1e-5}
+    return out
+
+
+def add_counts(total: dict, counts: dict, times: int = 1) -> dict:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + times * v
+    return total
+
+
+def trainer_launches(trial: str, iterations: int) -> dict:
+    """What a trainer's run launches, from its trial's configs and
+    schedule: ``calls_per_iteration`` at each iteration's step, and one
+    generator forward (``g_calls_per_forward``) for each sample grid (the
+    loop samples after its first iteration and every CLI_SAMPLE_EVERY)."""
+    from pgx_torch import checkpoint as ckpt
+    from pgx_torch.train.schedule import schedule_from_dict
+    cfg = ckpt.load_config(trial)
+    gcfg, dcfg, _ = ckpt.configs_from_dict(cfg)
+    schedule = schedule_from_dict(cfg["schedule"])
+    want = {k: 0 for k in SOURCES}
+    for i in range(iterations):
+        step = schedule.state_at(i).step
+        add_counts(want, calls_per_iteration(gcfg, dcfg, step))
+        if i == 0 or (i + 1) % CLI_SAMPLE_EVERY == 0:
+            add_counts(want, g_calls_per_forward(gcfg, step))
+    return want
+
+
+def synthetic_face(h: int, w: int, cx: int, cy: int, s: int) -> "np.ndarray":
+    """A shaded frontal face (oval, brows, eyes, nose, mouth) at (cx, cy),
+    about ``s`` pixels across, on a grey ground: RGB uint8."""
+    import numpy as np
+    yy, xx = np.mgrid[0:h, 0:w].astype(float)
+    img = np.full((h, w), 120.0)
+    r2 = ((yy - cy) / (0.52 * s)) ** 2 + ((xx - cx) / (0.40 * s)) ** 2
+    img[r2 <= 1] = 190 - 40 * r2[r2 <= 1]
+    for ex in (-0.17 * s, 0.17 * s):
+        img[((yy - (cy - 0.12 * s)) / (0.05 * s)) ** 2
+            + ((xx - (cx + ex)) / (0.08 * s)) ** 2 <= 1] = 55
+        img[((yy - (cy - 0.22 * s)) / (0.025 * s)) ** 2
+            + ((xx - (cx + ex)) / (0.10 * s)) ** 2 <= 1] = 80
+    img[(np.abs(xx - cx) <= 0.035 * s) & (yy > cy - 0.1 * s)
+        & (yy < cy + 0.12 * s)] = 140
+    img[(np.abs(yy - (cy + 0.28 * s)) <= 0.04 * s)
+        & (np.abs(xx - cx) <= 0.14 * s)] = 70
+    return np.repeat(img[..., None], 3, -1).astype(np.uint8)
+
+
+def cli_generate(torch, trial: str, tmp: str, cfg) -> dict:
+    """cli/generate on the bf16 flagship trial, --per-class 10 (2 batches
+    of 50): A 2, B 1, C 9 a batch; its images against the same z and labels
+    through the plain versions on the card, to the serve phase's bf16
+    tolerance; every kernel call held at its shape."""
+    import numpy as np
+    from pgx_torch import checkpoint as ckpt
+    from pgx_torch.cli import generate
+    from pgx_torch.models.generator import Generator
+    from pgx_torch.train.schedule import schedule_from_dict
+    from pgx_torch.train.wgan import make_eval_generate
+    npz = os.path.join(tmp, "generated.npz")
+    argv = ["--trial", trial, "--per-class", str(CLI_PER_CLASS), "--npz",
+            npz, "--out", os.path.join(tmp, "generated.png"), "--device",
+            DEVICE]
+    _, launches, seconds, recorded = recorded_run(
+        torch, lambda: generate.main(argv))
+    n = cfg.num_classes * CLI_PER_CLASS
+    batches = -(-n // 50)
+    want = {k: 0 for k in launches}
+    want.update({A: 2 * batches, B: batches, C: 9 * batches})
+    require(launches == want, f"generate launches {launches} != {want}")
+    with np.load(npz) as data:
+        images, z, labels = data["images"], data["z"], data["labels"]
+    require(images.shape == (n, 128, 128, 3) and np.isfinite(images).all(),
+            f"generate: images {images.shape}")
+    _, params, _, st = ckpt.load_generator_state(
+        trial, schedule_from_dict(ckpt.load_config(trial)["schedule"]))
+    gen = Generator.from_jax_params(cfg, params, DEVICE)
+    fn = make_eval_generate(cfg, step=st.step, fading=st.fading)
+    with plain_versions():
+        want_img = torch.cat([fn(gen, torch.from_numpy(z[lo:lo + 50]).to(
+            DEVICE), torch.from_numpy(labels[lo:lo + 50]).to(DEVICE),
+            st.alpha).float() for lo in range(0, n, 50)]).cpu().numpy()
+    del gen
+    err = float(np.abs(images - want_img).max())
+    scale = float(np.abs(want_img).max())
+    tol = 0.05 * scale
+    require(err <= tol, f"generate vs plain path: max abs err {err} > {tol}")
+    return {"seconds": seconds, "launches": launches, "batches": batches,
+            "check": {"max_abs_err": err, "mean_abs_err": float(
+                np.abs(images - want_img).mean()), "ref_max_abs": scale,
+                "tol": tol, "passed": True, "launches_as_predicted": True,
+                "kernels_held": hold(torch, "cli generate, batch 50",
+                                     recorded)}}
+
+
+def cli_grow(torch, trial: str, tmp: str) -> dict:
+    """cli/grow_checkpoint from the flagship trial to the 512px recipe's
+    widths: both equivalence checks (G's images, D's scores, atol 1e-5 in
+    the trial's bf16) must pass at step 6 on the card.  Launches: three
+    generator forwards at the check step (the small and the grown net, then
+    the small one's image for D) and two discriminator forwards; every
+    kernel call held at its shape."""
+    from pgx_torch import checkpoint as ckpt
+    from pgx_torch.cli import grow_checkpoint
+    out_dir = os.path.join(tmp, "grown")
+    argv = ["--trial", trial, *CLI_GROW_ARGS, "--out", out_dir,
+            "--device", DEVICE]
+    got, launches, seconds, recorded = recorded_run(
+        torch, lambda: grow_checkpoint.main(argv))
+    require(got == out_dir, f"grow_checkpoint returned {got}")
+    cfg = ckpt.load_config(out_dir)
+    target = [int(c) for c in CLI_GROW_ARGS[1].split(",")]
+    require(cfg["generator"]["channels"] == target
+            and cfg["generator"]["max_step"] == cfg["schedule"]["max_step"]
+            == int(CLI_GROW_ARGS[3]), f"grown config {cfg['generator']}")
+    g = ckpt.load_params(ckpt.latest_checkpoint(out_dir, "g"))
+    require(str(4 * 2 ** (len(target) - 1)) in g["blocks"],
+            f"grown G blocks {sorted(g['blocks'])}")
+    step = int(CLI_GROW_ARGS[5])
+    small_g, small_d, _ = ckpt.configs_from_dict(ckpt.load_config(trial))
+    big_g, big_d, _ = ckpt.configs_from_dict(cfg)
+    want = {k: 0 for k in launches}
+    for gcfg in (small_g, big_g, small_g):
+        add_counts(want, g_calls_per_forward(gcfg, step))
+    want[A] += (d_calls_per_forward(small_d, step)
+                + d_calls_per_forward(big_d, step))
+    require(launches == want,
+            f"grow_checkpoint launched {launches}, expected {want}")
+    return {"seconds": seconds, "launches": launches,
+            "check": {"equivalence_g": "passed", "equivalence_d": "passed",
+                      "check_step": step, "atol": 1e-5,
+                      "dtype": cfg["generator"]["dtype"],
+                      "launches_as_predicted": True,
+                      "kernels_held": hold(torch, "cli grow_checkpoint's "
+                                           "checks, batch 4", recorded)}}
+
+
+def cli_profile(torch, tmp: str) -> dict:
+    """cli/profile_step at 128px (batch 32) and at 512px with the jvp
+    penalty (batch 8), bf16: launches per iteration as calls_per_iteration
+    gives for its TrainConfig (at 128px the train phase's), a trace that
+    names kernels A and C, and ms per step over 10 timed steps with the
+    least, median and largest step.  Then each config once more with every
+    launch recorded, and every call held at its shape."""
+    import glob
+    from pgx_torch.cli import profile_step
+    out = {}
+    for argv, step, mode in CLI_PROFILE_RUNS:
+        trace = os.path.join(tmp, f"trace_{step}")
+        res, launches, seconds = counted_run(torch, lambda: profile_step.main(
+            argv + ["--out", trace, "--device", DEVICE]))
+        gcfg, dcfg = profile_step.flagship_configs(step, "bfloat16")
+        per = calls_per_iteration(gcfg, dcfg, step, gp_mode=mode)
+        if step == TRAIN_STEP and mode == "reverse":
+            require(per == {**per, A: 52, A_BWD: 61, A_BWD2: 12, B: 2, C: 9,
+                            C_R: 9}, f"128px iteration {per}")
+        its = res["iterations"]
+        require(launches == {k: v * its for k, v in per.items()},
+                f"profile_step --step {step}: launches {launches} != "
+                f"{its} x {per}")
+        files = glob.glob(os.path.join(trace, "*.pt.trace.json"))
+        require(len(files) == 1, f"trace files {files}")
+        with open(files[0]) as f:
+            text = f.read()
+        named = {k: name in text for k, name in (
+            (A, "rownorm_kernel"), (C, "conv3x3_wgmma_kernel"))}
+        require(all(named.values()), f"trace names {named}")
+        step_ms = res["step_ms"]
+        require(len(step_ms) == int(argv[argv.index("--steps") + 1]),
+                f"profile_step step times {step_ms}")
+        rec_res, rec_launches, _, recorded = recorded_run(
+            torch, lambda: profile_step.main(
+                argv + CLI_PROFILE_RECORDED + ["--out", trace + "_recorded",
+                                               "--device", DEVICE]),
+)
+        require(rec_launches == {k: v * rec_res["iterations"]
+                                 for k, v in per.items()},
+                f"profile_step --step {step}, recorded: {rec_launches}")
+        out[f"step{step}"] = {
+            "argv": argv, "seconds": seconds, "launches": launches,
+            "iterations": its, "launches_per_iteration": per,
+            "ms_per_step": res["ms_per_step"], "img_per_s": res["img_per_s"],
+            "step_ms": {"least": min(step_ms),
+                        "median": statistics.median(step_ms),
+                        "largest": max(step_ms), "steps": len(step_ms)},
+            "trace_bytes": os.path.getsize(files[0]),
+            "check": {"launches_match": True, "trace_names": named,
+                      "recorded_run_launches": rec_launches,
+                      "kernels_held": hold(
+                          torch, f"cli profile_step --step {step} "
+                          f"--gp-mode {mode}", recorded)}}
+    return out
+
+
+def cli_augmentation_demo(torch, tmp: str) -> dict:
+    """cli/augmentation_demo at 128px: the shear warp launches F twice per
+    p-row; every launch held at its shape."""
+    from pgx_torch.cli import augmentation_demo
+    png = os.path.join(tmp, "aug.png")
+    _, launches, seconds, recorded = recorded_run(
+        torch, lambda: augmentation_demo.main(
+            CLI_AUG_ARGS + ["--out", png, "--device", DEVICE]))
+    with open(png, "rb") as f:
+        head = f.read(24)
+    size = int(CLI_AUG_ARGS[-1])
+    wh = (int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24],
+                                                             "big"))
+    require(head[:8] == b"\x89PNG\r\n\x1a\n"
+            and wh == (5 * (size + 2) + 2, CLI_AUG_ROWS * (size + 2) + 2),
+            f"augmentation grid {wh}")
+    want = {k: 0 for k in launches}
+    want[F_] = 2 * CLI_AUG_ROWS
+    require(launches == want, f"augmentation_demo launched {launches}, "
+                              f"expected {want}")
+    return {"seconds": seconds, "launches": launches,
+            "check": {"grid": list(wh), "launches_as_predicted": True,
+                      "kernels_held": hold(torch, "cli augmentation_demo "
+                                           "at 128px, 5 images a row",
+                                           recorded)}}
+
+
+def cli_trainers(torch, tmp: str) -> dict:
+    """Every family trainer at its default widths on synthetic data, 4-6
+    iterations over two stages: finite CSV rows at every iteration, two
+    resolutions in timing.json, the samples and the final checkpoint;
+    launches as ``trainer_launches`` predicts from the trial's configs and
+    schedule; every kernel call held at its shape."""
+    import importlib
+    import math
+    out = {}
+    for name, (flags, total) in CLI_TRAINERS.items():
+        module = importlib.import_module(f"pgx_torch.cli.{name}")
+        argv = CLI_TRAIN_ARGS + flags + ["--output", os.path.join(tmp, name),
+                                         "--device", DEVICE]
+        trial, launches, seconds, recorded = recorded_run(
+            torch, lambda: module.main(argv))
+        (log,) = [n for n in os.listdir(trial) if n.startswith("train_log")]
+        with open(os.path.join(trial, log)) as f:
+            lines = f.read().splitlines()
+        rows = [[float(v) for v in line.split(",")] for line in lines[1:]]
+        require(lines[0] == "iter,g,d,grad,alpha"
+                and [int(r[0]) for r in rows] == list(range(1, total + 1))
+                and all(math.isfinite(v) for r in rows for v in r),
+                f"{name}: CSV {lines}")
+        with open(os.path.join(trial, "timing.json")) as f:
+            res = [v["resolution"] for v in json.load(f).values()]
+        require(len(set(res)) == 2 and res == sorted(res),
+                f"{name}: resolutions {res}")
+        names = set(os.listdir(os.path.join(trial, "checkpoint")))
+        require({f"{total:03d}_{k}" for k in ("g.model", "d.model",
+                                              "state.pt")} <= names,
+                f"{name}: checkpoints {sorted(names)}")
+        want = trainer_launches(trial, total)
+        require(launches == want,
+                f"{name}: launched {launches}, expected {want}")
+        out[name] = {"trial": trial, "seconds": seconds,
+                     "launches": launches, "iterations": total,
+                     "resolutions": sorted(set(res)),
+                     "samples": sorted(os.listdir(os.path.join(trial,
+                                                               "sample"))),
+                     "check": {"csv_rows": len(rows), "finite": True,
+                               "launches_as_predicted": True,
+                               "kernels_held": hold(
+                                   torch, f"cli {name}: its run", recorded)}}
+    return out
+
+
+def cli_create_gif(trial: str) -> dict:
+    """cli/create_gif over a trainer's sample grids (host only, PIL)."""
+    from PIL import Image
+    from pgx_torch.cli import create_gif
+    t0 = time.perf_counter()
+    out = create_gif.main(["--trial", trial, "--cell-size", "32"])
+    seconds = time.perf_counter() - t0
+    frames = len(os.listdir(os.path.join(trial, "sample")))
+    with Image.open(out) as im:
+        require(im.format == "GIF" and im.n_frames == frames,
+                f"gif {im.format} {im.n_frames} frames, {frames} samples")
+    return {"seconds": seconds, "check": {"frames": frames}}
+
+
+def cli_prepare_data(tmp: str) -> dict:
+    """cli/prepare_data square and facecrop (the default detector chain)
+    on three synthetic faces and a blank image (host only, PIL)."""
+    from PIL import Image
+    from pgx_torch.cli import prepare_data
+    src = os.path.join(tmp, "faces")
+    os.makedirs(src)
+    for i, (h, w, cx, cy, s) in enumerate(((160, 160, 80, 80, 80),
+                                           (140, 220, 160, 70, 60),
+                                           (120, 260, 195, 60, 70))):
+        Image.fromarray(synthetic_face(h, w, cx, cy, s)).save(
+            os.path.join(src, f"face{i}.png"))
+    Image.new("RGB", (120, 80), (90, 90, 90)).save(os.path.join(src,
+                                                                "blank.png"))
+    t0 = time.perf_counter()
+    prepare_data.main(["square", "--src", src, "--dst",
+                       os.path.join(tmp, "square")])
+    prepare_data.main(["facecrop", "--src", src, "--dst",
+                       os.path.join(tmp, "face")])
+    seconds = time.perf_counter() - t0
+    square = sorted(os.listdir(os.path.join(tmp, "square")))
+    faces = sorted(os.listdir(os.path.join(tmp, "face")))
+    require(square == ["blank.png", "face0.png", "face1.png", "face2.png"]
+            and faces == ["face0.png", "face1.png", "face2.png"],
+            f"prepare_data: square {square}, facecrop {faces}")
+    for d, name in (("square", "face2.png"), ("face", "face2.png")):
+        with Image.open(os.path.join(tmp, d, name)) as im:
+            require(im.size == (120, 120), f"{d}/{name}: {im.size}")
+    from pgx_torch.data import prep
+    return {"seconds": seconds, "check": {
+        "square": square, "facecrop": faces,
+        "detector": prep.default_face_detector().__name__}}
+
+
+def cli_phase(torch, cfg, dcfg, params) -> dict:
+    """Phase 7: the entry points of pgx_torch.cli beyond the flagship's
+    trainer, each in this process on the card with launch counts from 0
+    around it, checked against what the configs predict, and every kernel
+    call it makes held against its plain version at its shape, in
+    temporary directories the phase deletes.  Returns the launches summed
+    over the runs."""
+    import shutil
+    from pgx_torch.models.discriminator import init_discriminator
+    root = tempfile.mkdtemp(prefix="pgx_cli_")
+    lines = {}
+    try:
+        trial = os.path.join(root, "flagship")
+        write_flagship_trial(trial, cfg, dcfg, [params],
+                             [init_discriminator(dcfg, seed=1)])
+        lines["generate"] = cli_generate(torch, trial, root, cfg)
+        lines["grow_checkpoint"] = cli_grow(torch, trial, root)
+        for key, val in cli_profile(torch, root).items():
+            lines[f"profile_step_{key}"] = val
+        lines["augmentation_demo"] = cli_augmentation_demo(torch, root)
+        trainers = cli_trainers(torch, root)
+        lines.update(trainers)
+        lines["create_gif"] = cli_create_gif(trainers[CLI_GIF_TRIAL]["trial"])
+        lines["prepare_data"] = cli_prepare_data(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(not os.path.exists(root), f"{root} left behind")
+    total = {k: 0 for k in SOURCES}
+    for entry, line in lines.items():
+        line.pop("trial", None)
+        emit({"phase": "cli", "entry_point": entry, **line})
+        add_counts(total, line.get("launches", {}))
+        add_counts(total, line.get("check", {}).get(
+            "recorded_run_launches", {}))
+    return {"launches": total,
+            "seconds": {k: v["seconds"] for k, v in lines.items()}}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the 512px production recipe (gp_mode='jvp', steps_per_call)
 # ---------------------------------------------------------------------------
 
 R512_STEP = 8             # conditional_correct_grown(8): 512px
@@ -2656,6 +3193,7 @@ def tangent_kernel_phase(torch, calls, reps: int = 5) -> dict:
            "f32": {"ms": 0.0, "plain_ms": 0.0, "t_bytes": 0.0,
                    "max_rel_err": 0.0}, "per_shape": []}
     for (shape, has_db), mult in sorted(uniq.items()):
+        HELD.add((A_JVP, shape, has_db))
         row = {"shape": list(shape), "db": has_db, "calls": mult}
         c = shape[-1]
         for dt_name in ("bfloat16", "float32"):
@@ -3263,7 +3801,7 @@ def c512_phase(torch, calls, per: str) -> dict:
 
 
 def recipe_phase(torch) -> dict:
-    """Phase 7: the 512px production recipe at full width."""
+    """Phase 8: the 512px production recipe at full width."""
     gcfg, dcfg = recipe_pair("bfloat16")
     per = "one bf16 jvp penalty iteration at 512px, batch 8"
     calls, second, tangent_calls = record_a_calls_512(torch, gcfg, dcfg)
@@ -3314,7 +3852,7 @@ def recipe_phase(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: evaluation (Inception FID/KID, the sweep, the .model round trip)
+# phase 9: evaluation (Inception FID/KID, the sweep, the .model round trip)
 # ---------------------------------------------------------------------------
 
 EVAL_BATCH = 50
@@ -3822,7 +4360,7 @@ def eval_selftest_phase(torch) -> dict:
 
 
 def eval_phase(torch, cfg, dcfg, params) -> dict:
-    """Phase 8: evaluation at the flagship's full width."""
+    """Phase 9: evaluation at the flagship's full width."""
     t0 = time.monotonic()
     emit({"phase": "eval_preprocess", **eval_preprocess_phase(torch)})
     emit({"phase": "eval_features", "config": "InceptionV3 (pytorch_fid "
@@ -3942,10 +4480,20 @@ def main() -> int:
           "total_s": time.monotonic() - t_start})
     loop_launches = looped["launches"]
 
-    # 7. the 512px production recipe: jvp penalty, windows, remat
+    # 7. the remaining entry points: generate, grow_checkpoint,
+    # profile_step, augmentation_demo, the seven trainers, create_gif,
+    # prepare_data
+    t_cli = time.monotonic()
+    cli = cli_phase(torch, cfg, dcfg, params)
+    cli_launches = cli["launches"]
+    emit({"phase": "cli_summary", "launches": cli_launches,
+          "seconds": cli["seconds"], "cli_s": time.monotonic() - t_cli,
+          "total_s": time.monotonic() - t_start})
+
+    # 8. the 512px production recipe: jvp penalty, windows, remat
     recipe = recipe_phase(torch)
 
-    # 8. evaluation: the sweep through the CLIs, the .model round trip
+    # 9. evaluation: the sweep through the CLIs, the .model round trip
     swept = eval_phase(torch, cfg, dcfg, params)
     eval_launches = swept["sweep"]["launches"]
     eval_bf16_launches = swept["sweep_bf16"]["launches"]
@@ -3985,7 +4533,7 @@ def main() -> int:
                  "replaces": replaces,
                  "launches": (serve_launches + train_launches + ada_launches
                               + loop_l + recipe_launches_[name] + eval_l
-                              + eval_bf16_l),
+                              + eval_bf16_l + cli_launches[name]),
                  "launches_serve": serve_launches,
                  "launches_eval_sweep": eval_l,
                  "launches_eval_sweep_bf16": eval_bf16_l,
@@ -3993,6 +4541,7 @@ def main() -> int:
                  "launches_train_ada": ada_launches,
                  "launches_train_loop": loop_l,
                  "launches_train_512_recipe": recipe_launches_[name],
+                 "launches_cli": cli_launches[name],
                  # the launches of one run of the path named in "per": ms,
                  # plain_ms and bound_ms are sums over these
                  "launches_per_path_run": head[(name, "bfloat16")]["calls"],
@@ -4050,6 +4599,7 @@ def main() -> int:
                 "launches_train_512_recipe": recipe_launches_[A_BWD2]}
     require(all(v > 0 for v in launches.values()),
             f"{A_BWD2}: not launched on its main path ({launches})")
+    launches["launches_cli"] = cli_launches[A_BWD2]
     so = second_order
     kernels.append({
         "name": A_BWD2, "route": "cuda", "source": source,
@@ -4076,6 +4626,7 @@ def main() -> int:
                 A_JVP] == 0,
             f"{A_JVP}: launches {launches}, reverse mode "
             f"{recipe['bare']['reverse']['launches_penalty_iteration']}")
+    launches["launches_cli"] = cli_launches[A_JVP]
     kernels.append({
         "name": A_JVP, "route": "cuda", "source": source,
         "replaces": replaces, "launches": sum(launches.values()),
@@ -4116,6 +4667,7 @@ def main() -> int:
         launches.setdefault("launches_train_loop", loop_launches[name])
         launches.setdefault("launches_train_512_recipe",
                             recipe_launches_[name])
+        launches["launches_cli"] = cli_launches[name]
         agg = fde[(name, "bfloat16")]
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": sum(launches.values()),
@@ -4146,7 +4698,7 @@ def main() -> int:
                 for ax in (3, 2)}
         kernels.append(entry)
 
-    # 9. the card
+    # 10. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -14,6 +14,7 @@ import argparse
 
 from pgx_torch.data import load_cifar10, load_mnist, load_sklearn_digits, \
     synthetic_dataset
+from pgx_torch.train.loop import train_loop
 
 
 def _steps_per_call(value: str) -> int:
@@ -251,6 +252,23 @@ def ada_configs_from_args(args):
             1.0)
 
 
+def loop_config_from_args(args, **extra):
+    """LoopConfig from the shared CLI flags (``extra``: a CLI's own fields,
+    such as mnist_train's ``tail_iterations``)."""
+    from pgx_torch.train.loop import LoopConfig
+    return LoopConfig(
+        trial_name=args.trial_name, main_path=args.main_path,
+        batch_size=args.batch_size, sample_every=args.sample_every,
+        checkpoint_every=args.checkpoint_every, log_every=args.log_every,
+        seed=args.seed, use_mesh=args.use_mesh,
+        fid_every=args.fid_every, fid_samples=args.fid_samples,
+        inception_weights=args.inception_weights,
+        steps_per_call=args.steps_per_call,
+        model_parallel=args.model_parallel,
+        model_parallel_mode=args.model_parallel_mode,
+        checkpoint_backend=args.checkpoint_backend, **extra)
+
+
 def train_config_from_args(args):
     """TrainConfig from the shared CLI flags.
 
@@ -264,3 +282,22 @@ def train_config_from_args(args):
                        fused_g=args.fused_g, remat=args.remat,
                        remat_policy=args.remat_policy,
                        weights_cast=getattr(args, "weights_cast", "site"))
+
+
+def run_trainer(args, gcfg, dcfg, schedule, dataset, batch_fn=None,
+                **loop_extra) -> str:
+    """The tail every training entry point shares: ``train_loop`` on
+    ``args.device`` with the TrainConfig, the LoopConfig (``loop_extra``:
+    a CLI's own fields) and the ADA configs from the flags.  ``batch_fn``
+    is passed only when the CLI has its own (the loop's default is
+    ``array_batches``).  Returns the trial directory."""
+    augment_cfg, ada_cfg, augment_p = ada_configs_from_args(args)
+    kw = {} if batch_fn is None else {"batch_fn": batch_fn}
+    trial_dir = train_loop(gcfg, dcfg, train_config_from_args(args),
+                           schedule, dataset,
+                           loop_config_from_args(args, **loop_extra),
+                           resume_dir=args.resume, augment_cfg=augment_cfg,
+                           ada_cfg=ada_cfg, augment_p=augment_p,
+                           device=args.device, **kw)
+    print(f"done: {trial_dir}")
+    return trial_dir

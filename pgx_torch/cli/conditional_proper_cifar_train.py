@@ -18,12 +18,11 @@ from __future__ import annotations
 
 import argparse
 
-from pgx_torch.cli.common import ada_configs_from_args, add_ada_args, \
-    add_common_args, add_stage_batch_arg, get_dataset, \
-    maybe_init_multihost, parse_stage_batches, train_config_from_args
+from pgx_torch.cli.common import add_ada_args, add_common_args, \
+    add_stage_batch_arg, get_dataset, maybe_init_multihost, \
+    parse_stage_batches, run_trainer
 from pgx_torch.models import zoo
 from pgx_torch.train import ProperSchedule
-from pgx_torch.train.loop import LoopConfig, train_loop
 
 
 def main(argv=None):
@@ -66,7 +65,6 @@ def main(argv=None):
             feat_dim=args.channels, num_classes=args.num_classes,
             do_equal_embed=args.equal_embed, max_step=args.max_step,
             dtype=args.dtype)
-    tc = train_config_from_args(args)
     schedule = ProperSchedule(args.images_per_mini_step, args.batch_size,
                               args.max_step, args.init_step,
                               stage_batches=parse_stage_batches(
@@ -74,24 +72,7 @@ def main(argv=None):
                                   args.init_step))
     dataset = get_dataset(args, "cifar10", num_classes=args.num_classes)
 
-    loop_cfg = LoopConfig(
-        trial_name=args.trial_name, main_path=args.main_path,
-        batch_size=args.batch_size, sample_every=args.sample_every,
-        checkpoint_every=args.checkpoint_every, log_every=args.log_every,
-        seed=args.seed, use_mesh=args.use_mesh,
-        fid_every=args.fid_every, fid_samples=args.fid_samples,
-        inception_weights=args.inception_weights,
-        steps_per_call=args.steps_per_call,
-        model_parallel=args.model_parallel,
-        model_parallel_mode=args.model_parallel_mode,
-        checkpoint_backend=args.checkpoint_backend)
-    augment_cfg, ada_cfg, augment_p = ada_configs_from_args(args)
-    trial_dir = train_loop(gcfg, dcfg, tc, schedule, dataset, loop_cfg,
-                           resume_dir=args.resume, augment_cfg=augment_cfg,
-                           ada_cfg=ada_cfg, augment_p=augment_p,
-                           device=args.device)
-    print(f"done: {trial_dir}")
-    return trial_dir
+    return run_trainer(args, gcfg, dcfg, schedule, dataset)
 
 
 if __name__ == "__main__":

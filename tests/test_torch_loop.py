@@ -412,19 +412,21 @@ def test_cli_sigterm_leaves_an_emergency_checkpoint(tmp_path):
     assert f"emergency checkpoint saved at iteration {stopped}" in out
     assert _full_state(trial, stopped)["iteration"] == stopped
     seen = []
+    from pgx_torch.cli import common
     from pgx_torch.train import loop as loop_mod
     orig = loop_mod.train_loop
 
     def spy(*a, **kw):
         kw["hooks"] = {"on_iteration": lambda i, st, s, m: seen.append(i)}
         return orig(*a, **kw)
-    cli.train_loop = spy
+    # the trainers reach train_loop through cli/common.run_trainer
+    common.train_loop = spy
     try:
         # the rest of the run: a shorter schedule than the process had
         # would warn on drift, so the same flags are passed
         cli.main(args + ["--resume", trial])
     finally:
-        cli.train_loop = orig
+        common.train_loop = orig
     assert seen[0] == stopped and seen[-1] == 59
     assert os.path.exists(os.path.join(trial, "checkpoint",
                                        tckpt.state_name(60)))
