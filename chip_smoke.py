@@ -158,7 +158,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    6), in bf16 and f32; G's sampling per batch;
    ``pgx_torch.cli.fid_selftest`` on random weights (exit 2, then
    --allow-unverified).
-10. card   — nvidia-smi's name and power limit.
+10. export_store — the exported generator, the step-indexed store and the
+   kernels' ops: the flagship's bf16 trial exported through
+   ``pgx_torch.export.export_trial`` at buckets 1, 8 and 64, uint8 and
+   float output (seconds per bucket, bytes); loaded in a fresh interpreter
+   that imports only ``pgx_torch.export`` and holds no model, layer or
+   training module, no pgx, no JAX; 64, 5 (padded) and 100 (chunked)
+   images, each bucket call launching A 2, B 1, C 9 from counts at 0, and
+   each result equal (difference 0) to the live ``make_eval_generate``
+   forward at the same padded shapes; img/s at bucket 64, artifact and
+   live forward in turns, beside phase 3's.  The flagship's train state
+   (~0.95 GB) through the npz backend's synchronous ``*_state.pt`` and the
+   step-indexed store: the caller's blocking time per save, the background
+   write, three steps with a write in flight, a restore equal bit for bit;
+   ``train_loop`` with ``checkpoint_backend='orbax'`` stopped after 2
+   iterations and resumed from the store to 4.  The op route's host cost:
+   B and A's forward back to back at the serving forward's calls, and the
+   128px iteration, with the ops and with each op swapped for a direct call
+   of its launch, in turns.
+11. card   — nvidia-smi's name and power limit.
 
 Every bf16 kernel row of phase 2 also carries the kernel's device time
 from a CUDA graph (``device_ms``), beside the back-to-back time (``ms``).
@@ -4373,6 +4391,385 @@ def eval_phase(torch, cfg, dcfg, params) -> dict:
     return swept
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the exported generator, the step-indexed store, the ops' cost
+# ---------------------------------------------------------------------------
+
+EXPORT_BUCKETS = (1, 8, 64)
+EXPORT_SAMPLES = (64, 5, 100)     # a full bucket, padded to 8, chunked
+STORE_ITERATIONS = (2, 4)         # the loop stops at 2, resumes to 4
+# loads the artifacts with pgx_torch.export alone, samples each request
+# size with launch counts from 0 around it, and names the modules it holds
+EXPORT_LOADER = r"""
+import json, sys, time
+import numpy as np
+from pgx_torch.export import load_exported
+from pgx_torch.ops.kernels import build
+root, inputs_path, out_path = sys.argv[1:4]
+inputs = np.load(inputs_path)
+arrays, runs, load_s = {}, [], {}
+for output in ("uint8", "float"):
+    t0 = time.perf_counter()
+    gen = load_exported(root + "/" + output)
+    load_s[output] = time.perf_counter() - t0
+    for n in json.loads(sys.argv[4]):
+        build.reset_launch_counts()
+        img = gen.generate(inputs["z%d" % n], inputs["labels%d" % n])
+        runs.append({"output": output, "n": n,
+                     "launches": build.launch_counts()})
+        arrays["%s%d" % (output, n)] = img
+np.savez(out_path, **arrays)
+print(json.dumps({"load_s": load_s, "runs": runs, "modules": sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "pgx",
+                                                  "pgx_torch"))}))
+"""
+
+
+def padded_calls(fn, z, labels, buckets):
+    """``fn`` over ``z`` and ``labels`` as the exported loader calls its
+    programs: chunks of the largest bucket, each padded with zeros to the
+    smallest bucket that holds it."""
+    import numpy as np
+    outs = []
+    for i in range(0, len(z), buckets[-1]):
+        zc, lc = z[i:i + buckets[-1]], labels[i:i + buckets[-1]]
+        pad = next(b for b in buckets if b >= len(zc)) - len(zc)
+        zp = np.concatenate([zc, np.zeros((pad, z.shape[1]), np.float32)])
+        lp = np.concatenate([lc, np.zeros((pad,), np.int32)])
+        outs.append(fn(zp, lp)[:len(zc)])
+    return np.concatenate(outs)
+
+
+def export_artifact_phase(torch, cfg, params, tmp: str) -> dict:
+    """The flagship exported through ``pgx_torch.export.export_trial`` at
+    buckets 1, 8, 64 in uint8 and float output (seconds per bucket, bytes),
+    loaded and sampled in a fresh interpreter that imports only
+    ``pgx_torch.export`` (launches per request, the modules it holds), each
+    result against the live forward at the same padded shapes; then the
+    artifact's img/s at bucket 64 against the live forward's, in turns."""
+    import numpy as np
+    from pgx_torch import export as texport
+    from pgx_torch.models.generator import Generator
+    from pgx_torch.train.wgan import make_eval_generate
+
+    trial = os.path.join(tmp, "trial_export")
+    write_trial(trial, cfg, params)
+    seconds, real_export = [], torch.export.export
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_export(*args, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    manifests, sizes = {}, {}
+    with mock.patch.object(torch.export, "export", timed):
+        for output in ("uint8", "float"):
+            path = os.path.join(tmp, "artifact", output)
+            manifests[output] = texport.export_trial(
+                trial, path, output=output, batch_sizes=EXPORT_BUCKETS,
+                device=DEVICE)
+            sizes[output] = {f: os.path.getsize(os.path.join(path, f))
+                             for f in sorted(os.listdir(path))}
+    man = manifests["uint8"]
+    require((man["resolution"], man["step"], man["alpha"],
+             man["platforms"]) == (128, 6, 1.0, [DEVICE]),
+            f"export manifest {man}")
+    export_s = {o: dict(zip(EXPORT_BUCKETS, seconds[3 * i:3 * i + 3]))
+                for i, o in enumerate(("uint8", "float"))}
+
+    rng = np.random.RandomState(11)
+    inputs = {}
+    for n in EXPORT_SAMPLES:
+        inputs[f"z{n}"] = rng.randn(n, cfg.z_dim).astype(np.float32)
+        inputs[f"labels{n}"] = rng.randint(0, cfg.num_classes,
+                                           n).astype(np.int32)
+    np.savez(os.path.join(tmp, "inputs.npz"), **inputs)
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", EXPORT_LOADER, os.path.join(tmp, "artifact"),
+         os.path.join(tmp, "inputs.npz"), os.path.join(tmp, "outputs.npz"),
+         json.dumps(EXPORT_SAMPLES)], cwd=tmp, capture_output=True,
+        text=True, env={**os.environ, "PYTHONPATH": here}, timeout=600)
+    subprocess_s = time.perf_counter() - t0
+    require(child.returncode == 0,
+            f"the artifact's loader failed:\n{child.stderr[-3000:]}")
+    loaded = json.loads(child.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded["modules"] if m.split(".")[0] in ("jax", "pgx")
+           or m.startswith(("pgx_torch.models", "pgx_torch.core",
+                            "pgx_torch.train"))]
+    require(not bad, f"the loader holds {bad}")
+    for run in loaded["runs"]:
+        calls = -(-run["n"] // EXPORT_BUCKETS[-1])     # bucket calls
+        want = {k: PER_FORWARD.get(k, 0) * calls for k in run["launches"]}
+        require(run["launches"] == want,
+                f"artifact launches for n={run['n']}: {run['launches']} "
+                f"!= {want}")
+
+    # the live forward on the same weights at the same padded shapes
+    gen = Generator.from_jax_params(cfg, params, DEVICE)
+    diffs = {}
+    with np.load(os.path.join(tmp, "outputs.npz")) as got:
+        for output in ("uint8", "float"):
+            live = make_eval_generate(cfg, step=man["step"],
+                                      fading=man["fading"], output=output)
+
+            def fn(z, lab):
+                img = live(gen, torch.from_numpy(z).to(DEVICE),
+                           torch.from_numpy(lab).to(DEVICE), man["alpha"])
+                return img.float().cpu().numpy() if output == "float" \
+                    else img.cpu().numpy()
+            for n in EXPORT_SAMPLES:
+                want = padded_calls(fn, inputs[f"z{n}"], inputs[f"labels{n}"],
+                                    EXPORT_BUCKETS)
+                art = got[f"{output}{n}"]
+                require(art.shape == want.shape == (n, 128, 128, 3)
+                        and art.dtype == want.dtype,
+                        f"artifact {art.shape} {art.dtype}, live "
+                        f"{want.shape} {want.dtype}")
+                diffs[f"{output}_n{n}"] = float(np.abs(
+                    art.astype(np.float64) - want.astype(np.float64)).max())
+    require(all(v == 0.0 for v in diffs.values()),
+            f"artifact against the live forward: {diffs}")
+
+    # img/s at bucket 64 on the card, artifact and live forward in turns
+    exported = texport.load_exported(os.path.join(tmp, "artifact", "uint8"))
+    z = torch.from_numpy(inputs["z64"]).to(DEVICE)
+    lab = torch.from_numpy(inputs["labels64"]).to(DEVICE)
+    live = make_eval_generate(cfg, step=man["step"], output="uint8")
+    program = exported._fns[64]
+
+    def art():
+        with torch.inference_mode():
+            program(z, lab)
+    turns = {"live": [], "artifact": []}
+    for name in ("live", "artifact", "artifact", "live"):
+        fn = (lambda: live(gen, z, lab, man["alpha"])) if name == "live" \
+            else art
+        turns[name].append(cuda_ms(torch, fn, reps=10))
+    host = wall_ms(torch, lambda: exported.generate(inputs["z64"],
+                                                    inputs["labels64"]))
+    ms = {k: statistics.mean(v) for k, v in turns.items()}
+    del gen, exported, program
+    return {"manifest": man, "export_s": export_s, "bytes": sizes,
+            "loader": {"seconds": subprocess_s, "load_s": loaded["load_s"],
+                       "modules": loaded["modules"], "runs": loaded["runs"]},
+            "max_abs_diff_vs_live": diffs,
+            "b64_ms": ms, "b64_ms_turns": turns,
+            "img_per_s_b64": {k: SERVE_BATCH / (v / 1e3)
+                              for k, v in ms.items()},
+            "generate_b64_host_ms": host,
+            "generate_b64_host_img_per_s": SERVE_BATCH / (host / 1e3)}
+
+
+def state_tensors(state) -> dict:
+    """Every tensor of a train state, cloned on its device."""
+    out = {f"{k}.{n}": t.detach().clone()
+           for k in ("g", "d", "g_ema")
+           for n, t in state[k].state_dict().items()}
+    out.update({f"{k}.{m}.{n}": t.clone() for k in ("opt_g", "opt_d")
+                for m in ("mu", "nu") for n, t in state[k][m].items()})
+    out.update({f"ada.{n}": t.clone() for n, t in state["ada"].items()})
+    return out
+
+
+def store_phase(torch, cfg, dcfg, tmp: str) -> dict:
+    """The flagship's full train state (bf16 step, f32 master weights)
+    through the npz backend's synchronous ``*_state.pt`` write and through
+    the step-indexed store: how long ``save`` blocks the caller (first and
+    second save), how long the background write takes, three training
+    steps with a write in flight against three without, a bitwise restore;
+    then ``train_loop`` with ``checkpoint_backend='orbax'`` stopped and
+    resumed from the store."""
+    from pgx_torch import checkpoint as tckpt
+    from pgx_torch.checkpoint.step_store import StepStateStore
+    from pgx_torch.data import synthetic_dataset
+    from pgx_torch.ops import kernels as K
+    from pgx_torch.train import (ProperSchedule, TrainConfig,
+                                 init_train_state, make_train_step)
+    from pgx_torch.train.loop import LoopConfig, train_loop
+
+    g, d, tc, state = new_train_state(cfg, dcfg, "bfloat16")
+    step = make_train_step(g, d, tc, step=TRAIN_STEP, fading=False)
+    real, labels, z, eps = train_batch(torch, g, seed=300)
+
+    def steps(n=3):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(state, real, labels, 1.0, z=z, eps=eps)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    steps(1)                       # moments and the EMA move off their init
+    want = state_tensors(state)
+    path = os.path.join(tmp, "001_state.pt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tckpt.save_state(path, state)
+    npz_backend_s = time.perf_counter() - t0
+    store_dir = os.path.join(tmp, "store_trial")
+    store = StepStateStore(store_dir)
+    out = {"state_bytes": os.path.getsize(path),
+           "npz_backend_sync_write_s": npz_backend_s, "saves": []}
+    for it in (1, 2):
+        t0 = time.perf_counter()
+        store.save(it, state)
+        blocked = time.perf_counter() - t0
+        if it == 1:
+            store.wait()
+            out["saves"].append({"iteration": it, "blocking_s": blocked,
+                                 "background_write_s":
+                                 time.perf_counter() - t0 - blocked})
+        else:                      # steps while the write is in flight
+            during = steps()
+            store.wait()
+            out["saves"].append({"iteration": it, "blocking_s": blocked,
+                                 "save_to_commit_s":
+                                 time.perf_counter() - t0,
+                                 "step_ms_during_write": during})
+    out["step_ms_alone"] = steps()
+    store.close()
+    _, _, _, other = new_train_state(cfg, dcfg, "bfloat16")
+    t0 = time.perf_counter()
+    StepStateStore(store_dir).restore(1, other)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    got = state_tensors(other)
+    unequal = [k for k in want if not torch.equal(got[k], want[k])]
+    require(got.keys() == want.keys() and not unequal
+            and other["iteration"] == 1,
+            f"restore differs from the saved state: {unequal[:5]}")
+    out["restore_bitwise_equal"] = True
+    out["tensors"] = len(want)
+    del state, other, want, got, step
+
+    # the loop: stopped after 2 iterations, resumed from the store to 4
+    trial = None
+    seen = []
+    K.reset_launch_counts()
+    for total in STORE_ITERATIONS:
+        trial = train_loop(
+            cfg, dcfg, TrainConfig(), ProperSchedule(64, TRAIN_BATCH, 6, 6),
+            synthetic_dataset(64, 128, 3, cfg.num_classes, seed=3),
+            LoopConfig(main_path=os.path.join(tmp, "loop"),
+                       batch_size=TRAIN_BATCH, total_iterations=total,
+                       sample_every=100, checkpoint_every=2, log_every=1,
+                       checkpoint_backend="orbax", snapshot_sources=False,
+                       verbose=False),
+            resume_dir=trial, device=DEVICE,
+            hooks={"on_iteration": lambda i, st, s, m: seen.append(i)})
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    committed = sorted(int(n) for n in os.listdir(
+        os.path.join(trial, "step_state")))
+    states = [n for n in os.listdir(os.path.join(trial, "checkpoint"))
+              if n.endswith("_state.pt")]
+    require(seen == [0, 1, 2, 3] and committed == [1, 2, 3, 4]
+            and not states,
+            f"loop with the store: iterations {seen}, committed "
+            f"{committed}, state files {states}")
+    # four iterations and one sample grid a run (100 images, one forward)
+    want = add_counts(add_counts({}, calls_per_iteration(cfg, dcfg,
+                                                         TRAIN_STEP), 4),
+                      PER_FORWARD, 2)
+    want = {k: want.get(k, 0) for k in launches}
+    require(launches == want, f"loop launches {launches} != {want}")
+    out["loop"] = {"iterations": seen, "committed": committed,
+                   "launches": launches}
+    return out
+
+
+def op_route_phase(torch, cfg, dcfg) -> dict:
+    """What the op route costs the host: B and A's forward at the serving
+    forward's calls (batch 64) and one 128px training iteration, through
+    the wrappers as they are (``torch.library`` ops) and with every op
+    swapped for a direct call of its launch (the route before the ops), in
+    turns: ops, direct, direct, ops."""
+    import importlib
+    from pgx_torch.ops.kernels import conv_epilogue, epilogue
+    from pgx_torch.train import make_train_step
+    pn = importlib.import_module("pgx_torch.ops.kernels.pixel_norm_lrelu")
+
+    def direct():
+        stack = contextlib.ExitStack()
+        for mod, name, fn in (
+                (epilogue, "forward_op", epilogue._launch),
+                (epilogue, "backward_op", epilogue._launch_backward),
+                (epilogue, "second_order_op", epilogue._launch_second_order),
+                (epilogue, "tangent_op", epilogue._launch_jvp),
+                (pn, "op", pn._launch),
+                (conv_epilogue, "op", lambda x, w, b, upn, s, e:
+                 conv_epilogue._launch(x, w, b, upn, s, e, emit_r=False)),
+                (conv_epilogue, "op_r", lambda x, w, b, s, e:
+                 conv_epilogue._launch(x, w, b, True, s, e, emit_r=True))):
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        return stack
+
+    rng = torch.Generator(device=DEVICE).manual_seed(21)
+    x_b = torch.randn(SERVE_BATCH, 4, 4, 512, device=DEVICE,
+                      dtype=torch.bfloat16, generator=rng)
+    a_in = [(torch.randn(SERVE_BATCH, r, r, c, device=DEVICE,
+                         dtype=torch.bfloat16, generator=rng),
+             torch.randn(c, device=DEVICE, dtype=torch.bfloat16,
+                         generator=rng) * 0.1)
+            for r, c in ((64, 256), (128, 128))]
+    g, d, tc, state = new_train_state(cfg, dcfg, "bfloat16")
+    step = make_train_step(g, d, tc, step=TRAIN_STEP, fading=False)
+    real, labels, z, eps = train_batch(torch, g, seed=400)
+
+    def iteration():
+        step(state, real, labels, 1.0, z=z, eps=eps)
+
+    cases = {"B_b2b_ms": (lambda: pn.pixel_norm_lrelu(x_b, 0.2), 50),
+             "A_b2b_ms_per_forward": (lambda: [
+                 epilogue.bias_pixelnorm_lrelu(y, b) for y, b in a_in], 20),
+             "iteration_128px_ms": (iteration, 5)}
+    turns = {k: {"ops": [], "direct": []} for k in cases}
+    for route in ("ops", "direct", "direct", "ops"):
+        with (direct() if route == "direct" else contextlib.nullcontext()):
+            for key, (fn, reps) in cases.items():
+                turns[key][route].append(cuda_ms(torch, fn, reps=reps))
+    out = {k: {r: statistics.mean(v) for r, v in t.items()}
+           for k, t in turns.items()}
+    for v in out.values():
+        v["ops_minus_direct"] = v["ops"] - v["direct"]
+    out["turns"] = turns
+    out["per_launch_us"] = {
+        "B": 1e3 * out["B_b2b_ms"]["ops_minus_direct"],
+        "A": 1e3 * out["A_b2b_ms_per_forward"]["ops_minus_direct"] / 2}
+    del state, step
+    return out
+
+
+def export_store_phase(torch, cfg, dcfg, params, served: dict,
+                       forward: dict) -> dict:
+    """Phase 10: the exported flagship, the step-indexed store and the op
+    route's host cost."""
+    import shutil
+    t0 = time.monotonic()
+    root = tempfile.mkdtemp(prefix="pgx_export_store_")
+    try:
+        artifact = export_artifact_phase(torch, cfg, params, root)
+        artifact["live_img_per_s_phase3"] = {
+            "serve_b64_sequential": served["img_per_s_b64_sequential"],
+            "forward_b64_float": SERVE_BATCH / (
+                forward["bfloat16"]["forward_b64_ms"] / 1e3)}
+        emit({"phase": "export_artifact", **artifact})
+        torch.cuda.empty_cache()
+        store = store_phase(torch, cfg, dcfg, root)
+        emit({"phase": "step_store", **store})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    require(not os.path.exists(root), f"{root} left behind")
+    torch.cuda.empty_cache()
+    route = op_route_phase(torch, cfg, dcfg)
+    emit({"phase": "op_route", "per": "bf16: B at [64,4,4,512]; A's two "
+          "calls of a batch-64 forward; one 128px iteration at batch 32",
+          **route, "export_store_s": time.monotonic() - t0})
+    return {"artifact": artifact, "store": store, "route": route}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4498,6 +4895,11 @@ def main() -> int:
     eval_launches = swept["sweep"]["launches"]
     eval_bf16_launches = swept["sweep_bf16"]["launches"]
     eval_kernels = swept["kernels"]
+    # 10. the exported flagship, the step-indexed store, the ops' host cost
+    exported = export_store_phase(torch, cfg, dcfg, params, served, fwd)
+    artifact_launches = {k: sum(r["launches"][k] for r in
+                                exported["artifact"]["loader"]["runs"])
+                         for k in build.LAUNCHES}
     recipe_launches_ = {k: recipe["cli"]["launches"][k] + sum(
         m[f"launches_{it}_iteration"][k] for m in recipe["bare"].values()
         for it in ("penalty", "plain")) for k in recipe["cli"]["launches"]}
@@ -4533,7 +4935,8 @@ def main() -> int:
                  "replaces": replaces,
                  "launches": (serve_launches + train_launches + ada_launches
                               + loop_l + recipe_launches_[name] + eval_l
-                              + eval_bf16_l + cli_launches[name]),
+                              + eval_bf16_l + cli_launches[name]
+                              + artifact_launches[name]),
                  "launches_serve": serve_launches,
                  "launches_eval_sweep": eval_l,
                  "launches_eval_sweep_bf16": eval_bf16_l,
@@ -4542,6 +4945,7 @@ def main() -> int:
                  "launches_train_loop": loop_l,
                  "launches_train_512_recipe": recipe_launches_[name],
                  "launches_cli": cli_launches[name],
+                 "launches_export_artifact": artifact_launches[name],
                  # the launches of one run of the path named in "per": ms,
                  # plain_ms and bound_ms are sums over these
                  "launches_per_path_run": head[(name, "bfloat16")]["calls"],
@@ -4698,7 +5102,7 @@ def main() -> int:
                 for ax in (3, 2)}
         kernels.append(entry)
 
-    # 10. the card
+    # 11. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

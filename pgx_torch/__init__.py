@@ -16,7 +16,9 @@ ADA augmentation pipeline and its controller (``pgx_torch.augment``), the
 ops layer (``pgx_torch.ops``), evaluation (``pgx_torch.eval``: InceptionV3
 FID and KID, the checkpoint sweep, the in-training FID), the reference
 ``.model`` import and export (``pgx_torch.checkpoint.torch_import``,
-``torch_export``) and six CLIs (``pgx_torch.cli.serve``,
-``conditional_proper_cifar_train``, ``fid_sweep``, ``fid_selftest``,
-``import_checkpoint``, ``export_torch_checkpoint``).
+``torch_export``), the exported generator (``pgx_torch.export``: a
+``torch.export`` program per batch bucket, the kernels as
+``torch.ops.pgx_torch`` nodes), the step-indexed store of the full state
+(``pgx_torch.checkpoint.step_store``), the host utilities
+(``pgx_torch.utils``) and every CLI of ``pgx/cli`` under ``pgx_torch.cli``.
 """

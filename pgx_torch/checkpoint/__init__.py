@@ -93,10 +93,12 @@ _MODULES = ("g", "d", "g_ema")
 _OPTS = ("opt_g", "opt_d")
 
 
-def save_state(path: str, state: Dict[str, Any]) -> None:
-    """Write the full train state: each module's ``state_dict``, the Adam
-    ``count``/``mu``/``nu``, ``iteration``, ``ada`` and, when the state
-    holds one under ``rng``, the random generator's state."""
+def state_payload(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The full train state as plain containers, what ``save_state``
+    writes: each module's ``state_dict``, the Adam ``count``/``mu``/``nu``,
+    ``iteration``, ``ada`` and, when the state holds one under ``rng``, the
+    random generator's state.  Its tensors are the state's own (no
+    copy)."""
     out: Dict[str, Any] = {k: state[k].state_dict() for k in _MODULES}
     for k in _OPTS:
         opt = state[k]
@@ -106,24 +108,27 @@ def save_state(path: str, state: Dict[str, Any]) -> None:
     out["ada"] = dict(state["ada"])
     if state.get("rng") is not None:
         out["rng"] = state["rng"].get_state()
-    torch.save(out, path)
+    return out
 
 
-def load_state(path: str, state: Dict[str, Any]) -> Dict[str, Any]:
-    """Restore a ``save_state`` file into ``state`` (in place; returned):
-    tensors land on the device of the state's modules, the modules keep
-    their parameter objects, a generator under ``rng`` takes the saved
-    state."""
-    device = next(state["g"].parameters()).device
-    saved = torch.load(path, map_location=device, weights_only=True)
+def save_state(path: str, state: Dict[str, Any]) -> None:
+    """Write the full train state (``state_payload``) with ``torch.save``."""
+    torch.save(state_payload(state), path)
+
+
+def apply_state_payload(saved: Dict[str, Any], state: Dict[str, Any],
+                        source: str) -> Dict[str, Any]:
+    """Restore a ``state_payload`` into ``state`` (in place; returned): the
+    modules keep their parameter objects, a generator under ``rng`` takes
+    the saved state.  ``source`` names the file in errors."""
     for k in _MODULES:
         state[k].load_state_dict(saved[k], strict=True)
     for k in _OPTS:
         opt = state[k]
         for moment in ("mu", "nu"):
             if saved[k][moment].keys() != opt[moment].keys():
-                raise ValueError(f"{path}: {k}.{moment} does not match the "
-                                 f"parameters")
+                raise ValueError(f"{source}: {k}.{moment} does not match "
+                                 f"the parameters")
         state[k] = {"count": int(saved[k]["count"]),
                     "mu": dict(saved[k]["mu"]), "nu": dict(saved[k]["nu"])}
     state["iteration"] = int(saved["iteration"])
@@ -131,6 +136,19 @@ def load_state(path: str, state: Dict[str, Any]) -> Dict[str, Any]:
     if "rng" in saved and state.get("rng") is not None:
         state["rng"].set_state(saved["rng"].cpu())
     return state
+
+
+def state_device(state: Dict[str, Any]) -> torch.device:
+    """The device of the state's modules."""
+    return next(state["g"].parameters()).device
+
+
+def load_state(path: str, state: Dict[str, Any]) -> Dict[str, Any]:
+    """Restore a ``save_state`` file into ``state`` (in place; returned):
+    tensors land on the device of the state's modules."""
+    saved = torch.load(path, map_location=state_device(state),
+                       weights_only=True)
+    return apply_state_payload(saved, state, path)
 
 
 # ---------------------------------------------------------------------------

@@ -2,10 +2,11 @@
 ``pgx/cli/common.py``).
 
 The flags are ``pgx``'s, plus ``--device`` (``cuda`` unless the caller asks
-for ``cpu``); ``--compile-cache`` has no counterpart.  Values whose code
-path is not ported yet raise where they are used: ``LoopConfig`` refuses
-``--checkpoint-backend orbax`` and ``--model-parallel``; ``--multihost``
-raises in ``maybe_init_multihost``.
+for ``cpu``); ``--compile-cache`` has no counterpart.
+``--checkpoint-backend orbax`` selects the port's step-indexed store.
+Values whose code path is not ported yet raise where they are used:
+``LoopConfig`` refuses ``--model-parallel``; ``--multihost`` raises in
+``maybe_init_multihost``.
 """
 
 from __future__ import annotations
@@ -126,7 +127,9 @@ def add_common_args(p: argparse.ArgumentParser,
                    choices=["npz", "orbax"],
                    help="full-train-state format: npz (the default: the "
                         "{iter}_g.model / _d.model param files and "
-                        "{iter}_state.pt) or orbax (not ported yet)")
+                        "{iter}_state.pt) or orbax (the npz pair and "
+                        "the full state in the step-indexed store, "
+                        "written in the background)")
     p.add_argument("--multihost", action="store_true",
                    help="one process per host, batch-size global (not "
                         "ported yet)")

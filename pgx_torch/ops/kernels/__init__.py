@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions.
 
-Counterpart of ``pgx/ops/pallas/``.  Each wrapper takes its plain version
-for CPU tensors only and launches its kernel for CUDA tensors; there is no
-switch that sends a CUDA tensor to the plain version.  The library is built
-from ``csrc/`` on first launch (``build.py``), never at import.
+Counterpart of ``pgx/ops/pallas/``.  Each kernel entry is a
+``torch.library`` op (``torch.ops.pgx_torch.<name>``, registered when this
+package is imported): it takes the plain version for CPU tensors only and
+launches the kernel for CUDA tensors; there is no switch that sends a CUDA
+tensor to the plain version.  The library is built from ``csrc/`` on first
+launch (``build.py``), never at import.
 """
 
 from pgx_torch.ops.kernels.bias_act import (  # noqa: F401

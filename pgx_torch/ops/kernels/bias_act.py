@@ -10,6 +10,9 @@ Bound: bytes, one read and one write of ``x``.  The CUDA kernel
 (``csrc/bias_act.cu``) is one elementwise pass with 16-byte loads, the
 activation picked by an integer code, arithmetic in f32, one rounding.
 
+The op ``torch.ops.pgx_torch.bias_act`` (``build.define_op``) launches the
+kernel for CUDA tensors and takes the plain version for CPU tensors.
+
 Differentiation.  pgx's kernel has no gradient rule; its plain chain
 differentiates to any order.  Here the Function's forward launches the
 kernel and its backward is written in plain torch ops from each
@@ -148,6 +151,16 @@ def _launch(x: torch.Tensor, b: Optional[torch.Tensor], spec: ActivationSpec,
     return out
 
 
+op = build.define_op(
+    f"{NAME}(Tensor x, Tensor? b, str act, float alpha, float gain, "
+    f"float clamp) -> Tensor",
+    cpu=lambda x, b, act, alpha, gain, clamp: bias_act_ref(
+        x, b, -1, act, alpha, gain, clamp if clamp >= 0 else None),
+    cuda=lambda x, b, act, alpha, gain, clamp: _launch(
+        x, b, activation_funcs[act], alpha, gain, clamp),
+    fake=lambda x, b, act, alpha, gain, clamp: x.new_empty(x.shape))
+
+
 class _BiasAct(torch.autograd.Function):
     """Forward: the kernel (the plain version for a CPU tensor),
     channel-last.  Backward: plain ops on the saved inputs, differentiable
@@ -157,10 +170,7 @@ class _BiasAct(torch.autograd.Function):
     def forward(ctx, x, b, act, alpha, gain, clamp):
         ctx.save_for_backward(x, b)
         ctx.args = (act, alpha, gain, clamp)
-        if x.device.type == "cpu":
-            return bias_act_ref(x, b, -1, act, alpha, gain,
-                                clamp if clamp >= 0 else None)
-        return _launch(x, b, activation_funcs[act], alpha, gain, clamp)
+        return op(x, b, act, alpha, gain, clamp)
 
     @staticmethod
     def backward(ctx, g):

@@ -1,11 +1,20 @@
-"""Build and load the CUDA kernel library (``csrc/*.cu``) on first use.
+"""Build and load the CUDA kernel library (``csrc/*.cu``) on first use, and
+register its entries as ``torch.library`` ops.
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 for ``sm_90a``; the objects are linked into one shared library with a plain C
 interface, loaded with ``ctypes``.  The library lands in ``build/`` at the
 root of the checkout under a name keyed on a hash of the sources, so an edit
 rebuilds and an unchanged tree loads the cached file.  A failed compile
-raises with nvcc's stderr.  Nothing here runs at import time.
+raises with nvcc's stderr.  Nothing is built at import time.
+
+Every C entry is reached through one op of the ``pgx_torch`` namespace
+(``torch.ops.pgx_torch.<name>``, ``define_op``): its CUDA implementation
+checks the inputs, launches the kernel and counts the launch; its CPU
+implementation is the kernel's plain version; its fake implementation gives
+each output's shape and dtype, so ``torch.export`` traces the op as one node
+and an exported program launches the kernel when it runs.  The ops are
+registered when the kernel modules are imported.
 """
 
 from __future__ import annotations
@@ -20,6 +29,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 # -Xptxas -v: each kernel's registers, spills and shared memory, kept in
@@ -28,6 +39,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
+NAMESPACE = "pgx_torch"
+# the op library: ``Library.define`` + ``impl`` per entry (define_op), which
+# costs the host less a call than the ``torch.library.custom_op`` decorator
+LIBRARY = torch.library.Library(NAMESPACE, "DEF")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -188,8 +203,9 @@ def check(status: int, name: str) -> None:
 # What every wrapper shares: launch counts and input checks
 # ---------------------------------------------------------------------------
 
-# kernel name -> launches in this process; a wrapper adds one where it
-# launches its kernel and nowhere else.  Kernel C counts its two entries
+# kernel name -> launches in this process; an op's CUDA implementation adds
+# one where it launches its kernel and nowhere else (each name is also the
+# op's).  Kernel C counts its two entries
 # apart: "conv3x3_epilogue" is the plain launch, "conv3x3_epilogue_r" the
 # differentiated forward that also writes the pixel-norm scale r.  Kernel
 # A's backward ("bias_pixelnorm_lrelu_bwd"), its second derivative
@@ -212,6 +228,39 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+def _unaliased(out, inputs):
+    """``out`` (a tensor or a tuple of them) with every output that shares
+    an input's storage cloned: an op returns no alias of its input, but a
+    plain version may return the input itself (an identity activation)."""
+    seen = {t.untyped_storage().data_ptr() for t in inputs
+            if isinstance(t, torch.Tensor) and t.numel()}
+
+    def fresh(t):
+        if t.numel() and t.untyped_storage().data_ptr() in seen:
+            return t.clone()
+        return t
+    if isinstance(out, tuple):
+        return tuple(fresh(t) for t in out)
+    return fresh(out)
+
+
+def define_op(schema: str, *, cpu, cuda, fake):
+    """Register ``schema`` (``"name(args) -> outputs"``) in the op library
+    with ``cpu`` (the plain version) for CPU tensors, ``cuda`` (the
+    kernel's launch) for CUDA tensors and ``fake`` (output shapes and
+    dtypes) for tracing; returns the op, ``torch.ops.pgx_torch.<name>``'s
+    default overload."""
+    name = schema.split("(", 1)[0]
+    LIBRARY.define(schema)
+
+    def plain(*args):
+        return _unaliased(cpu(*args), args)
+    LIBRARY.impl(name, plain, "CPU")
+    LIBRARY.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=LIBRARY)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
 def aligned(t):
     """``t`` when its data pointer is 16-byte aligned, else a copy of it in
     fresh (aligned, contiguous) memory.  A view that starts inside its
@@ -219,7 +268,6 @@ def aligned(t):
     copied, not refused; the copy costs one read and one write of ``t``.
     Layout is not changed otherwise: the input check still refuses a
     non-contiguous tensor that is aligned."""
-    import torch
     if t.data_ptr() % 16 == 0:
         return t
     out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
@@ -230,7 +278,6 @@ def check_cuda_input(name: str, t, *, rows_strided: bool = False) -> None:
     """Device, type, layout and alignment a kernel's input must have:
     contiguous and 16-byte aligned or, with ``rows_strided`` (kernel F),
     a last-axis stride of 1 and a 4-byte aligned start."""
-    import torch
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype not in (torch.float32, torch.bfloat16):
@@ -253,5 +300,4 @@ def dtype_code(t) -> int:
 
 
 def stream_ptr() -> int:
-    import torch
     return torch.cuda.current_stream().cuda_stream

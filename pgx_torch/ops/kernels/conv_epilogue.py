@@ -17,6 +17,10 @@ NHWC tensor itself (the copy's zero fill is the SAME padding; in a cluster
 the pixel tile is multicast to both CTAs), in persistent CTAs; f32 runs on
 CUDA-core FMA.
 
+Two ops, ``torch.ops.pgx_torch.conv3x3_epilogue`` and
+``conv3x3_epilogue_r`` (``build.define_op``): the kernel's launch for CUDA
+tensors, the plain version for CPU tensors.
+
 Two launches, counted apart.  Without grad the plain entry runs
 (``conv3x3_epilogue``).  Under grad with pixel-norm the residual-emitting
 entry runs (``conv3x3_epilogue_r``): the same kernel also writes the scale
@@ -123,16 +127,35 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def _out_fake(x, w):
+    return x.new_empty((*x.shape[:3], w.shape[3]))
+
+
+op = build.define_op(
+    f"{NAME}(Tensor x, Tensor w, Tensor b, bool use_pixel_norm, "
+    f"float slope, float eps) -> Tensor",
+    cpu=lambda x, w, b, use_pixel_norm, slope, eps: conv3x3_epilogue_ref(
+        x, w, b, use_pixel_norm=use_pixel_norm, slope=slope, eps=eps),
+    cuda=lambda x, w, b, use_pixel_norm, slope, eps: _launch(
+        x, w, b, use_pixel_norm, slope, eps, emit_r=False),
+    fake=lambda x, w, b, use_pixel_norm, slope, eps: _out_fake(x, w))
+op_r = build.define_op(
+    f"{NAME_R}(Tensor x, Tensor w, Tensor b, float slope, float eps) "
+    f"-> (Tensor, Tensor)",
+    cpu=lambda x, w, b, slope, eps: conv3x3_epilogue_ref(
+        x, w, b, slope=slope, eps=eps, return_r=True),
+    cuda=lambda x, w, b, slope, eps: _launch(x, w, b, True, slope, eps,
+                                             emit_r=True),
+    fake=lambda x, w, b, slope, eps: (
+        _out_fake(x, w),
+        x.new_empty((*x.shape[:3], 1), dtype=stat_dtype(x.dtype))))
+
+
 def _no_graph(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               use_pixel_norm: bool, slope: float, eps: float) -> torch.Tensor:
-    """The output alone, no graph: the plain version for a CPU tensor, the
-    plain entry's launch for a CUDA tensor."""
+    """The output alone, no graph: the plain entry's op."""
     with torch.no_grad():
-        if x.device.type == "cpu":
-            return conv3x3_epilogue_ref(x, w, b,
-                                        use_pixel_norm=use_pixel_norm,
-                                        slope=slope, eps=eps)
-        return _launch(x, w, b, use_pixel_norm, slope, eps, emit_r=False)
+        return op(x, w, b, use_pixel_norm, slope, eps)
 
 
 def conv3x3_epilogue_with_r(x: torch.Tensor, w: torch.Tensor,
@@ -140,13 +163,11 @@ def conv3x3_epilogue_with_r(x: torch.Tensor, w: torch.Tensor,
                             eps: float = 1e-8):
     """``(y, r)``: the pixel-norm variant's output and its scale residual,
     (B, H, W, 1) f32 — pgx's ``conv3x3_epilogue_fwd(..., emit_r=True)``.
-    No autograd graph is recorded.  CPU tensors take the plain version;
-    CUDA tensors launch the residual-emitting entry."""
+    No autograd graph is recorded.  Through the residual-emitting entry's
+    op: CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
     with torch.no_grad():
-        if x.device.type == "cpu":
-            return conv3x3_epilogue_ref(x, w, b, slope=slope, eps=eps,
-                                        return_r=True)
-        return _launch(x, w, b, True, slope, eps, emit_r=True)
+        return op_r(x, w, b, slope, eps)
 
 
 class _Conv3x3Epilogue(torch.autograd.Function):

@@ -13,6 +13,12 @@ to it (the power of two that covers its 16-byte vectors, at most a warp),
 keeps the row in registers between the reduction and the store, and so moves
 exactly those bytes.
 
+Ops.  Each of the four entries is a ``torch.library`` op
+(``torch.ops.pgx_torch.bias_pixelnorm_lrelu``, ``_bwd``, ``_bwd2`` and
+``_jvp``; ``build.define_op``): the kernel's launch for CUDA tensors, the
+plain version for CPU tensors, a fake implementation for tracing.  The
+Functions below call the ops from their ``forward``.
+
 Differentiation.  The wrapper is a ``torch.autograd.Function`` whose forward
 launches the kernel.  Its backward is a second Function,
 ``_BiasPixelNormLreluGrad``, whose forward launches the backward kernel
@@ -219,9 +225,7 @@ class _BiasPixelNormLrelu(torch.autograd.Function):
         ctx.save_for_backward(y, b)
         ctx.save_for_forward(y, b)
         ctx.slope, ctx.eps = slope, eps
-        if y.device.type == "cpu":
-            return bias_pixelnorm_lrelu_ref(y, b, slope, eps)
-        return _launch(y, b, slope, eps)
+        return forward_op(y, b, slope, eps)
 
     @staticmethod
     def jvp(ctx, dy, db, _dslope, _deps):
@@ -249,9 +253,7 @@ class _BiasPixelNormLreluGrad(torch.autograd.Function):
         ctx.save_for_backward(y, b, g)
         ctx.slope, ctx.eps = slope, eps
         ctx.set_materialize_grads(False)
-        if y.device.type == "cpu":
-            return bias_pixelnorm_lrelu_backward_ref(y, b, g, slope, eps)
-        return _launch_backward(y, b, g, slope, eps)
+        return backward_op(y, b, g, slope, eps)
 
     @staticmethod
     def backward(ctx, ddy, ddb):
@@ -346,9 +348,9 @@ class _BiasPixelNormLreluGrad2(torch.autograd.Function):
         ctx.save_for_backward(y, b, g, ddy, ddb)
         ctx.slope, ctx.eps, ctx.needs = slope, eps, needs
         ctx.set_materialize_grads(False)
-        if y.device.type == "cpu":
-            return second_order_ref(y, b, g, ddy, ddb, slope, eps, needs)
-        return _launch_second_order(y, b, g, ddy, ddb, slope, eps, needs)
+        outs = second_order_op(y, b, g, ddy, ddb, slope, eps, needs)
+        # the outputs ``needs`` leaves out come back empty
+        return tuple(t if need else None for t, need in zip(outs, needs))
 
     @staticmethod
     def backward(ctx, gy, gb, gg):
@@ -428,9 +430,7 @@ class _BiasPixelNormLreluTangent(torch.autograd.Function):
     def forward(ctx, y, b, dy, db, slope, eps):
         ctx.save_for_backward(y, b, dy, db)
         ctx.slope, ctx.eps = slope, eps
-        if y.device.type == "cpu":
-            return bias_pixelnorm_lrelu_jvp_ref(y, b, dy, db, slope, eps)
-        return _launch_jvp(y, b, dy, db, slope, eps)
+        return tangent_op(y, b, dy, db, slope, eps)
 
     @staticmethod
     def backward(ctx, c):
@@ -447,6 +447,50 @@ class _BiasPixelNormLreluTangent(torch.autograd.Function):
             g_y, g_b, _ = _BiasPixelNormLreluGrad2.apply(
                 y, b, c, dy, db, ctx.slope, ctx.eps, (need_y, need_b, False))
         return g_y, g_b, g_dy, g_db, None, None
+
+
+def _filled(outs, y):
+    """The second derivative's outputs with each one left out (None) as an
+    empty tensor: an op returns tensors only."""
+    return tuple(y.new_empty(0) if t is None else t for t in outs)
+
+
+def _second_order_fake(y, b, g, ddy, ddb, slope, eps, needs):
+    return (y.new_empty(y.shape) if needs[0] else y.new_empty(0),
+            y.new_empty(y.shape[-1:], dtype=b.dtype) if needs[1]
+            else y.new_empty(0),
+            y.new_empty(y.shape, dtype=g.dtype) if needs[2]
+            else y.new_empty(0))
+
+
+# the ops: each implementation looks its function up when it runs
+forward_op = build.define_op(
+    f"{NAME}(Tensor y, Tensor b, float slope, float eps) -> Tensor",
+    cpu=lambda y, b, slope, eps: bias_pixelnorm_lrelu_ref(y, b, slope, eps),
+    cuda=lambda y, b, slope, eps: _launch(y, b, slope, eps),
+    fake=lambda y, b, slope, eps: y.new_empty(y.shape))
+backward_op = build.define_op(
+    f"{NAME_BWD}(Tensor y, Tensor b, Tensor g, float slope, float eps) "
+    f"-> (Tensor, Tensor)",
+    cpu=lambda y, b, g, slope, eps: bias_pixelnorm_lrelu_backward_ref(
+        y, b, g, slope, eps),
+    cuda=lambda y, b, g, slope, eps: _launch_backward(y, b, g, slope, eps),
+    fake=lambda y, b, g, slope, eps: (
+        y.new_empty(y.shape), y.new_empty(y.shape[-1:], dtype=b.dtype)))
+second_order_op = build.define_op(
+    f"{NAME_BWD2}(Tensor y, Tensor b, Tensor g, Tensor? ddy, Tensor? ddb, "
+    f"float slope, float eps, bool[3] needs) -> (Tensor, Tensor, Tensor)",
+    cpu=lambda y, *rest: _filled(second_order_ref(y, *rest), y),
+    cuda=lambda y, *rest: _filled(_launch_second_order(y, *rest), y),
+    fake=_second_order_fake)
+tangent_op = build.define_op(
+    f"{NAME_JVP}(Tensor y, Tensor b, Tensor dy, Tensor? db, float slope, "
+    f"float eps) -> Tensor",
+    cpu=lambda y, b, dy, db, slope, eps: bias_pixelnorm_lrelu_jvp_ref(
+        y, b, dy, db, slope, eps),
+    cuda=lambda y, b, dy, db, slope, eps: _launch_jvp(y, b, dy, db, slope,
+                                                      eps),
+    fake=lambda y, b, dy, db, slope, eps: y.new_empty(y.shape))
 
 
 def bias_pixelnorm_lrelu_tangent(y: torch.Tensor, b: torch.Tensor,
@@ -468,7 +512,8 @@ def bias_pixelnorm_lrelu(y: torch.Tensor, b: torch.Tensor,
     differentiable to second order in ``y`` and ``b``, and in forward mode
     (the tangent differentiable in reverse mode).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    Through the op ``torch.ops.pgx_torch.bias_pixelnorm_lrelu``: CPU
+    tensors take the plain version; CUDA tensors launch the kernel,
     which takes float32/bfloat16, contiguous, with C a multiple of 8 and at
     most 512 (``supported``); a view whose pointer is not 16-byte aligned is
     copied first."""

@@ -13,7 +13,8 @@ bias pointer left null, and keeps its own entry and launch count.
 and at most 512): the generator asks it before calling ``pixel_norm_lrelu``.
 
 Differentiable like kernel A: an ``autograd.Function`` whose forward
-launches the kernel and whose backward is plain torch ops on the saved
+calls the op ``torch.ops.pgx_torch.pixel_norm_lrelu`` (the kernel for a
+CUDA tensor, the plain version for a CPU tensor; ``build.define_op``) and whose backward is plain torch ops on the saved
 input (the generator's input layer sits under grad in the G step).
 """
 
@@ -50,14 +51,19 @@ def _launch(x: torch.Tensor, slope: float, eps: float) -> torch.Tensor:
     return out
 
 
+op = build.define_op(
+    f"{NAME}(Tensor x, float slope, float eps) -> Tensor",
+    cpu=lambda x, slope, eps: pixel_norm_lrelu_ref(x, slope, eps),
+    cuda=lambda x, slope, eps: _launch(x, slope, eps),
+    fake=lambda x, slope, eps: x.new_empty(x.shape))
+
+
 class _PixelNormLrelu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, slope, eps):
         ctx.save_for_backward(x)
         ctx.slope, ctx.eps = slope, eps
-        if x.device.type == "cpu":
-            return pixel_norm_lrelu_ref(x, slope, eps)
-        return _launch(x, slope, eps)
+        return op(x, slope, eps)
 
     @staticmethod
     def backward(ctx, g):

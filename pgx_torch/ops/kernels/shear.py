@@ -25,6 +25,11 @@ takes its strides and moves the widest unit (16, 8, 4 or 2 bytes) that
 divides its pointer, strides and row length (``_unit``), so the crop is not
 copied first.
 
+The op ``torch.ops.pgx_torch.shift_1d`` (``build.define_op``) launches the
+kernel for CUDA tensors and takes the plain version for CPU tensors; it
+reads its input with the input's strides, so no copy is made in front of
+it, and its output is contiguous.
+
 Differentiation.  The op is linear in ``img`` and its transpose is the
 shift by ``-shift``, so the Function's backward applies the Function itself
 (on a card: launches the same kernel) and therefore differentiates again.
@@ -131,6 +136,13 @@ def _launch(img: torch.Tensor, shift: torch.Tensor, axis: int) -> torch.Tensor:
     return out
 
 
+op = build.define_op(
+    f"{NAME}(Tensor img, Tensor shift, int axis) -> Tensor",
+    cpu=lambda img, shift, axis: shift_1d_ref(img, shift, axis),
+    cuda=lambda img, shift, axis: _launch(img, shift, axis),
+    fake=lambda img, shift, axis: img.new_empty(img.shape))
+
+
 class _Shift1d(torch.autograd.Function):
     """Forward: the kernel (the plain version for a CPU tensor).  Backward:
     the same Function with the shift negated."""
@@ -139,9 +151,7 @@ class _Shift1d(torch.autograd.Function):
     def forward(ctx, img, shift, axis):
         ctx.save_for_backward(shift)
         ctx.axis = axis
-        if img.device.type == "cpu":
-            return shift_1d_ref(img, shift, axis)
-        return _launch(img, shift, axis)
+        return op(img, shift, axis)
 
     @staticmethod
     def backward(ctx, g):

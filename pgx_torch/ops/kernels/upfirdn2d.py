@@ -18,6 +18,10 @@ call: a block stages the input window of one output tile in shared memory,
 runs the H pass and the W pass there and writes the tile.  ``_plan`` picks
 the tile and its window; the kernel is launched with the plan's numbers.
 
+The op ``torch.ops.pgx_torch.upfirdn2d`` (``build.define_op``) launches the
+kernel for CUDA tensors, with the plan made from its integer and float-list
+arguments there, and takes the plain version for CPU tensors.
+
 Differentiation.  The op is linear in ``x`` and its transpose is an
 upfirdn with ``up`` and ``down`` swapped, the filter flipped the other way
 and the padding of the reference's backward (``p0' = ntaps - p0 - 1``,
@@ -275,6 +279,27 @@ def _launch(x: torch.Tensor, taps: Sequence[float], up: int, down: int,
     return out
 
 
+def _fake(x, taps, up, down, pads, flip_filter):
+    """The output of a call, empty: for fake and meta tensors."""
+    px0, px1, py0, py1 = pads
+    n = len(taps)
+    return x.new_empty((x.shape[0], out_len(x.shape[1], n, up, down, py0, py1),
+                        out_len(x.shape[2], n, up, down, px0, px1),
+                        x.shape[3]))
+
+
+op = build.define_op(
+    f"{NAME}(Tensor x, float[] taps, int up, int down, int[4] pads, "
+    f"bool flip_filter) -> Tensor",
+    cpu=lambda x, taps, up, down, pads, flip_filter: upfirdn2d_ref(
+        x, taps, up, down, pads, flip_filter),
+    # the plan's cache takes hashable arguments
+    cuda=lambda x, taps, up, down, pads, flip_filter: _launch(
+        x, tuple(taps), up, down, tuple(pads), flip_filter),
+    fake=lambda x, taps, up, down, pads, flip_filter: _fake(
+        x, taps, up, down, pads, flip_filter))
+
+
 class _Upfirdn2d(torch.autograd.Function):
     """Forward: one launch of the kernel (the plain version for a CPU
     tensor).  Backward: the same Function as the transposed upfirdn."""
@@ -283,9 +308,7 @@ class _Upfirdn2d(torch.autograd.Function):
     def forward(ctx, x, taps, up, down, pads, flip_filter):
         ctx.args = (taps, up, down, pads, flip_filter)
         ctx.in_hw = (x.shape[1], x.shape[2])
-        if x.device.type == "cpu":
-            return upfirdn2d_ref(x, taps, up, down, pads, flip_filter)
-        return _launch(x, taps, up, down, pads, flip_filter)
+        return op(x, taps, up, down, pads, flip_filter)
 
     @staticmethod
     def backward(ctx, g):

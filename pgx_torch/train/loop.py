@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from pgx_torch import checkpoint as ckpt
+from pgx_torch.checkpoint.step_store import StepStateStore, has_step_state
 from pgx_torch.data.pipeline import DevicePrefetcher, array_batches
 from pgx_torch.models.config import DiscriminatorConfig, GeneratorConfig
 from pgx_torch.models.generator import _state_dict_of
@@ -55,9 +56,12 @@ from pgx_torch.utils.png import save_image_grid
 
 @dataclasses.dataclass
 class LoopConfig:
-    """``pgx.train.loop.LoopConfig``, field for field.  Values whose code
-    path is not ported yet raise ``NotImplementedError`` here:
-    ``checkpoint_backend='orbax'`` and ``model_parallel > 1``.  ``use_mesh``
+    """``pgx.train.loop.LoopConfig``, field for field.  A value whose code
+    path is not ported yet raises ``NotImplementedError`` here:
+    ``model_parallel > 1``.  ``checkpoint_backend='orbax'`` keeps the full
+    state in the port's step-indexed store
+    (``pgx_torch.checkpoint.step_store``: asynchronous writes, atomic
+    commits) in place of ``{iter}_state.pt``.  ``use_mesh``
     changes nothing on one device, as ``pgx``'s one-device mesh does.
     ``steps_per_call``: k iterations per call (``make_train_multi_step``),
     1 one per call, 0 auto.  ``fid_every > 0``: the EMA generator's FID
@@ -77,6 +81,7 @@ class LoopConfig:
     sample_cols: int = 10
     keep_full_state: bool = True
     checkpoint_backend: str = "npz"   # "npz" (+ the torch.save full state)
+                                      # or "orbax" (the step-indexed store)
     fid_every: int = 0
     fid_samples: int = 1024
     inception_weights: Optional[str] = None
@@ -98,13 +103,10 @@ class LoopConfig:
         if self.steps_per_call < 0:
             raise ValueError(f"steps_per_call must be >= 0 (0: auto), got "
                              f"{self.steps_per_call}")
-        for field, ported in (
-                ("checkpoint_backend", self.checkpoint_backend == "npz"),
-                ("model_parallel", self.model_parallel <= 1)):
-            if not ported:
-                raise NotImplementedError(
-                    f"LoopConfig.{field}={getattr(self, field)!r} is not "
-                    f"ported yet")
+        if self.model_parallel > 1:
+            raise NotImplementedError(
+                f"LoopConfig.model_parallel={self.model_parallel!r} is not "
+                f"ported yet")
 
 
 def make_trial_dir(loop_cfg: LoopConfig) -> Tuple[str, str]:
@@ -167,14 +169,24 @@ def _auto_k(ms: float, gp_every: int) -> int:
 
 
 def _load_newest_state(trial_dir: str, state):
-    """Restore the newest ``*_state.pt`` of ``trial_dir`` into ``state`` and
-    return ``(state, start_iter)``.  Without one, resume is model-only from
-    the newest npz pair: the EMA generator goes into both ``g`` and
-    ``g_ema``, Adam stays fresh, the iteration comes from the file name."""
+    """Restore the newest full state of ``trial_dir`` into ``state`` and
+    return ``(state, start_iter)``: the newer of the newest ``*_state.pt``
+    and the step-indexed store's newest step (the store on a tie), as a
+    trial may hold both (trained with one backend, resumed with the other).
+    Without either, resume is model-only from the newest npz pair: the EMA
+    generator goes into both ``g`` and ``g_ema``, Adam stays fresh, the
+    iteration comes from the file name."""
     ckpt_dir = os.path.join(trial_dir, "checkpoint")
     state_files = sorted(
         (f for f in os.listdir(ckpt_dir) if f.endswith("_state.pt")),
         key=lambda n: int(n.split("_")[0]))
+    file_it = int(state_files[-1].split("_")[0]) if state_files else -1
+    if has_step_state(trial_dir):
+        store = StepStateStore(trial_dir, async_save=False)
+        store_it = store.latest_iteration()
+        if store_it >= file_it:
+            store.restore(store_it, state)
+            return state, state["iteration"]
     if state_files:
         ckpt.load_state(os.path.join(ckpt_dir, state_files[-1]), state)
         return state, state["iteration"]
@@ -310,11 +322,21 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     state = init_train_state(gcfg, dcfg, tc, seed=loop_cfg.seed, device=dev)
     state["rng"] = torch.Generator(device=dev).manual_seed(loop_cfg.seed)
     start_iter = 0
+    use_store = loop_cfg.checkpoint_backend == "orbax"
+    store: Optional[StepStateStore] = None
 
     def save_full(it, current_state):
-        """One checkpoint write (periodic / interrupt / final)."""
+        """One checkpoint write (periodic / interrupt / final): the npz
+        pair always; the full state as ``{iter}_state.pt`` or, with the
+        store, as its step ``it`` (written in the background)."""
+        nonlocal store
         ckpt.save_checkpoint(trial_dir, it, current_state,
-                             full_state=loop_cfg.keep_full_state)
+                             full_state=loop_cfg.keep_full_state
+                             and not use_store)
+        if use_store and loop_cfg.keep_full_state:
+            if store is None:
+                store = StepStateStore(trial_dir)
+            store.save(it, current_state)
 
     if resume_dir is not None:
         trial_dir = resume_dir.rstrip("/")
@@ -601,5 +623,7 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         interrupts.restore()
         if prefetcher is not None:
             prefetcher.close()
+        if store is not None:
+            store.close()       # drain the pending write
 
     return trial_dir

@@ -570,10 +570,17 @@ def make_eval_generate(gcfg: GeneratorConfig, *, step: int,
     ``output='uint8'`` quantizes on the device with
     ``floor((clip(x, -1, 1) + 1) / 2 * 255 + 0.5)`` in f32, bit-matching
     ``pgx_torch.utils.png.to_uint8``, so a host fetches 4x fewer bytes."""
+    return torch.inference_mode()(eval_forward(gcfg, step=step,
+                                               fading=fading, output=output))
+
+
+def eval_forward(gcfg: GeneratorConfig, *, step: int, fading: bool = False,
+                 output: str = "float"):
+    """``make_eval_generate``'s function without its ``inference_mode``:
+    what ``pgx_torch.export`` traces (under ``torch.no_grad``)."""
     if output not in ("float", "uint8"):
         raise ValueError(f"output must be 'float' or 'uint8', got {output!r}")
 
-    @torch.inference_mode()
     def generate(gen, z, labels=None, alpha=1.0):
         lab = labels if gcfg.conditioning != "none" else None
         img = generator_apply(gen, z, lab, step=step, alpha=alpha,

@@ -306,8 +306,15 @@ def test_trainer_trains_on_the_cpu(tmp_path, name):
 @pytest.mark.parametrize("name", sorted(TRAINERS))
 def test_trainer_refuses_what_is_not_ported(tmp_path, name, flags, match):
     """As the flagship CLI: through ``maybe_init_multihost`` and
-    ``LoopConfig``, before anything trains."""
+    ``LoopConfig``, before anything trains.  ``--checkpoint-backend orbax``
+    is ported: every trainer reaches ``train_loop`` with
+    ``checkpoint_backend='orbax'``."""
     module = importlib.import_module(f"pgx_torch.cli.{name}")
+    if match == "checkpoint_backend":
+        args, _ = _spy_run(module, TINY + TRAINERS[name][1] + flags + [
+            "--synthetic", "--device", "cpu", "--output", str(tmp_path)])
+        assert args[5].checkpoint_backend == "orbax"
+        return
     with mock.patch.object(_loop_owner(module), "train_loop",
                            side_effect=AssertionError("trained")), \
             pytest.raises(NotImplementedError, match=match):

@@ -21,6 +21,7 @@ import signal
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ import torch
 from pgx.models import zoo as jzoo
 from pgx_torch import checkpoint as tckpt
 from pgx_torch.augment import bgc_config
+from pgx_torch.cli import common as cli_common
 from pgx_torch.cli import conditional_proper_cifar_train as cli
 from pgx_torch.data import synthetic_dataset
 from pgx_torch.models import zoo as tzoo
@@ -264,8 +266,19 @@ def test_loop_config_refuses_unported_options(tmp_path, field, value):
     loop's CSV and final state equal those of single steps.  ``fid_every``
     is ported and accepted: a run scores the EMA generator at its cadence
     into fid_score.json, marked in-training (parity with pgx's loop is in
-    tests/test_torch_eval_loop.py)."""
-    if field == "fid_every":
+    tests/test_torch_eval_loop.py).  ``checkpoint_backend='orbax'`` is
+    ported and accepted: the loop reaches ``train_loop`` with it and keeps
+    the full state in the step-indexed store, not in ``*_state.pt``."""
+    if field == "checkpoint_backend":
+        assert LoopConfig(**{field: value}).checkpoint_backend == "orbax"
+        trial = _loop(tmp_path, total_iterations=2, keep_full_state=True,
+                      checkpoint_backend=value)
+        names = os.listdir(os.path.join(trial, "checkpoint"))
+        assert not any(n.endswith("_state.pt") for n in names)
+        assert {"001_g.model", "002_d.model"} <= set(names)
+        assert sorted(os.listdir(os.path.join(trial, "step_state"))) == [
+            "1", "2"]
+    elif field == "fid_every":
         assert LoopConfig(**{field: value}).fid_every == value
         trial = _loop(tmp_path, total_iterations=4, fid_every=4,
                       fid_samples=8)
@@ -352,7 +365,19 @@ def test_cli_trains_a_short_trial(tmp_path, extra, header):
 def test_cli_refuses_unported_flags(tmp_path, flags, match):
     """What is not ported raises; ``--steps-per-call`` and ``--gp-mode jvp``
     are ported: the CLI trains with them and saves them in the trial's
-    config."""
+    config.  ``--checkpoint-backend orbax`` is ported: the CLI reaches
+    ``train_loop`` with ``checkpoint_backend='orbax'``."""
+    if match == "checkpoint_backend":
+        seen = {}
+
+        def spy(*args, **kwargs):
+            seen["loop_cfg"] = args[5]
+            return "spy"
+        with mock.patch.object(cli_common, "train_loop", spy):
+            assert cli.main(CLI_ARGS + ["--output", str(tmp_path)]
+                            + flags) == "spy"
+        assert seen["loop_cfg"].checkpoint_backend == "orbax"
+        return
     if match in ("steps_per_call", "gp_mode"):
         trial = cli.main(CLI_ARGS + ["--output", str(tmp_path)] + flags)
         rows = _rows(trial)

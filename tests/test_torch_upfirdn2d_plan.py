@@ -28,8 +28,10 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _record(run):
-    """The (shape, ntaps, up, down, pads) of every kernel D launch that
-    ``run()`` makes on meta tensors, forward and backward."""
+    """The (shape, ntaps, up, down, pads) of every kernel D call that
+    ``run()`` makes on meta tensors, forward and backward: recorded in the
+    op's fake implementation, which meta tensors reach in place of the
+    launch."""
     calls = []
 
     def launch(x, taps, up, down, pads, flip_filter):
@@ -40,7 +42,7 @@ def _record(run):
             b, U.out_len(h, len(taps), up, down, py0, py1),
             U.out_len(w, len(taps), up, down, px0, px1), c, device="meta")
 
-    with mock.patch.object(U, "_launch", launch):
+    with mock.patch.object(U, "_fake", launch):
         run()
     return calls
 
