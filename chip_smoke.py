@@ -144,12 +144,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    grey; the card's f32 Inception features against the CPU's (1e-4 of the
    largest feature), unchanged with the caller's TF32 flags left on, and
    Inception's time per batch of 50 against its f32 bound; the flagship
-   (random weights, seeds 0 and 1) as a trial of two checkpoints, exported
+   (random weights, seed 0) as a trial of one checkpoint, exported
    to reference .model files and imported back (--sample) byte for byte;
    ``pgx_torch.cli.fid_sweep --kid``, 2048 samples a side, on the imported
    trial (f32 sampling: its config carries no dtype) and on the bf16
    trial, each with launch counts from 0 (A 2, B 1, C 9 per sampling
-   batch), nothing traced, finite FID and KID for both checkpoints, its
+   batch), nothing traced, finite FID and KID for the checkpoint, its
    seconds per checkpoint and the host time of each part (sampling,
    activations, sqrtm, KID); a second sweep that scores nothing; one bf16
    checkpoint scored again alone under torch.profiler (idle share); A, B
@@ -176,13 +176,49 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    B and A's forward back to back at the serving forward's calls, and the
    128px iteration, with the ops and with each op swapped for a direct call
    of its launch, in turns.
-11. card   — nvidia-smi's name and power limit.
+11. ddp     — data parallelism, on the one card.  NCCL at world 1 in this
+   process: one bf16 128px flagship iteration (batch 32, reverse
+   penalty, learning rate 0) through ``make_train_step(process_group=)``
+   against the group-free iteration run twice: bit for bit on every
+   tensor the card repeats (metrics, parameters, Adam moments, the EMA),
+   the rest (G's gradients upstream of the atomics of its bilinear
+   upsample's and label embedding's backward) within 4x the two runs'
+   spread; launches per iteration as the configs imply, the all-reduce
+   calls beside them.  ``GeneratorService(data_parallel=2)``
+   raises pgx's ValueError on one card; the split-and-gather helper over
+   ``[cuda:0, cuda:0]`` at buckets 1, 8 and 64 (A 2, B 1, C 9 per half),
+   bit for bit against the halves forwarded one after the other and
+   within the serve phase's tolerance of the whole batch (bitwise or not,
+   reported), the service over that list against the one-device service,
+   and Inception's batch split the same way (50 and a ragged 7).  Then two
+   gloo ranks as subprocesses of this script (``--ddp-rank``), each
+   importing only pgx_torch, the library built by phase 1: the f32
+   flagship at 128px, global batch 32 (16 a rank), TF32 off, one reverse
+   and one jvp iteration without and with ADA (shear warp) at learning
+   rate 0 with the global draws handed in, metrics (1e-3) and D's and G's
+   gradients (3e-2 of the largest entry, 5e-3 in the mean: the f32 train
+   check's yardstick) against the same iteration at world 1 on rank 0;
+   four bf16 ADA iterations with the controller, launches per iteration
+   checked on each rank, then ``check_replica_consistency`` over the whole
+   state, bit for bit; ms per iteration of each rank beside world 1 at
+   batch 32 and 16 and the gradients' all-reduce per step (gloo through
+   host memory on one card, not NCCL across cards); ``train_loop`` over
+   the group (the phase initializes gloo; the CLI's ``--multihost`` would
+   pick NCCL) with the flagship CLI's data, schedule and fixed ADA p, 64px
+   for 4 iterations, then resumed to 8 at 128px, launches as the configs
+   imply, the replicas bit for bit at the end of each run, rank 0 alone
+   writing (the other rank's directory stays empty and the trial it is
+   told to resume does not exist).
+12. card   — nvidia-smi's name and power limit.
+
+Depth cut for phase 11's time: phase 9's trial holds one checkpoint (was
+two); each checkpoint cost each sweep ~45 s of host sqrtm and KID.
 
 Every bf16 kernel row of phase 2 also carries the kernel's device time
 from a CUDA graph (``device_ms``), beside the back-to-back time (``ms``).
 
 Prints JSON lines; the last two lines before the final one are the
-kernels table (ten entries) and the card, the last line is
+kernels table (ten entries, each with ``launches_ddp``) and the card, the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2101,7 +2137,7 @@ def new_ada_step(gcfg, dcfg, warp: str):
     from pgx_torch.train import make_train_step
     g, d, tc, state = new_train_state(gcfg, dcfg, "bfloat16")
     # as a resumed run sets it: the constructor's default device is the card
-    state["ada"] = init_ada_state(ADA_P0)
+    state["ada"] = init_ada_state(ADA_P0, DEVICE)
     require(all(v.device.type == DEVICE for v in state["ada"].values()),
             "init_ada_state() did not land on the card")
     step = make_train_step(g, d, tc, step=TRAIN_STEP, fading=False,
@@ -3876,7 +3912,9 @@ def recipe_phase(torch) -> dict:
 EVAL_BATCH = 50
 EVAL_SAMPLES = 2048       # a side: pool3 has 2048 dimensions, fewer images
                           # leave both covariances singular
-EVAL_ITERS = (100, 200)   # past the schedule's end: step 6, 128px, alpha 1
+EVAL_ITERS = (100,)       # past the schedule's end: step 6, 128px, alpha 1
+# (one checkpoint: each costs the sweep ~45 s of host sqrtm and KID on its
+# own, and a second one scored the same code path again)
 SWEEP_ARGS = ["--kid", "--dataset", "synthetic", "--num-samples",
               str(EVAL_SAMPLES), "--num-real", str(EVAL_SAMPLES),
               "--batch-size", str(EVAL_BATCH)]
@@ -4162,8 +4200,7 @@ def counted_sweep(torch, trial: str, dtype: str) -> dict:
                 k: launches[k] / batches for k in (A, B, C)},
             "wall_s": wall, "seconds_per_checkpoint": wall / len(names),
             "generate_s": probes["generate_s"],
-            # the first checkpoint's samples, the 2048 real images, the
-            # second checkpoint's samples
+            # the checkpoint's samples, then the 2048 real images
             "activations_s": probes["activations_s"],
             "frechet_s": probes["frechet_s"], "kid_s": probes["kid_s"]}
 
@@ -4232,8 +4269,8 @@ def eval_kernel_phase(torch, cfg, icfg, params) -> dict:
 
 
 def eval_sweep_phase(torch, cfg, dcfg, params) -> dict:
-    """The flagship (random weights from seeds 0 and 1) as a bf16 trial of
-    two checkpoints; exported to reference .model files
+    """The flagship (random weights from seed 0) as a bf16 trial of one
+    checkpoint; exported to reference .model files
     (cli/export_torch_checkpoint) and imported back (cli/import_checkpoint
     --sample): every parameter byte for byte.  Then two main paths, each
     cli/fid_sweep --kid with 2048 samples and 2048 synthetic real images at
@@ -4248,7 +4285,7 @@ def eval_sweep_phase(torch, cfg, dcfg, params) -> dict:
     from pgx_torch.cli import export_torch_checkpoint, fid_sweep, \
         import_checkpoint
     from pgx_torch.models.discriminator import init_discriminator
-    from pgx_torch.models.generator import Generator, init_generator
+    from pgx_torch.models.generator import Generator
     from pgx_torch.ops import kernels as K
     from pgx_torch.train.wgan import make_eval_generate
 
@@ -4256,8 +4293,8 @@ def eval_sweep_phase(torch, cfg, dcfg, params) -> dict:
     out = {}
     try:
         orig = os.path.join(root, "trial_flagship")
-        g_trees = [params, init_generator(cfg, seed=1)]
-        d_trees = [init_discriminator(dcfg, seed=n) for n in (10, 11)]
+        g_trees = [params]
+        d_trees = [init_discriminator(dcfg, seed=10)]
         write_flagship_trial(orig, cfg, dcfg, g_trees, d_trees)
         ref, imported = (os.path.join(root, n) for n in ("ref", "imported"))
         t0 = time.perf_counter()
@@ -4770,7 +4807,699 @@ def export_store_phase(torch, cfg, dcfg, params, served: dict,
     return {"artifact": artifact, "store": store, "route": route}
 
 
+# ---------------------------------------------------------------------------
+# 11. data parallelism: NCCL at world 1, two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+DDP_WORLD = 2
+DDP_RANK_TIMEOUT = 600    # seconds for both ranks together
+DDP_BF16_ITERS = 4        # bf16 ADA iterations at world 2 (the first warms)
+DDP_F32_VARIANTS = (("reverse", {}, False), ("jvp", {"gp_mode": "jvp"}, False),
+                    ("reverse_ada", {}, True),
+                    ("jvp_ada", {"gp_mode": "jvp"}, True))
+# the world-2 loop: 2 iterations a mini-step at the global batch 32, 64px
+# fade + stable (iterations 0-3), then resumed: 128px fade + stable (4-7)
+DDP_LOOP_SPLIT, DDP_LOOP_TOTAL = 4, 8
+DDP_LOOP_CHECKPOINTS = (1, 4, 5, 8)   # run start, cadence, end; resume start
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def ddp_inputs(torch, gcfg, seed: int, ada: bool):
+    """One iteration's global inputs on the card from a seed (the same on
+    every rank): the real batch of TRAIN_BATCH, labels, z, eps and, with
+    ADA, the three draw sources."""
+    from pgx_torch.train import draw_augment_sources
+    real, labels, z, eps = train_batch(torch, gcfg, seed)
+    draws = dict(z=z, eps=eps)
+    if ada:
+        rng = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+        draws["aug_draws"] = draw_augment_sources(rng)
+    return real, labels, draws
+
+
+@contextlib.contextmanager
+def counting_collectives(torch):
+    """Count the all-reduce calls (each one NCCL or gloo collective) made
+    inside the block."""
+    import torch.distributed as dist
+    seen = {"all_reduce": 0}
+    inner = dist.all_reduce
+
+    def counted(*a, **kw):
+        seen["all_reduce"] += 1
+        return inner(*a, **kw)
+
+    with mock.patch.object(dist, "all_reduce", counted):
+        yield seen
+
+
+def state_leaves(state) -> dict:
+    """Every tensor of a train state by name (parameters, Adam moments,
+    the controller), for bitwise comparison."""
+    out = {}
+    for net in ("g", "d", "g_ema"):
+        for n, p in state[net].state_dict().items():
+            out[f"{net}.{n}"] = p
+    for opt in ("opt_g", "opt_d"):
+        for m in ("mu", "nu"):
+            for n, t in state[opt][m].items():
+                out[f"{opt}.{m}.{n}"] = t
+    for k, v in state["ada"].items():
+        out[f"ada.{k}"] = v
+    return out
+
+
+def ddp_world1_phase(torch, gcfg, dcfg) -> dict:
+    """NCCL at world 1 in this process: one bf16 128px flagship iteration
+    (batch 32, reverse penalty, learning rate 0) through
+    ``make_train_step(process_group=)`` against the group-free iteration
+    run twice (cuDNN in its deterministic mode).  The card's own
+    arithmetic does not repeat bit for bit: the backward of the
+    generator's bilinear upsample and of the label embedding's gather add
+    with atomics (torch has no deterministic version of the first).  So
+    every tensor (metrics, parameters, Adam moments, the EMA) that the two
+    group-free runs give bit for bit must come out bit for bit with the
+    group; each of the others (the generator's gradients upstream of those
+    atomics, in Adam's moments) within 4x the largest relative spread of
+    the two group-free runs over those tensors.  Learning rate 0: Adam at
+    beta1 = 0 turns a rounding-size difference of a near-zero gradient
+    entry into a +-lr move of its weight, which no spread of two runs
+    bounds.  The kernel launches of each run as ``calls_per_iteration``
+    gives, the all-reduce calls per iteration, ms per iteration (at the
+    default learning rate) of both."""
+    import torch.distributed as dist
+    from pgx_torch.ops import kernels as K
+    from pgx_torch.parallel.distributed import backend_for
+    from pgx_torch.train import make_train_step
+    dist.init_process_group(backend_for(DEVICE),
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        require(dist.get_backend() == "nccl",
+                f"backend {dist.get_backend()} for the card")
+        runs, out = {}, {}
+        for name, group in (("group_free", None),
+                            ("group_free_again", None),
+                            ("nccl_world_1", dist.group.WORLD)):
+            g, d, tc, state = new_train_state(gcfg, dcfg, "bfloat16")
+            step = make_train_step(g, d, tc, step=TRAIN_STEP, fading=False,
+                                   process_group=group)
+            step0 = make_train_step(g, d, dataclasses.replace(
+                tc, learning_rate=0.0), step=TRAIN_STEP, fading=False,
+                process_group=group)
+            want = calls_per_iteration(g, d, TRAIN_STEP)
+            real, labels, draws = ddp_inputs(torch, g, 900, False)
+            # ---- the main path: counts from 0 around the iteration ----
+            with counting_collectives(torch) as colls:
+                K.reset_launch_counts()
+                _, metrics = step0(state, real, labels, 1.0, **draws)
+                torch.cuda.synchronize()
+                launches = K.launch_counts()
+            # ------------------------------------------------------------
+            require(launches == want, f"{name}: launches {launches} != "
+                                      f"{want}")
+            leaves = {f"metric.{k}": v.clone() for k, v in metrics.items()}
+            leaves.update({k: v.detach().clone()
+                           for k, v in state_leaves(state).items()})
+            runs[name] = leaves
+            times = []
+            for i in range(3):
+                real, labels, draws = ddp_inputs(torch, g, 901 + i, False)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, real, labels, 1.0, **draws)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            out[name] = {"launches_per_iteration": launches,
+                         "all_reduce_calls_per_iteration":
+                             colls["all_reduce"],
+                         "ms_per_iteration": statistics.median(times)}
+            del state, step
+            torch.cuda.empty_cache()
+        a, a2, nccl = (runs[k] for k in ("group_free", "group_free_again",
+                                         "nccl_world_1"))
+        repeatable = [k for k in a if torch.equal(a[k], a2[k])]
+        differ = [k for k in repeatable if not torch.equal(a[k], nccl[k])]
+        require(not differ, f"NCCL world 1 differs from the group-free "
+                            f"iteration where it repeats: {differ[:8]} "
+                            f"({len(differ)})")
+        def rel(x, y):
+            scale = max(y.float().abs().max().item(), 1e-30)
+            return (x.float() - y.float()).abs().max().item() / scale
+
+        noisy = [k for k in a if k not in repeatable]
+        spread = max((rel(a2[k], a[k]) for k in noisy), default=0.0)
+        worst = {"rel_err": 0.0, "tensor": None, "spread": spread}
+        for k in noisy:
+            err = rel(nccl[k], a[k])
+            require(err <= 4.0 * spread, f"NCCL world 1 {k}: {err} of its "
+                                         f"largest entry, over 4x the "
+                                         f"spread {spread}")
+            if err >= worst["rel_err"]:
+                worst.update(rel_err=err, tensor=k)
+        require(out["group_free"]["all_reduce_calls_per_iteration"] == 0
+                and out["nccl_world_1"]["all_reduce_calls_per_iteration"]
+                > 0, f"all-reduce calls {out}")
+        out["tensors"] = len(a)
+        out["bitwise_equal_tensors"] = len(repeatable)
+        out["not_repeatable_on_the_card"] = sorted(
+            set(a) - set(repeatable))
+        out["not_repeatable_worst"] = worst
+        out["launches"] = out["nccl_world_1"]["launches_per_iteration"]
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = prev
+        dist.destroy_process_group()
+
+
+def ddp_serve_fid_phase(torch, cfg, params) -> dict:
+    """``data_parallel=2`` where one card exists: the service raises pgx's
+    ValueError; the split-and-gather helper over ``[cuda:0, cuda:0]``
+    against the unsplit forward at buckets 1, 8 and 64 (each padded to a
+    multiple of 2 as the service pads), bit for bit against the same rows
+    forwarded one chunk after the other, and within the serve phase's bf16
+    tolerance of the whole batch in one forward (reported: equal bit for
+    bit or not); the service itself over the two-device list, its images
+    against the one-device service; then the Inception batch split the
+    same way (f32, TF32 off), a ragged batch padded."""
+    import numpy as np
+    from pgx_torch.eval import fid as tfid
+    from pgx_torch.models.generator import Generator
+    from pgx_torch.ops import kernels as K
+    from pgx_torch.parallel import mesh as pmesh
+    from pgx_torch.serve import GeneratorService
+    from pgx_torch.train.wgan import make_eval_generate
+    out = {}
+    n = len(pmesh.local_devices(DEVICE))
+    refused = None
+    try:
+        GeneratorService.from_params(cfg, params, step=cfg.max_step,
+                                     data_parallel=n + 1, device=DEVICE)
+    except ValueError as e:
+        refused = str(e)
+    require(refused is not None and f"data_parallel={n + 1} but only {n} "
+            f"devices" in refused, f"data_parallel={n + 1} on {n} "
+            f"device(s): {refused}")
+    out["service_refuses"] = refused
+    cuda0 = torch.device(DEVICE, 0)
+    mesh = pmesh.make_mesh([cuda0, cuda0])
+    gen = Generator.from_jax_params(cfg, params, DEVICE)
+    fn = make_eval_generate(cfg, step=cfg.max_step, output="float")
+    rng = torch.Generator(device=DEVICE).manual_seed(7)
+    buckets = {}
+    for bucket in (1, 8, 64):
+        b = max(bucket, 2)
+        z = torch.randn(b, cfg.z_dim, generator=rng, device=DEVICE)
+        lab = torch.arange(b, device=DEVICE) % cfg.num_classes
+        whole = fn(gen, z, lab).float()
+        K.reset_launch_counts()
+        split = pmesh.data_parallel_apply(
+            mesh, lambda g_, zc, lc: fn(g_, zc, lc), [gen, gen], z,
+            lab).float()
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        want = {k: 0 for k in launches}
+        want.update({k: 2 * v for k, v in PER_FORWARD.items()})
+        require(launches == want, f"bucket {bucket}: launches {launches}")
+        h = b // 2
+        chunks = torch.cat([fn(gen, z[:h], lab[:h]),
+                            fn(gen, z[h:], lab[h:])]).float()
+        require(torch.equal(split, chunks),
+                f"bucket {bucket}: split differs from its chunks")
+        err = (split - whole).abs().max().item()
+        tol = 0.05 * whole.abs().max().item()
+        require(err <= tol, f"bucket {bucket}: split vs whole {err} > {tol}")
+        buckets[str(bucket)] = {"padded_batch": b,
+                                "bitwise_equal_to_unsplit":
+                                    bool(torch.equal(split, whole)),
+                                "max_abs_diff_to_unsplit": err, "tol": tol,
+                                "launches": launches}
+    out["generator_split"] = buckets
+    # the service itself, over the two-device list
+    with mock.patch.object(pmesh, "local_devices",
+                           lambda device="cuda": [cuda0, cuda0]):
+        two = GeneratorService.from_params(cfg, params, step=cfg.max_step,
+                                           data_parallel=2, device=DEVICE)
+    one = GeneratorService.from_params(cfg, params, step=cfg.max_step,
+                                       device=DEVICE)
+    try:
+        zz = np.random.RandomState(8).randn(5, cfg.z_dim).astype(np.float32)
+        ll = (np.arange(5) % cfg.num_classes).astype(np.int32)
+        a = two.submit(zz, ll).result(120)
+        bb = one.submit(zz, ll).result(120)
+        diff = np.abs(a.astype(int) - bb.astype(int))
+        require(a.shape == (5, 128, 128, 3) and diff.max() <= 1,
+                f"data-parallel service images differ by {diff.max()}")
+        out["service_uint8_max_diff"] = int(diff.max())
+        out["service_uint8_equal_share"] = float((diff == 0).mean())
+    finally:
+        two.close()
+        one.close()
+    del gen
+    # Inception's batch split
+    ext = tfid.make_extractor(device=DEVICE)
+    split_ext = tfid.make_extractor(
+        {k: v.detach().cpu() for k, v in ext.model.state_dict().items()},
+        device=DEVICE, mesh=mesh)
+    x = torch.randn(EVAL_BATCH, 299, 299, 3, generator=rng, device=DEVICE)
+    fid_rows = {}
+    for b in (EVAL_BATCH, 7):
+        whole = ext(x[:b])
+        got = split_ext(x[:b])
+        h = -(-b // 2)
+        xp = torch.cat([x[:b], x[b - 1:b].expand(2 * h - b, *x.shape[1:])])
+        chunks = np.concatenate([ext(xp[:h]), ext(xp[h:])])[:b]
+        require(np.array_equal(got, chunks),
+                f"Inception batch {b}: split differs from its chunks")
+        err = float(np.abs(got - whole).max())
+        tol = 1e-4 * float(np.abs(whole).max())
+        require(got.shape == (b, 2048) and err <= tol,
+                f"Inception batch {b}: split vs whole {err} > {tol}")
+        fid_rows[str(b)] = {"bitwise_equal_to_unsplit":
+                            bool(np.array_equal(got, whole)),
+                            "max_abs_diff_to_unsplit": err, "tol": tol}
+    out["inception_split"] = fid_rows
+    return out
+
+
+def run_ddp_ranks(torch) -> list:
+    """The two gloo ranks as subprocesses of this script on the one card
+    (``python3 chip_smoke.py --ddp-rank R WORLD PORT DIR``), each importing
+    only pgx_torch; their reports, by rank.  A rank that fails or
+    outlives the limit fails the phase; both are stopped."""
+    import shutil
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="pgx_ddp_")
+    port = free_port()
+    procs, logs = [], []
+    try:
+        for r in range(DDP_WORLD):
+            log = open(os.path.join(root, f"rank{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ddp-rank",
+                 str(r), str(DDP_WORLD), str(port), root], cwd=here,
+                env={**os.environ, "PYTHONPATH": here}, stdout=log,
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DDP_RANK_TIMEOUT
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline or any(
+                    p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+        tails = []
+        for r in range(DDP_WORLD):
+            with open(os.path.join(root, f"rank{r}.log")) as f:
+                tails.append(f.read()[-3000:])
+        require(all(p.returncode == 0 for p in procs), "ddp ranks failed: "
+                + " | ".join(f"rank {r} rc {p.returncode}: {t}"
+                             for r, (p, t) in enumerate(zip(procs, tails))))
+        reports = []
+        for r in range(DDP_WORLD):
+            with open(os.path.join(root, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+        return reports
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def f32_grad_error(got: dict, want: dict, prefix: str) -> dict:
+    """The largest error of any gradient tensor relative to its largest
+    entry, and the largest mean error relative to its mean magnitude."""
+    worst = {"max_err_rel_to_largest_entry": 0.0, "tensor": None,
+             "mean_err_rel_to_mean": 0.0}
+    for name, w in want.items():
+        if not name.startswith(prefix):
+            continue
+        scale = w.abs().max().item()
+        diff = (got[name] - w).abs()
+        if scale == 0.0:
+            require(diff.max().item() == 0.0, f"{name}: off-graph, nonzero")
+            continue
+        worst["mean_err_rel_to_mean"] = max(
+            worst["mean_err_rel_to_mean"],
+            diff.mean().item() / w.abs().mean().item())
+        if diff.max().item() / scale >= worst["max_err_rel_to_largest_entry"]:
+            worst["max_err_rel_to_largest_entry"] = diff.max().item() / scale
+            worst["tensor"] = name
+    return worst
+
+
+def ddp_rank_main(argv) -> int:
+    """One gloo rank of the ddp phase (a subprocess of this script)."""
+    import torch
+    import torch.distributed as dist
+    from pgx_torch.ops.kernels import build
+    rank, world, port, root = int(argv[0]), int(argv[1]), int(argv[2]), \
+        argv[3]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    build.load_library()
+    require(build.build_seconds is None,
+            "a rank built the library (the parent builds it first)")
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    report = ddp_rank_work(torch, rank, world, root)
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    # both reports are on disk before either rank leaves; then leave
+    # without tearing the group down: gloo's teardown can abort (SIGABRT)
+    # a rank whose peer has already closed its sockets
+    dist.barrier()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+def ddp_rank_work(torch, rank: int, world: int, root: str) -> dict:
+    """The rank's part: the f32 check (rank 0 also runs the world-1
+    reference), the bf16 run with the replicas checked, the timing, and
+    the flagship CLI's loop over the group with a resume."""
+    import math
+    import torch.distributed as dist
+    from pgx_torch.augment import AdaConfig, bgc_config, init_ada_state
+    from pgx_torch.models import zoo
+    from pgx_torch.ops import kernels as K
+    from pgx_torch.parallel.collectives import average_
+    from pgx_torch.parallel.distributed import broadcast_obj
+    from pgx_torch.parallel.stats import check_replica_consistency
+    from pgx_torch.train import make_train_step
+    group = dist.group.WORLD
+    cfg = zoo.conditional_correct_generator(
+        z_dim=512, num_classes=10, channel=512, max_step=6, dtype="bfloat16")
+    dcfg = zoo.conditional_correct_discriminator_wgangp(
+        feat_dim=512, num_classes=10, max_step=6, dtype="bfloat16")
+    b = TRAIN_BATCH // world
+    rows = slice(rank * b, (rank + 1) * b)
+    launches = {k: 0 for k in K.launch_counts()}
+    out = {"rank": rank, "rank_batch": b}
+
+    def add_launches(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    def variant_step(g, d, tc, kw, ada, group_):
+        aug = (dict(augment_cfg=bgc_config(), ada_cfg=AdaConfig())
+               if ada else {})
+        return make_train_step(g, d, dataclasses.replace(tc, **kw),
+                               step=TRAIN_STEP, fading=False,
+                               process_group=group_, **aug)
+
+    # ---- f32: world 2 against this script's world-1 iteration ---------
+    t_phase = time.perf_counter()
+    g, d, tc, state = new_train_state(cfg, dcfg, "float32")
+    tc0 = dataclasses.replace(tc, learning_rate=0.0)   # mu = the gradient
+    mine = {}
+    for i, (name, kw, ada) in enumerate(DDP_F32_VARIANTS):
+        state["ada"] = init_ada_state(ADA_P0, DEVICE)
+        step = variant_step(g, d, tc0, kw, ada, group)
+        real, labels, draws = ddp_inputs(torch, g, 910 + i, ada)
+        K.reset_launch_counts()
+        _, m = step(state, real[rows], labels[rows], 1.0, **draws)
+        torch.cuda.synchronize()
+        add_launches(K.launch_counts())
+        mine[name] = ({k: float(v) for k, v in m.items()},
+                      {f"{net}.{n}": t.clone() for net in ("d", "g")
+                       for n, t in state[f"opt_{net}"]["mu"].items()},
+                      float(state["ada"]["p"]))
+    del state
+    torch.cuda.empty_cache()
+    if rank == 0:
+        g1, d1, tc1, ref_state = new_train_state(cfg, dcfg, "float32")
+        checks = {}
+        for i, (name, kw, ada) in enumerate(DDP_F32_VARIANTS):
+            ref_state["ada"] = init_ada_state(ADA_P0, DEVICE)
+            step = variant_step(g1, d1, dataclasses.replace(
+                tc1, learning_rate=0.0), kw, ada, None)
+            real, labels, draws = ddp_inputs(torch, g1, 910 + i, ada)
+            _, m = step(ref_state, real, labels, 1.0, **draws)
+            torch.cuda.synchronize()
+            ref = ({k: float(v) for k, v in m.items()},
+                   {f"{net}.{n}": t for net in ("d", "g")
+                    for n, t in ref_state[f"opt_{net}"]["mu"].items()})
+            got_m, got_mu, got_p = mine[name]
+            worst_metric = 0.0
+            for k, v in ref[0].items():
+                err = abs(got_m[k] - v)
+                require(err <= 1e-4 + 1e-3 * abs(v),
+                        f"f32 {name}: metric {k} world 2 {got_m[k]} vs "
+                        f"world 1 {v}")
+                worst_metric = max(worst_metric, err / max(abs(v), 1e-4))
+            dg = f32_grad_error(got_mu, ref[1], "d.")
+            gg = f32_grad_error(got_mu, ref[1], "g.")
+            for what, r in (("D", dg), ("G", gg)):
+                require(r["max_err_rel_to_largest_entry"] <= 3e-2
+                        and r["mean_err_rel_to_mean"] <= 5e-3,
+                        f"f32 {name}: {what} gradients world 2 vs world 1 "
+                        f"{r}")
+            checks[name] = {"metric_max_rel_err": worst_metric,
+                            "d": dg, "g": gg, "ada_p_world_2": got_p,
+                            "ada_p_world_1": float(ref_state["ada"]["p"]),
+                            "metrics_world_2": got_m,
+                            "metrics_world_1": ref[0]}
+        out["f32_check"] = {"tol": {"metric_rel": 1e-3, "metric_abs": 1e-4,
+                                    "grad_max_rel_to_largest": 3e-2,
+                                    "grad_mean_rel_to_mean": 5e-3},
+                            "variants": checks}
+        del ref_state
+        torch.cuda.empty_cache()
+    mine.clear()
+    dist.barrier()
+    out["f32_s"] = time.perf_counter() - t_phase
+
+    # ---- bf16 ADA iterations at world 2, then the replicas ------------
+    g, d, tc, state = new_train_state(cfg, dcfg, "bfloat16")
+    state["ada"] = init_ada_state(ADA_P0, DEVICE)
+    step = make_train_step(g, d, tc, step=TRAIN_STEP, fading=False,
+                           augment_cfg=bgc_config(),
+                           ada_cfg=AdaConfig(interval_batches=1),
+                           process_group=group)
+    want = calls_per_iteration(g, d, TRAIN_STEP, "shear")
+    times, ps = [], []
+    for i in range(DDP_BF16_ITERS):
+        real, labels, draws = ddp_inputs(torch, g, 950 + i, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # ---- the main path: counts from 0 around each iteration ----
+        K.reset_launch_counts()
+        _, m = step(state, real[rows], labels[rows], 1.0, **draws)
+        torch.cuda.synchronize()
+        got = K.launch_counts()
+        # ------------------------------------------------------------
+        times.append(1e3 * (time.perf_counter() - t0))
+        require(got == want, f"rank {rank} bf16 iteration {i}: launches "
+                             f"{got} != {want}")
+        add_launches(got)
+        require(all(math.isfinite(float(v)) for v in m.values()),
+                f"rank {rank} bf16 metrics {m}")
+        ps.append(float(state["ada"]["p"]))
+    t0 = time.perf_counter()
+    check_replica_consistency(state, label="bf16 state", group=group)
+    out["bf16"] = {"launches_per_iteration": want,
+                   "ms_per_iteration": statistics.median(times[1:]),
+                   "ms_each": times, "ada_p": ps,
+                   "replica_check_s": time.perf_counter() - t0,
+                   "state_tensors": len(state_leaves(state))}
+    # the all-reduce of one step's gradients (D's, then G's), alone
+    grads = [[torch.zeros_like(p) for p in state[net].parameters()]
+             for net in ("d", "g")]
+    ar = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for gl in grads:
+            average_(gl, group)
+        torch.cuda.synchronize()
+        ar.append(1e3 * (time.perf_counter() - t0))
+    out["bf16"]["all_reduce_ms_per_step"] = statistics.median(ar)
+    out["bf16"]["all_reduce_bytes_per_step"] = sum(
+        t.numel() * t.element_size() for gl in grads for t in gl)
+    del grads
+    dist.barrier()
+    if rank == 0:
+        # world 1 in this process, the other rank idle: the same iteration
+        # with no group at the global batch and at the rank's batch
+        step1 = make_train_step(g, d, tc, step=TRAIN_STEP, fading=False,
+                                augment_cfg=bgc_config(),
+                                ada_cfg=AdaConfig(interval_batches=1))
+        for label, sl in (("world_1_batch_32", slice(None)),
+                          (f"world_1_batch_{b}", rows)):
+            ts = []
+            for i in range(3):
+                real, labels, draws = ddp_inputs(torch, g, 960 + i, True)
+                draws["z"], draws["eps"] = draws["z"][sl], draws["eps"][sl]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step1(state, real[sl], labels[sl], 1.0, **draws)
+                torch.cuda.synchronize()
+                ts.append(1e3 * (time.perf_counter() - t0))
+            out["bf16"][f"{label}_ms_per_iteration"] = statistics.median(
+                ts[1:])
+    dist.barrier()
+    del state, step
+    torch.cuda.empty_cache()
+
+    # ---- train_loop over the group, stopped and resumed ---------------
+    from pgx_torch.data import synthetic_dataset
+    from pgx_torch.train import LoopConfig, ProperSchedule, TrainConfig
+    from pgx_torch.train.loop import train_loop
+    loop_root = os.path.join(root, f"loop_rank{rank}")
+    os.makedirs(loop_root)
+    checked = []
+    # the flagship CLI's data and schedule: 2 iterations a mini-step
+    dataset = synthetic_dataset(n=max(4 * TRAIN_BATCH, 256), size=32,
+                                channels=3, num_classes=cfg.num_classes,
+                                seed=0)
+    schedule = ProperSchedule(2 * TRAIN_BATCH, TRAIN_BATCH,
+                              max_step=cfg.max_step, init_step=5)
+
+    def run_loop(total, resume):
+        def on_iteration(i, st, state_, metrics):
+            if i == total - 1:
+                check_replica_consistency(state_, label=f"loop state at "
+                                          f"{i + 1}", group=group)
+                checked.append(i + 1)
+        return train_loop(
+            cfg, dcfg, TrainConfig(), schedule, dataset,
+            LoopConfig(trial_name="ddp", main_path=loop_root,
+                       batch_size=TRAIN_BATCH, sample_every=4,
+                       checkpoint_every=4, log_every=2,
+                       total_iterations=total, verbose=False),
+            resume_dir=resume, augment_cfg=bgc_config(), augment_p=ADA_P0,
+            hooks={"on_iteration": on_iteration}, device=DEVICE)
+
+    t0 = time.perf_counter()
+    K.reset_launch_counts()
+    trial = broadcast_obj(run_loop(DDP_LOOP_SPLIT, None), group)
+    # rank 0 alone reads the trial: the others get a path that is not
+    run_loop(DDP_LOOP_TOTAL, trial if rank == 0
+             else os.path.join(loop_root, "trial_absent"))
+    torch.cuda.synchronize()
+    loop_l = K.launch_counts()
+    add_launches(loop_l)
+    g5 = g_calls_per_forward(cfg, 5)
+    g6 = g_calls_per_forward(cfg, 6)
+    want = {k: (DDP_LOOP_SPLIT * v + (DDP_LOOP_TOTAL - DDP_LOOP_SPLIT)
+                * calls_per_iteration(cfg, dcfg, 6, "shear")[k])
+            for k, v in calls_per_iteration(cfg, dcfg, 5, "shear").items()}
+    if rank == 0:   # the sample grids: one G forward each, rank 0 alone
+        for k in g5:
+            want[k] += 2 * g5[k] + 2 * g6[k]
+    require(loop_l == want, f"rank {rank} loop launches {loop_l} != {want}")
+    require(checked == [DDP_LOOP_SPLIT, DDP_LOOP_TOTAL],
+            f"rank {rank}: replicas checked at {checked}")
+    files = sorted(os.path.relpath(os.path.join(dp, f), loop_root)
+                   for dp, _, fs in os.walk(loop_root) for f in fs)
+    loop = {"seconds": time.perf_counter() - t0, "launches": loop_l,
+            "files_written": len(files),
+            "replicas_bitwise_equal_after_iterations": checked}
+    if rank == 0:
+        loop["trial"] = ddp_check_trial(trial)
+    else:
+        require(files == [], f"rank {rank} wrote {files[:5]}")
+    out["loop"] = loop
+    out["launches"] = launches
+    return out
+
+
+def ddp_check_trial(trial: str) -> dict:
+    """What rank 0 must have written: finite CSV rows at 2, 4 (64px) and
+    6, 8 (128px), timing.json, the checkpoints and grids at
+    DDP_LOOP_CHECKPOINTS."""
+    import glob
+    import math
+    (log,) = glob.glob(os.path.join(trial, "train_log_*.txt"))
+    with open(log) as f:
+        rows = [[float(v) for v in line.split(",")]
+                for line in f.read().splitlines()[1:]]
+    require([int(r[0]) for r in rows] == [2, 4, 6, 8]
+            and all(math.isfinite(v) for r in rows for v in r),
+            f"ddp loop CSV {rows}")
+    with open(os.path.join(trial, "timing.json")) as f:
+        timing = json.load(f)
+    require({k: v["resolution"] for k, v in timing.items()}
+            == {"2": 64, "4": 64, "6": 128, "8": 128},
+            f"ddp loop timing.json {timing}")
+    names = set(os.listdir(os.path.join(trial, "checkpoint")))
+    samples = set(os.listdir(os.path.join(trial, "sample")))
+    for it in DDP_LOOP_CHECKPOINTS:
+        for kind in ("g.model", "d.model", "state.pt"):
+            require(f"{it:03d}_{kind}" in names,
+                    f"ddp loop: no {it:03d}_{kind} in {sorted(names)}")
+        require(f"{it:03d}.png" in samples, f"ddp loop: no sample {it}")
+    return {"csv": rows, "timing": timing,
+            "checkpoints": sorted(names), "samples": sorted(samples)}
+
+
+def ddp_phase(torch, cfg, dcfg, params) -> dict:
+    """Phase 11: NCCL at world 1 in this process, data-parallel serving and
+    Inception over a two-device list of the one card, then the two gloo
+    ranks.  ``launches`` sums every kernel launch of the phase's main
+    paths (the world-1 group iteration, the split forwards, and each
+    rank's iterations and loop)."""
+    t0 = time.monotonic()
+    world1 = ddp_world1_phase(torch, cfg, dcfg)
+    emit({"phase": "ddp_nccl_world_1", **world1})
+    served = ddp_serve_fid_phase(torch, cfg, params)
+    emit({"phase": "ddp_serve_fid", **served})
+    torch.cuda.empty_cache()
+    t_ranks = time.monotonic()
+    ranks = run_ddp_ranks(torch)
+    ranks_s = time.monotonic() - t_ranks
+    launches = dict(world1["launches"])
+    for row in served["generator_split"].values():
+        for k, v in row["launches"].items():
+            launches[k] += v
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    r0, r1 = ranks
+    require(r0["bf16"]["launches_per_iteration"]
+            == r1["bf16"]["launches_per_iteration"], "ranks' launches")
+    out = {"world_1": world1, "serve_fid": served,
+           "gloo_world_2": {
+               "note": "two gloo ranks sharing one card: collectives go "
+                       "through host memory, each rank's kernels share "
+                       "the card with the other's",
+               "f32_check": r0["f32_check"],
+               "ms_per_iteration_by_rank": [r["bf16"]["ms_per_iteration"]
+                                            for r in ranks],
+               "all_reduce_ms_per_step_by_rank": [
+                   r["bf16"]["all_reduce_ms_per_step"] for r in ranks],
+               "all_reduce_bytes_per_step": r0["bf16"][
+                   "all_reduce_bytes_per_step"],
+               "bf16": {f"rank{r['rank']}": r["bf16"] for r in ranks},
+               "loop": {f"rank{r['rank']}": r["loop"] for r in ranks},
+               "f32_s_by_rank": [r["f32_s"] for r in ranks],
+               "ranks_s": ranks_s},
+           "launches": launches, "seconds": time.monotonic() - t0}
+    return out
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--ddp-rank"]:     # a rank of phase 11
+        return ddp_rank_main(sys.argv[2:])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -4900,6 +5629,11 @@ def main() -> int:
     artifact_launches = {k: sum(r["launches"][k] for r in
                                 exported["artifact"]["loader"]["runs"])
                          for k in build.LAUNCHES}
+    # 11. data parallelism: NCCL at world 1, the split serving and
+    # Inception batches, two gloo ranks on the card
+    ddp = ddp_phase(torch, cfg, dcfg, params)
+    emit({"phase": "ddp", **ddp, "total_s": time.monotonic() - t_start})
+    ddp_launches = ddp["launches"]
     recipe_launches_ = {k: recipe["cli"]["launches"][k] + sum(
         m[f"launches_{it}_iteration"][k] for m in recipe["bare"].values()
         for it in ("penalty", "plain")) for k in recipe["cli"]["launches"]}
@@ -4928,6 +5662,7 @@ def main() -> int:
         eval_l = eval_launches[name]
         eval_bf16_l = eval_bf16_launches[name]
         require(train_launches > 0 and ada_launches > 0 and loop_l > 0
+                and ddp_launches[name] > 0
                 and (serve_launches > 0 or not on_serve)
                 and ((eval_l > 0 and eval_bf16_l > 0) or not on_serve),
                 f"{name}: not launched on its main path")
@@ -4936,7 +5671,8 @@ def main() -> int:
                  "launches": (serve_launches + train_launches + ada_launches
                               + loop_l + recipe_launches_[name] + eval_l
                               + eval_bf16_l + cli_launches[name]
-                              + artifact_launches[name]),
+                              + artifact_launches[name]
+                              + ddp_launches[name]),
                  "launches_serve": serve_launches,
                  "launches_eval_sweep": eval_l,
                  "launches_eval_sweep_bf16": eval_bf16_l,
@@ -4946,6 +5682,7 @@ def main() -> int:
                  "launches_train_512_recipe": recipe_launches_[name],
                  "launches_cli": cli_launches[name],
                  "launches_export_artifact": artifact_launches[name],
+                 "launches_ddp": ddp_launches[name],
                  # the launches of one run of the path named in "per": ms,
                  # plain_ms and bound_ms are sums over these
                  "launches_per_path_run": head[(name, "bfloat16")]["calls"],
@@ -5000,7 +5737,8 @@ def main() -> int:
     launches = {"launches_train": trained["launches"][A_BWD2],
                 "launches_train_ada": ada["launches"][A_BWD2],
                 "launches_train_loop": loop_launches[A_BWD2],
-                "launches_train_512_recipe": recipe_launches_[A_BWD2]}
+                "launches_train_512_recipe": recipe_launches_[A_BWD2],
+                "launches_ddp": ddp_launches[A_BWD2]}
     require(all(v > 0 for v in launches.values()),
             f"{A_BWD2}: not launched on its main path ({launches})")
     launches["launches_cli"] = cli_launches[A_BWD2]
@@ -5024,8 +5762,10 @@ def main() -> int:
     # iteration of the 512px recipe, timed at one such iteration's calls
     source, replaces = SOURCES[A_JVP]
     tg = recipe["tangent"]
-    launches = {"launches_train_512_recipe": recipe_launches_[A_JVP]}
+    launches = {"launches_train_512_recipe": recipe_launches_[A_JVP],
+                "launches_ddp": ddp_launches[A_JVP]}
     require(launches["launches_train_512_recipe"] > 0
+            and launches["launches_ddp"] > 0
             and recipe["bare"]["reverse"]["launches_penalty_iteration"][
                 A_JVP] == 0,
             f"{A_JVP}: launches {launches}, reverse mode "
@@ -5055,7 +5795,8 @@ def main() -> int:
              ada["launches_per_iteration"][F_], {
                  "launches_train_ada": ada["launches"][F_],
                  "launches_train_loop": loop_launches[F_],
-                 "launches_train_512_recipe": recipe_launches_[F_]}),
+                 "launches_train_512_recipe": recipe_launches_[F_],
+                 "launches_ddp": ddp_launches[F_]}),
             (D_, "one bf16 ADA iteration (gather warp) at batch 32: 6 "
                  "forward and 2 backward launches", gather_launches[D_], {
                      "launches_train_ada_gather": gather_launches[D_],
@@ -5071,6 +5812,7 @@ def main() -> int:
         launches.setdefault("launches_train_loop", loop_launches[name])
         launches.setdefault("launches_train_512_recipe",
                             recipe_launches_[name])
+        launches.setdefault("launches_ddp", ddp_launches[name])
         launches["launches_cli"] = cli_launches[name]
         agg = fde[(name, "bfloat16")]
         entry = {"name": name, "route": "cuda", "source": source,
@@ -5102,7 +5844,7 @@ def main() -> int:
                 for ax in (3, 2)}
         kernels.append(entry)
 
-    # 11. the card
+    # 12. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

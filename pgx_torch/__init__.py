@@ -20,5 +20,8 @@ FID and KID, the checkpoint sweep, the in-training FID), the reference
 ``torch.export`` program per batch bucket, the kernels as
 ``torch.ops.pgx_torch`` nodes), the step-indexed store of the full state
 (``pgx_torch.checkpoint.step_store``), the host utilities
-(``pgx_torch.utils``) and every CLI of ``pgx/cli`` under ``pgx_torch.cli``.
+(``pgx_torch.utils``), data parallelism (``pgx_torch.parallel``: one
+process per rank, the collectives GSPMD places in ``pgx``) and every CLI
+of ``pgx/cli`` under ``pgx_torch.cli``.  Not yet: tensor and spatial model
+parallelism (``pgx/parallel/tp.py``).
 """

@@ -17,6 +17,7 @@ from typing import Dict
 
 import torch
 
+from pgx_torch.parallel.collectives import all_reduce_sum, world_size
 from pgx_torch.utils import resolve_device
 
 
@@ -41,18 +42,28 @@ def init_ada_state(prev_p: float = 0.0,
 
 @torch.no_grad()
 def ada_update(state: Dict[str, torch.Tensor], real_logits: torch.Tensor,
-               cfg: AdaConfig, batch_size: int) -> Dict[str, torch.Tensor]:
+               cfg: AdaConfig, batch_size: int,
+               group=None) -> Dict[str, torch.Tensor]:
     """One accumulation step; adjusts p when enough batches are gathered.
-    Returns a new state dict."""
+    Returns a new state dict.
+
+    ``batch_size`` is the global batch.  With ``group`` (a process group)
+    ``real_logits`` are this rank's rows: the sign sum and the count are
+    summed over the ranks, as GSPMD makes them global in ``pgx``, so every
+    rank's controller takes the same step."""
     f32 = torch.float32
     for key, leaf in state.items():
         if leaf.device != real_logits.device:
             raise ValueError(
                 f"ada_update: state[{key!r}] is on {leaf.device}, the logits "
                 f"on {real_logits.device}")
-    sign_sum = (state["sign_sum"]
-                + torch.sum(torch.sign(real_logits)).to(f32))
-    count = state["count"] + float(real_logits.shape[0])
+    signs = torch.sum(torch.sign(real_logits)).to(f32)
+    rows = float(real_logits.shape[0])
+    if group is not None:
+        signs = all_reduce_sum(signs, group)
+        rows *= world_size(group)
+    sign_sum = state["sign_sum"] + signs
+    count = state["count"] + rows
 
     trigger = count > (batch_size * cfg.interval_batches - 1)
     r_t = sign_sum / torch.clamp_min(count, 1.0)

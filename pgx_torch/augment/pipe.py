@@ -118,6 +118,28 @@ class TorchDraws:
                            device=self.generator.device, dtype=torch.float32)
 
 
+class RankRows:
+    """One rank's rows of a draw source's global draws: each call draws the
+    global batch's shape (``world`` times the rows asked for, on the
+    leading axis) from ``source`` and keeps rows ``[rank * b, (rank + 1) *
+    b)``.  Every rank holds a source in the same state, so together the
+    ranks apply the draws a single process would at the global batch."""
+
+    def __init__(self, source, rank: int, world: int):
+        self.source, self.rank, self.world = source, rank, world
+
+    def _rows(self, fn, shape) -> torch.Tensor:
+        b = shape[0]
+        full = fn((b * self.world,) + tuple(shape[1:]))
+        return full[self.rank * b:(self.rank + 1) * b]
+
+    def uniform(self, shape) -> torch.Tensor:
+        return self._rows(self.source.uniform, shape)
+
+    def normal(self, shape) -> torch.Tensor:
+        return self._rows(self.source.normal, shape)
+
+
 @functools.lru_cache(maxsize=1)
 def _filter_bank() -> np.ndarray:
     """4-band bandpass bank from sym2.  Lazy: scipy is only needed when the

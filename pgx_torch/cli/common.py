@@ -4,9 +4,9 @@
 The flags are ``pgx``'s, plus ``--device`` (``cuda`` unless the caller asks
 for ``cpu``); ``--compile-cache`` has no counterpart.
 ``--checkpoint-backend orbax`` selects the port's step-indexed store.
+``--multihost`` runs one process per rank (``maybe_init_multihost``).
 Values whose code path is not ported yet raise where they are used:
-``LoopConfig`` refuses ``--model-parallel``; ``--multihost`` raises in
-``maybe_init_multihost``.
+``LoopConfig`` refuses ``--model-parallel``.
 """
 
 from __future__ import annotations
@@ -131,8 +131,9 @@ def add_common_args(p: argparse.ArgumentParser,
                         "the full state in the step-indexed store, "
                         "written in the background)")
     p.add_argument("--multihost", action="store_true",
-                   help="one process per host, batch-size global (not "
-                        "ported yet)")
+                   help="one process per rank (per card), joined through "
+                        "--coordinator-address; --batch-size is global, "
+                        "split over the ranks")
     p.add_argument("--coordinator-address", type=str, default=None,
                    help="host:port of process 0")
     p.add_argument("--num-processes", type=int, default=None)
@@ -143,10 +144,19 @@ def add_common_args(p: argparse.ArgumentParser,
 
 
 def maybe_init_multihost(args) -> None:
-    """Call before any device use.  Training over several processes is not
-    ported yet: ``--multihost`` raises."""
+    """Call before any device use.  With ``--multihost`` this process joins
+    the process group of ``--num-processes`` ranks as ``--process-id``
+    through ``--coordinator-address`` (process 0's ``host:port``): NCCL on
+    a card, gloo on the CPU (``pgx_torch.parallel.initialize_multihost``),
+    and ``args.device`` becomes the rank's device (``cuda:{rank %
+    device_count}``).  ``--batch-size`` is then the global batch."""
     if getattr(args, "multihost", False):
-        raise NotImplementedError("--multihost is not ported yet")
+        from pgx_torch.parallel.distributed import initialize_multihost
+        rank, world, dev = initialize_multihost(
+            args.coordinator_address, args.num_processes, args.process_id,
+            device=args.device)
+        args.device = str(dev)
+        print(f"multihost: process {rank}/{world} on {dev}", flush=True)
 
 
 def get_dataset(args, kind: str, num_classes: int = 0):

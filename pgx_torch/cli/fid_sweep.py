@@ -24,7 +24,9 @@ from pgx_torch.data import load_cifar10, load_mnist, load_sklearn_digits, \
     synthetic_dataset
 from pgx_torch.eval import load_torch_weights, make_extractor, sweep_trial
 from pgx_torch.eval.sweep import load_fid_meta
+from pgx_torch.parallel import mesh as pmesh
 from pgx_torch.train.schedule import schedule_from_dict
+from pgx_torch.utils import resolve_device
 
 
 def main(argv=None):
@@ -49,16 +51,13 @@ def main(argv=None):
     p.add_argument("--kid-subset-size", type=int, default=1000)
     p.add_argument("--kid-subsets", type=int, default=100)
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="shard each Inception batch over this many devices "
-                        "(only 1 is ported so far)")
+                   help="split each Inception batch over this many devices "
+                        "of this process")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device for the generator and Inception "
                         "(default: cuda)")
     args = p.parse_args(argv)
-    if args.data_parallel > 1:
-        raise NotImplementedError(
-            "--data-parallel > 1 is not ported yet (ROADMAP.md §1 item 5)")
 
     cfg = ckpt.load_config(args.trial)
     if "schedule" not in cfg:
@@ -89,7 +88,14 @@ def main(argv=None):
     if params is None:
         print("WARNING: no inception weights given — using random init; "
               "scores are NOT comparable to published FID", flush=True)
-    extractor = make_extractor(params, device=args.device)
+    mesh = None
+    if args.data_parallel > 1:
+        devs = pmesh.local_devices(resolve_device(args.device))
+        if len(devs) < args.data_parallel:
+            raise SystemExit(f"--data-parallel {args.data_parallel} needs "
+                             f"that many devices; have {len(devs)}")
+        mesh = pmesh.make_mesh(devs[:args.data_parallel])
+    extractor = make_extractor(params, device=args.device, mesh=mesh)
 
     scores = sweep_trial(args.trial, schedule, real,
                          num_samples=args.num_samples,

@@ -46,6 +46,7 @@ from pgx_torch.ops.kernels import (bias_pixelnorm_lrelu, conv3x3_epilogue)
 from pgx_torch.ops.kernels import conv_epilogue as kernel_c
 from pgx_torch.ops.kernels import epilogue as kernel_a
 from pgx_torch.ops.resize import upsample2x
+from pgx_torch.parallel.collectives import all_reduce_sum, world_size
 
 # ---------------------------------------------------------------------------
 # PixelNorm / LeakyReLU / minibatch stddev
@@ -62,22 +63,41 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
 
 
-def minibatch_stddev(x: torch.Tensor, eps: float = 1e-8,
-                     groups: int = 1) -> torch.Tensor:
+def minibatch_stddev(x: torch.Tensor, eps: float = 1e-8, groups: int = 1,
+                     group=None) -> torch.Tensor:
     """Append the minibatch-stddev feature map as one extra channel.
 
     Biased variance over the batch per (H, W, C) position, sqrt(var + eps),
-    averaged to a scalar, broadcast to (B, H, W, 1) and concatenated.
+    averaged to a scalar, broadcast to (B, H, W, 1) and concatenated.  The
+    variance is computed as ``pgx``'s ``jnp.var`` computes it: in float32
+    (or wider), cast back to ``x``'s type.
 
     ``groups > 1`` takes the statistic independently per contiguous batch
     slice of size ``B / groups``, so one forward over
     ``cat([real, fake, x_hat])`` scores each slice exactly as separate
-    calls would (``TrainConfig.d_concat``)."""
+    calls would (``TrainConfig.d_concat``).
+
+    ``group`` (a process group) takes the statistic over the global batch
+    whose rows are spread over its ranks, as ``pgx`` computes it on a
+    batch-sharded mesh: the count, the sum and the squared deviations are
+    each summed over the ranks (``all_reduce_sum``, differentiable to any
+    order); with ``groups > 1`` per group, slice g of every rank together
+    forming group g."""
     b, h, w, c = x.shape
     if b % groups:
         raise ValueError(f"batch {b} not divisible by groups={groups}")
-    xg = x.reshape(groups, b // groups, h, w, c)
-    var = torch.var(xg, dim=1, correction=0)               # (G, H, W, C)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xg = x.reshape(groups, b // groups, h, w, c).to(acc)
+    total = torch.sum(xg, dim=1)                           # (G, H, W, C)
+    n = b // groups
+    if group is not None:
+        total = all_reduce_sum(total, group)
+        n *= world_size(group)
+    mu = total / n
+    sq = torch.sum(torch.square(xg - mu.unsqueeze(1)), dim=1)
+    if group is not None:
+        sq = all_reduce_sum(sq, group)
+    var = (sq / n).to(x.dtype)
     mean_std = torch.sqrt(var + eps).mean(dim=(1, 2, 3))   # (G,)
     feat = mean_std.to(x.dtype).reshape(groups, 1, 1, 1, 1).expand(
         groups, b // groups, h, w, 1).reshape(b, h, w, 1)

@@ -33,6 +33,7 @@ import torch
 from pgx_torch.data.datasets import _PRECISION_BITS, _bilinear_taps, \
     _resize_batch
 from pgx_torch.eval.inception import build_inception, init_inception
+from pgx_torch.parallel.mesh import data_parallel_apply, replicate
 from pgx_torch.utils import resolve_device
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -139,6 +140,14 @@ class _Extractor:
         self.model = model
         self.device = device
 
+    @staticmethod
+    def _run(model, x: torch.Tensor) -> torch.Tensor:
+        return model(x.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last))
+
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run(self.model, x)
+
     def __call__(self, batch) -> np.ndarray:
         x = torch.as_tensor(batch, dtype=torch.float32).to(self.device)
         flags = (torch.backends.cudnn.allow_tf32,
@@ -147,12 +156,29 @@ class _Extractor:
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
             with torch.inference_mode():
-                feats = self.model(x.permute(0, 3, 1, 2).contiguous(
-                    memory_format=torch.channels_last))
+                feats = self._features(x)
             return feats.cpu().numpy()
         finally:
             (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+class _MeshExtractor(_Extractor):
+    """``_Extractor`` over a mesh of this process's devices: each batch
+    padded to a multiple of the devices with its last image, split, run on
+    every device and gathered on the first."""
+
+    def __init__(self, models, mesh):
+        super().__init__(models[0], mesh.device)
+        self.models, self.mesh = models, mesh
+
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        n, b = len(self.mesh.devices), x.shape[0]
+        pad = (-b) % n
+        if pad:
+            x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+        return data_parallel_apply(
+            self.mesh, self._run, self.models, x)[:b]
 
 
 def make_extractor(params=None, *, generator: Optional[torch.Generator] = None,
@@ -161,16 +187,32 @@ def make_extractor(params=None, *, generator: Optional[torch.Generator] = None,
     (tensor or numpy) -> ``(N, 2048)`` float32 numpy.  ``params``: a state
     dict in torchvision's names (``load_torch_weights``,
     ``inception_from_jax_params``); random weights from ``generator``
-    (``init_inception``) when None.  ``mesh`` (data parallelism) is not
-    ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_extractor(mesh=...): data parallelism is not ported yet "
-            "(ROADMAP.md §1 item 5)")
-    dev = resolve_device(device)
+    (``init_inception``) when None.
+
+    With ``mesh`` (``pgx_torch.parallel.make_mesh`` over this process's
+    devices) the forward runs data-parallel: the model replicated on each
+    device, each batch split into one row chunk per device and the
+    features gathered back; a ragged batch is padded to a multiple of the
+    devices with its last image and sliced back, so the features equal the
+    one-device extractor's for any batch size.  ``device`` is then the
+    mesh's first device."""
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        if mesh.world > 1:
+            raise ValueError(
+                "make_extractor(mesh=...) needs a mesh of this process's "
+                "own devices: build it with make_mesh(devices) and run the "
+                "sweep in one process")
+        for d in mesh.devices:
+            resolve_device(d)
+        dev = mesh.device
     if params is None:
         params = init_inception(generator)
-    return _Extractor(build_inception(params, device=dev), dev)
+    model = build_inception(params, device=dev)
+    if mesh is None or len(mesh.devices) == 1:
+        return _Extractor(model, dev)
+    return _MeshExtractor(replicate(mesh, model), mesh)
 
 
 def get_activations(data: np.ndarray, extractor: Callable,

@@ -111,9 +111,10 @@ class Discriminator(nn.Module):
     def forward(self, img: torch.Tensor,
                 labels: Optional[torch.Tensor] = None, *, step: int,
                 alpha=1.0, fading: bool = False,
-                stddev_groups: int = 1) -> torch.Tensor:
+                stddev_groups: int = 1, stddev_group=None) -> torch.Tensor:
         return discriminator_apply(self, img, labels, step=step, alpha=alpha,
-                                   fading=fading, stddev_groups=stddev_groups)
+                                   fading=fading, stddev_groups=stddev_groups,
+                                   stddev_group=stddev_group)
 
 
 def _block(disc: Discriminator, k: int, x: torch.Tensor) -> torch.Tensor:
@@ -141,12 +142,15 @@ def _from_rgb(disc: Discriminator, k: int, img: torch.Tensor,
 def discriminator_apply(disc: Discriminator, img: torch.Tensor,
                         labels: Optional[torch.Tensor] = None, *, step: int,
                         alpha=1.0, fading: bool = False,
-                        stddev_groups: int = 1) -> torch.Tensor:
+                        stddev_groups: int = 1,
+                        stddev_group=None) -> torch.Tensor:
     """Score a batch of NHWC images entering at the resolution of ``step``.
 
     Returns (B, 1) for the plain and label-plane heads, (B,) for the
     projection head.  ``stddev_groups > 1`` takes the minibatch-stddev
-    statistic per contiguous B/groups slice (``TrainConfig.d_concat``)."""
+    statistic per contiguous B/groups slice (``TrainConfig.d_concat``);
+    ``stddev_group`` (a process group, ``pgx``'s ``stddev_axis_name``)
+    takes it over the batch of every rank."""
     cfg = disc.cfg
     step = min(step, cfg.max_step)
     dtype = cfg.compute_dtype
@@ -161,7 +165,7 @@ def discriminator_apply(disc: Discriminator, img: torch.Tensor,
             skip = _from_rgb(disc, entry - 1, downsample2x(img), labels)
             x = (1 - a) * skip + a * x
 
-    x = L.minibatch_stddev(x, groups=stddev_groups)
+    x = L.minibatch_stddev(x, groups=stddev_groups, group=stddev_group)
     x = _block(disc, 0, x)                      # -> (B, 1, 1, feat)
     h = x.reshape(x.shape[0], -1)
     out = L.equal_linear(disc.linear.w, disc.linear.b, h)

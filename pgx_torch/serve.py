@@ -15,8 +15,11 @@ the port's CUDA kernels.  Serving it well is mostly a batching problem:
   ``GET|POST /generate`` returning a PNG grid or an ``.npz`` of raw
   samples.
 
-Data-parallel serving over several devices is not ported yet
-(``data_parallel > 1`` raises).
+- **Data-parallel serving**: ``data_parallel=n`` replicates the
+  generator on ``cuda:0`` .. ``cuda:n-1``; each bucket is padded to a
+  multiple of n, split into n row chunks that are enqueued on their devices
+  without waiting, and gathered on the first (``pgx``'s batch-sharded
+  mesh, laid out as one process over n devices).
 """
 
 from __future__ import annotations
@@ -35,16 +38,11 @@ import torch
 
 from pgx_torch import checkpoint as ckpt
 from pgx_torch.models.generator import Generator
+from pgx_torch.parallel import mesh as pmesh
 from pgx_torch.train.schedule import ScheduleState, schedule_from_dict
 from pgx_torch.train.wgan import make_eval_generate
 from pgx_torch.utils import resolve_device
 from pgx_torch.utils.png import encode_png, make_grid
-
-
-def _check_data_parallel(data_parallel: int) -> None:
-    if int(data_parallel or 1) > 1:
-        raise NotImplementedError(
-            "data-parallel serving is not ported yet; use data_parallel=1")
 
 
 def _bucket(n: int, max_batch: int) -> int:
@@ -84,8 +82,8 @@ class GeneratorService:
                  watch_interval_s: float = 0.0, output: str = "uint8",
                  fetch_threads: int = 4, data_parallel: int = 1,
                  device="cuda"):
-        _check_data_parallel(data_parallel)
         self.device = resolve_device(device)
+        self._setup_mesh(data_parallel)
         self.trial_dir = trial_dir
         # serving defaults to on-device uint8 quantization: the host fetch
         # is 4x smaller per batch and PNG/npz encoding needs uint8 anyway
@@ -109,9 +107,9 @@ class GeneratorService:
                     device="cuda") -> "GeneratorService":
         """Serve an in-memory ``pgx``-layout params tree (nested dicts of
         numpy arrays) directly: no trial dir, no reload."""
-        _check_data_parallel(data_parallel)
         svc = cls.__new__(cls)
         svc.device = resolve_device(device)
+        svc._setup_mesh(data_parallel)
         svc.trial_dir = None
         svc.output = output
         svc.gcfg = gcfg
@@ -119,7 +117,8 @@ class GeneratorService:
         svc.conditional = gcfg.conditioning != "none"
         svc._lock = threading.Lock()
         svc._pinned = True
-        svc.params = Generator.from_jax_params(gcfg, params, svc.device)
+        svc.params = svc._place_params(
+            Generator.from_jax_params(gcfg, params, svc.device))
         svc.iteration = 0
         svc.state = ScheduleState(step=step, alpha=float(alpha),
                                   fading=fading,
@@ -167,12 +166,34 @@ class GeneratorService:
                 name="pgx-serve-watcher", daemon=True)
             self._watcher.start()
 
+    # -- device placement ------------------------------------------------
+
+    def _setup_mesh(self, data_parallel: int) -> None:
+        """``data_parallel > 1``: a mesh over the first ``data_parallel``
+        devices of the service's type; ``ValueError`` when fewer exist."""
+        self._mesh = None
+        n = int(data_parallel or 1)
+        if n > 1:
+            devices = pmesh.local_devices(self.device)
+            if len(devices) < n:
+                raise ValueError(
+                    f"data_parallel={n} but only {len(devices)} devices")
+            self._mesh = pmesh.make_mesh(devices[:n])
+            self.device = self._mesh.device
+
+    def _place_params(self, gen: Generator):
+        """The generator, or with a mesh its replicas (one per device)."""
+        if self._mesh is not None:
+            return pmesh.replicate(self._mesh, gen)
+        return gen
+
     # -- checkpoint / growth state -------------------------------------
 
     def _load(self, checkpoint: Optional[int]) -> None:
         _, params, iteration, st = ckpt.load_generator_state(
             self.trial_dir, self.schedule, checkpoint)
-        gen = Generator.from_jax_params(self.gcfg, params, self.device)
+        gen = self._place_params(
+            Generator.from_jax_params(self.gcfg, params, self.device))
         with self._lock:
             self.params = gen
             self.iteration = iteration
@@ -268,6 +289,9 @@ class GeneratorService:
     def _run_batch(self, batch, total: int) -> None:
         t0 = time.monotonic()
         padded = _bucket(total, self.max_batch)
+        if self._mesh is not None:     # a multiple of the mesh's devices
+            dp = len(self._mesh.devices)
+            padded = ((max(padded, dp) + dp - 1) // dp) * dp
         z = np.concatenate([r.z for r in batch])
         if padded > total:
             z = np.concatenate(
@@ -284,8 +308,14 @@ class GeneratorService:
         try:
             z_dev = self._upload(z)
             lab_dev = self._upload(labels) if labels is not None else None
-            fetched = self._start_fetch(gen(params, z_dev, lab_dev,
-                                            float(alpha)))
+            if self._mesh is None:
+                out = gen(params, z_dev, lab_dev, float(alpha))
+            else:
+                out = pmesh.data_parallel_apply(
+                    self._mesh, lambda g, zc, lc: gen(g, zc, lc,
+                                                      float(alpha)),
+                    params, z_dev, lab_dev)
+            fetched = self._start_fetch(out)
         except Exception as exc:           # launch-time failure
             self._inflight.release()
             for r in batch:

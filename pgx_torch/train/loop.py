@@ -23,6 +23,17 @@ Design notes (CUDA):
   keeps in ``state["rng"]`` (saved in the full state) and hands them to
   the step.  ``draws=`` replaces that source (a test replays ``pgx``'s key
   chain through it).
+* over a process group (``torch.distributed`` initialized with more than
+  one rank, one process per rank: ``pgx_torch.parallel.
+  initialize_multihost``), ``batch_size`` and the stage batches are
+  global: each rank feeds its rows from a data stream seeded
+  ``seed + 104729 * rank`` (pgx's per-host offset), the draws are the
+  global batch's from the same generator on every rank, and the step's
+  collectives make it pgx's step at the global batch.  Rank 0 alone reads
+  a resumed trial (configs, schedule and state broadcast to the others)
+  and writes checkpoints, grids, logs, ``timing.json``, the store and the
+  FID ticks; every rank enters every step, and the state is replicated
+  from rank 0 at the start.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import json
+import math
 import os
 import signal
 import threading
@@ -45,6 +57,9 @@ from pgx_torch.checkpoint.step_store import StepStateStore, has_step_state
 from pgx_torch.data.pipeline import DevicePrefetcher, array_batches
 from pgx_torch.models.config import DiscriminatorConfig, GeneratorConfig
 from pgx_torch.models.generator import _state_dict_of
+from pgx_torch.parallel import collectives as coll
+from pgx_torch.parallel.distributed import broadcast_obj, host_batch_slice
+from pgx_torch.parallel.mesh import make_mesh_for_batch, replicate
 from pgx_torch.train.schedule import schedule_from_dict, schedule_to_dict
 from pgx_torch.train.wgan import (TrainConfig, draw_augment_sources,
                                   draw_z_eps, init_train_state,
@@ -58,11 +73,12 @@ from pgx_torch.utils.png import save_image_grid
 class LoopConfig:
     """``pgx.train.loop.LoopConfig``, field for field.  A value whose code
     path is not ported yet raises ``NotImplementedError`` here:
-    ``model_parallel > 1``.  ``checkpoint_backend='orbax'`` keeps the full
-    state in the port's step-indexed store
-    (``pgx_torch.checkpoint.step_store``: asynchronous writes, atomic
-    commits) in place of ``{iter}_state.pt``.  ``use_mesh``
-    changes nothing on one device, as ``pgx``'s one-device mesh does.
+    ``model_parallel > 1`` (tensor and spatial model parallelism).
+    ``checkpoint_backend='orbax'`` keeps the full state in the port's
+    step-indexed store (``pgx_torch.checkpoint.step_store``: asynchronous
+    writes, atomic commits) in place of ``{iter}_state.pt``.  ``use_mesh``
+    changes nothing on one device, as ``pgx``'s one-device mesh does; over
+    several processes it must stay on.
     ``steps_per_call``: k iterations per call (``make_train_multi_step``),
     1 one per call, 0 auto.  ``fid_every > 0``: the EMA generator's FID
     every that many iterations (``pgx_torch.eval.TrainingFid``, with
@@ -258,27 +274,35 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     """Run training on ``device``; returns the trial directory path.
     ``augment_cfg`` / ``ada_cfg`` enable the ADA pipeline and its
     controller.  ``draws(i, real)``, when given, returns iteration ``i``'s
-    ``(z, eps, aug_draws)`` in place of the loop's generator."""
+    ``(z, eps, aug_draws)`` in place of the loop's generator (the global
+    batch's over a process group).  Over a process group every rank calls
+    ``train_loop`` with the same arguments (module docstring); a card
+    without an index is the rank's current device."""
     hooks = hooks or {}
     dev = resolve_device(device)
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "train_loop over more than one process is not ported yet")
+    group = torch.distributed.group.WORLD if coll.active() else None
+    n_ranks, my_rank = coll.world_size(group), coll.rank(group)
+    is_main = my_rank == 0
+    if group is not None and dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     aug_recipe = _augment_recipe(augment_cfg, ada_cfg, augment_p)
 
     # resume trains the trial's saved architecture and growth schedule;
-    # the caller's may drift
+    # the caller's may drift.  Rank 0 alone reads the trial (the others may
+    # not see its directory) and broadcasts what it found
     if resume_dir is not None:
         saved = saved_sched = None
         saved_aug = "missing"
-        try:
-            cfg_json = ckpt.load_config(resume_dir.rstrip("/"))
-            saved = ckpt.configs_from_dict(cfg_json)
-            saved_sched = cfg_json.get("schedule")
-            saved_aug = cfg_json.get("augment", "missing")
-        except (FileNotFoundError, KeyError, TypeError):
-            saved = saved_sched = None
+        if is_main:
+            try:
+                cfg_json = ckpt.load_config(resume_dir.rstrip("/"))
+                saved = ckpt.configs_from_dict(cfg_json)
+                saved_sched = cfg_json.get("schedule")
+                saved_aug = cfg_json.get("augment", "missing")
+            except (FileNotFoundError, KeyError, TypeError):
+                saved = saved_sched = None
+        saved, saved_sched, saved_aug = broadcast_obj(
+            (saved, saved_sched, saved_aug), group)
         # augmentation comes from the caller, not the saved config; drift
         # against the saved recipe warns (compared through a JSON round
         # trip: tuples come back from disk as lists)
@@ -319,6 +343,27 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         b = _batch_hook(step) if _batch_hook is not None else None
         return int(b) if b else loop_cfg.batch_size
 
+    # the mesh must divide every stage's batch: sized for their gcd
+    stage_batches = sorted({
+        stage_batch_for(s)
+        for s in range(getattr(schedule, "init_step", 1),
+                       getattr(schedule, "max_step", 1) + 1)})
+    mesh_batch = 0
+    for b in stage_batches:
+        mesh_batch = math.gcd(mesh_batch, b)
+    mesh = None
+    if loop_cfg.use_mesh:
+        # over several ranks it raises at launch, not when the offending
+        # stage begins, unless the ranks divide every stage's batch
+        mesh = make_mesh_for_batch(mesh_batch, devices=[dev], group=group)
+    elif n_ranks > 1:
+        raise ValueError("multi-process training requires use_mesh=True")
+    host_seed = loop_cfg.seed + 104729 * my_rank
+
+    def host_batch_for(global_batch: int) -> int:
+        """This rank's share of a (per-stage) global batch."""
+        return host_batch_slice(global_batch, group)[0]
+
     state = init_train_state(gcfg, dcfg, tc, seed=loop_cfg.seed, device=dev)
     state["rng"] = torch.Generator(device=dev).manual_seed(loop_cfg.seed)
     start_iter = 0
@@ -328,8 +373,11 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     def save_full(it, current_state):
         """One checkpoint write (periodic / interrupt / final): the npz
         pair always; the full state as ``{iter}_state.pt`` or, with the
-        store, as its step ``it`` (written in the background)."""
+        store, as its step ``it`` (written in the background).  Rank 0
+        alone writes: the state is replicated."""
         nonlocal store
+        if not is_main:
+            return
         ckpt.save_checkpoint(trial_dir, it, current_state,
                              full_state=loop_cfg.keep_full_state
                              and not use_store)
@@ -344,9 +392,26 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         # the postfix names the CSV this run appends to; a renamed or
         # copied trial keeps its name
         postfix = base[len("trial_"):] if base.startswith("trial_") else base
-        os.makedirs(os.path.join(trial_dir, "sample"), exist_ok=True)
-        os.makedirs(os.path.join(trial_dir, "checkpoint"), exist_ok=True)
-        state, start_iter = _load_newest_state(trial_dir, state)
+        load_err = None
+        if is_main:
+            os.makedirs(os.path.join(trial_dir, "sample"), exist_ok=True)
+            os.makedirs(os.path.join(trial_dir, "checkpoint"), exist_ok=True)
+            try:
+                state, start_iter = _load_newest_state(trial_dir, state)
+            except Exception as e:   # raised on every rank below
+                if n_ranks == 1:
+                    raise
+                load_err = f"{type(e).__name__}: {e}"
+        load_err, start_iter = broadcast_obj((load_err, start_iter), group)
+        if load_err is not None:
+            raise RuntimeError(f"resume failed on rank 0: {load_err} "
+                               f"(trial dir: {trial_dir})")
+    elif not is_main:
+        # the other ranks never write; a name for the return value
+        trial_dir = os.path.join(loop_cfg.main_path,
+                                 f"trial_{loop_cfg.trial_name}_rank"
+                                 f"{my_rank}")
+        postfix = loop_cfg.trial_name
     else:
         trial_dir, postfix = make_trial_dir(loop_cfg)
         ckpt.save_config(trial_dir, gcfg, dcfg, tc,
@@ -361,9 +426,13 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
             from pgx_torch.utils.persistence import snapshot_sources
             snapshot_sources(trial_dir)
 
+    if mesh is not None:
+        # rank 0's state (the fresh one, or the resumed one) on every rank
+        state = replicate(mesh, state)
+
     log_path = os.path.join(trial_dir, f"train_log_{postfix}.txt")
     log_ada = augment_cfg is not None
-    if not os.path.exists(log_path):
+    if is_main and not os.path.exists(log_path):
         with open(log_path, "w") as f:
             f.write("iter,g,d,grad,alpha"
                     + (",ada_p,ada_r" if log_ada else "") + "\n")
@@ -376,7 +445,9 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         rng = state["rng"]
 
         def draws(i, real):
-            z, eps = draw_z_eps(gcfg, real.shape[0], rng, dtype=real.dtype)
+            # the global batch's draws: every rank keeps its rows
+            z, eps = draw_z_eps(gcfg, real.shape[0] * n_ranks, rng,
+                                dtype=real.dtype)
             return z, eps, (draw_augment_sources(rng)
                             if augment_cfg is not None else None)
 
@@ -392,21 +463,23 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     # the in-training FID samples the EMA generator on its device and
     # takes the features there too; it shares the grids' sampling cache
     fid_hook = None
-    if loop_cfg.fid_every > 0 and not hasattr(dataset, "at_resolution"):
-        warnings.warn("in-training FID needs an array-backed dataset with "
-                      "per-resolution caches; for folder/WikiArt pipelines "
-                      "run pgx_torch.cli.fid_sweep post-hoc", RuntimeWarning)
-    elif loop_cfg.fid_every > 0:
-        from pgx_torch.eval.fid import make_extractor
-        from pgx_torch.eval.inception import load_torch_weights
-        from pgx_torch.eval.sweep import TrainingFid
-        extractor = make_extractor(
-            load_torch_weights(loop_cfg.inception_weights)
-            if loop_cfg.inception_weights else None, device=dev)
-        fid_hook = TrainingFid(dataset, gcfg,
-                               num_samples=loop_cfg.fid_samples,
-                               extractor=extractor, seed=loop_cfg.seed,
-                               gen_cache=gen_cache)
+    if is_main and loop_cfg.fid_every > 0:      # rank 0 alone scores
+        if not hasattr(dataset, "at_resolution"):
+            warnings.warn("in-training FID needs an array-backed dataset "
+                          "with per-resolution caches; for folder/WikiArt "
+                          "pipelines run pgx_torch.cli.fid_sweep post-hoc",
+                          RuntimeWarning)
+        else:
+            from pgx_torch.eval.fid import make_extractor
+            from pgx_torch.eval.inception import load_torch_weights
+            from pgx_torch.eval.sweep import TrainingFid
+            extractor = make_extractor(
+                load_torch_weights(loop_cfg.inception_weights)
+                if loop_cfg.inception_weights else None, device=dev)
+            fid_hook = TrainingFid(dataset, gcfg,
+                                   num_samples=loop_cfg.fid_samples,
+                                   extractor=extractor, seed=loop_cfg.seed,
+                                   gen_cache=gen_cache)
 
     prefetcher = None
     current_res = None
@@ -421,7 +494,7 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     run_t0 = time.time()
     timing_path = os.path.join(trial_dir, "timing.json")
     timing: Dict[str, Any] = {}
-    if os.path.exists(timing_path):
+    if is_main and os.path.exists(timing_path):
         try:
             with open(timing_path) as f:
                 timing = json.load(f)
@@ -453,8 +526,8 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                     prefetcher.close()
                 cur_batch = stage_batch_for(st.step)
                 prefetcher = DevicePrefetcher(
-                    batch_fn(dataset, cur_batch, st.resolution,
-                             seed=loop_cfg.seed + st.step), dev)
+                    batch_fn(dataset, host_batch_for(cur_batch),
+                             st.resolution, seed=host_seed + st.step), dev)
                 current_res = st.resolution
                 measure.clear()
 
@@ -474,7 +547,7 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                     step_cache[mkey] = make_train_multi_step(
                         gcfg, dcfg, tc, step=st.step, fading=st.fading,
                         k=w, augment_cfg=augment_cfg, ada_cfg=ada_cfg,
-                        augment_p=augment_p)
+                        augment_p=augment_p, process_group=group)
                 i0 = i
                 interrupts.in_step = True
                 state, metrics = step_cache[mkey](
@@ -494,7 +567,7 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                         gcfg, dcfg, tc, step=st.step, fading=st.fading,
                         update_g=update_g, apply_gp=apply_gp,
                         augment_cfg=augment_cfg, ada_cfg=ada_cfg,
-                        augment_p=augment_p)
+                        augment_p=augment_p, process_group=group)
                 z, eps, aug_draws = draws(i, imgs)
                 # alpha as the f32 scalar pgx's loop hands its step
                 alpha = float(np.float32(st.alpha))
@@ -513,9 +586,12 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                     measure.append(time.perf_counter() - t_meas)
                     if len(measure) >= 5:
                         ms = 1e3 * min(measure[2:])
+                        # every rank must run the same windows: rank 0's
+                        # measurement decides
+                        ms = broadcast_obj(ms, group)
                         stage_k[st.step] = _auto_k(ms, tc.gp_every)
                         measure.clear()
-                        if loop_cfg.verbose:
+                        if loop_cfg.verbose and is_main:
                             print(f"[auto] stage {st.step}: {ms:.1f} "
                                   f"ms/step -> steps_per_call "
                                   f"{stage_k[st.step]}", flush=True)
@@ -536,7 +612,8 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 # stage by construction; alpha has advanced)
                 st = schedule.state_at(it - 1)
                 alpha = alphas[-1]
-            if it % loop_cfg.sample_every == 0 or i == start_iter:
+            if is_main and (it % loop_cfg.sample_every == 0
+                            or i == start_iter):
                 gkey = (st.step, st.fading)
                 if gkey not in gen_cache:
                     gen_cache[gkey] = make_eval_generate(
@@ -564,7 +641,7 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                     warnings.warn(f"in-training FID failed at {it}: {e}",
                                   RuntimeWarning)
 
-            if it % loop_cfg.log_every == 0 and count:
+            if is_main and it % loop_cfg.log_every == 0 and count:
                 vals = {k: float(v) / count for k, v in sums.items()}
                 if "grad_penalty" in sums:
                     vals["grad_penalty"] = (
@@ -597,6 +674,7 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                         json.dump(timing, f, indent=1)
                 except OSError:
                     pass   # timing is an artifact, never a failure
+            if it % loop_cfg.log_every == 0 and count:
                 sums, count, gp_count, t_log = {}, 0, 0, time.time()
                 img_count = 0
 
@@ -608,7 +686,7 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         # an interrupted run leaves a resumable checkpoint at the exact
         # iteration it stopped; the state is whole here (interrupts land
         # between steps)
-        if not interrupts.in_step:
+        if is_main and not interrupts.in_step:
             it = int(state["iteration"])
             try:
                 save_full(it, state)
@@ -626,4 +704,6 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         if store is not None:
             store.close()       # drain the pending write
 
+    if n_ranks > 1:
+        torch.distributed.barrier(group)
     return trial_dir

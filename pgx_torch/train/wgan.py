@@ -56,6 +56,20 @@ parity test feeds the draws of another implementation.
 
 The state holds ``nn.Module``s and is updated in place: the step returns the
 same dict it was given.
+
+With ``process_group`` the step is one rank's part of a data-parallel
+step at the global batch, what ``pgx`` computes on a batch-sharded mesh:
+each rank holds its rows of the batch; the minibatch-stddev statistic and
+the ADA controller's sign sum are summed over the ranks
+(``pgx_torch.parallel.collectives.all_reduce_sum``, differentiable to any
+order, so the penalty's double backward and the jvp penalty's dual forward
+see the other ranks' rows); each gradient is averaged over the ranks
+before Adam (one all-reduce of the flattened gradients); the metrics are
+the ranks' means.  The draws are the global batch's, the same on every
+rank, and each rank keeps its rows.  ``DistributedDataParallel`` cannot
+stand in: the step takes its gradients with ``torch.autograd.grad``, which
+fires none of its hooks, and the penalty differentiates through the
+collectives.
 """
 
 from __future__ import annotations
@@ -70,12 +84,16 @@ import torch.autograd.forward_ad as fwAD
 import torch.utils.checkpoint
 from torch.func import functional_call
 
+import torch.distributed as dist
+
 from pgx_torch.augment.adaptive import AdaConfig, ada_update, init_ada_state
-from pgx_torch.augment.pipe import AugmentConfig, TorchDraws, augment_pipe
+from pgx_torch.augment.pipe import (AugmentConfig, RankRows, TorchDraws,
+                                    augment_pipe)
 from pgx_torch.models.config import DiscriminatorConfig, GeneratorConfig
 from pgx_torch.models.discriminator import Discriminator, init_discriminator
 from pgx_torch.models.generator import (Generator, _state_dict_of,
                                         generator_apply, init_generator)
+from pgx_torch.parallel.collectives import average_, rank, world_size
 from pgx_torch.utils import resolve_device
 
 METRICS = ("d_loss", "grad_penalty", "real_score", "fake_score", "d_total",
@@ -258,6 +276,22 @@ def _adam_update(module: torch.nn.Module, grads: List[torch.Tensor],
     torch._foreach_addcdiv_(params, mu, denom, value=-tc.learning_rate / bc1)
 
 
+@torch.no_grad()
+def _mean_over_ranks(metrics: Dict[str, torch.Tensor], group,
+                     world: int) -> None:
+    """The batch metrics replaced by their mean over the ranks (one
+    all-reduce; the controller's ``ada_p`` is the same on every rank)."""
+    names = [k for k in METRICS if k != "ada_p"]
+    acc = torch.float32
+    for k in names:
+        acc = torch.promote_types(acc, metrics[k].dtype)
+    flat = torch.stack([metrics[k].to(acc) for k in names])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat = flat / world
+    for i, k in enumerate(names):
+        metrics[k] = flat[i].to(metrics[k].dtype)
+
+
 def _cast(module: torch.nn.Module, dtype: torch.dtype,
           detach: bool = False) -> Dict[str, torch.Tensor]:
     """``weights_cast='once'``: one ``dtype`` copy of each parameter,
@@ -289,7 +323,7 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                     update_g: bool = True, apply_gp: bool = True,
                     augment_cfg: Optional[AugmentConfig] = None,
                     ada_cfg: Optional[AdaConfig] = None,
-                    augment_p: float = 1.0):
+                    augment_p: float = 1.0, process_group=None):
     """The train step for one (stage, fade phase):
     ``fn(state, real, labels, alpha, *, z, eps, aug_draws=None)
     -> (state, metrics)``.
@@ -310,7 +344,17 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     ``state["ada"]`` drives the probability from the real logits; without
     it the fixed ``augment_p`` applies (the controller's p starts at 0,
     which would make ``augment_cfg`` alone do nothing).  With ``fused_g``
-    G's gradient sees the D step's draw, as in pgx."""
+    G's gradient sees the D step's draw, as in pgx.
+
+    ``process_group`` (a ``torch.distributed`` group, every rank calling
+    the step in step): ``real`` and ``labels`` are this rank's rows of the
+    global batch, ``z`` and ``eps`` the global batch's draws (the same on
+    every rank; the step keeps its rows) and ``aug_draws`` sources of the
+    global batch's draws; the result is pgx's step at the global batch
+    (module docstring)."""
+    group = process_group
+    world = world_size(group) if group is not None else 1
+    me = rank(group) if group is not None else 0
     conditional = gcfg.conditioning != "none"
     fused = bool(tc.fused_g) and update_g
     lam = tc.lambda_gp * tc.gp_every
@@ -329,11 +373,22 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         gen, disc = state["g"], state["d"]
         lab = labels if conditional else None
         bsz = real.shape[0]
+        if group is not None:
+            # the global batch's draws: this rank's rows
+            if z.shape[0] != bsz * world or eps.shape[0] != bsz * world:
+                raise ValueError(
+                    f"with a process group z and eps are the global "
+                    f"batch's draws ({bsz} rows x {world} ranks), got "
+                    f"{z.shape[0]} and {eps.shape[0]}")
+            z = z[me * bsz:(me + 1) * bsz]
+            eps = eps[me * bsz:(me + 1) * bsz]
 
         if augment_cfg is not None:
             if aug_draws is None or len(aug_draws) != 3:
                 raise ValueError("augment_cfg needs aug_draws: three draw "
                                  "sources (draw_augment_sources)")
+            if group is not None:
+                aug_draws = [RankRows(d, me, world) for d in aug_draws]
             ada_p = (state["ada"]["p"] if ada_cfg is not None
                      else torch.full((), augment_p, dtype=torch.float32,
                                      device=real.device))
@@ -359,7 +414,7 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         def d_apply(img, d_params, groups=1):
             lab_c = None if lab is None else torch.cat([lab] * groups)
             kw = dict(step=step, alpha=alpha, fading=fading,
-                      stddev_groups=groups)
+                      stddev_groups=groups, stddev_group=group)
             if d_params is None:
                 out = disc(img, lab_c, **kw)
             else:
@@ -461,12 +516,17 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 loss, aux, logits = d_loss_with(
                     aug_d_fake(g_apply(g_params)), d_cast)
                 grads = _grads_of(loss, d_params + gp_list)
+                if group is not None:
+                    average_(grads, group, world)
                 return (grads[:len(d_params)],
                         [-g for g in grads[len(d_params):]], aux, logits)
             with torch.no_grad():
                 fake = aug_d_fake(g_apply(g_params))
             loss, aux, logits = d_loss_with(fake, d_cast)
-            return _grads_of(loss, d_params), None, aux, logits
+            grads = _grads_of(loss, d_params)
+            if group is not None:
+                average_(grads, group, world)
+            return grads, None, aux, logits
 
         d_grads, g_grads, metrics, real_logits = d_step()
         _adam_update(disc, d_grads, state["opt_d"], tc)
@@ -474,7 +534,7 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
 
         if augment_cfg is not None and ada_cfg is not None:
             state["ada"] = ada_update(state["ada"], real_logits, ada_cfg,
-                                      bsz)
+                                      bsz * world, group=group)
         # the probability actually applied: the controller's when ADA drives
         # it, the fixed augment_p when augmentation runs without a
         # controller (whose p stays 0 there)
@@ -494,6 +554,8 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                         aug_g_fake(g_apply(g_params)),
                         cast_of(disc, d_dtype)))
                     g_grads = _grads_of(g_loss, list(gen.parameters()))
+                if group is not None:
+                    average_(g_grads, group, world)
                 metrics["g_loss"] = g_loss.detach()
                 del g_loss
             _adam_update(gen, g_grads, state["opt_g"], tc)
@@ -502,6 +564,8 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 torch._foreach_mul_(ema, tc.ema_decay)
                 torch._foreach_add_(ema, list(gen.parameters()),
                                     alpha=1.0 - tc.ema_decay)
+        if group is not None:
+            _mean_over_ranks(metrics, group, world)
         state["iteration"] += 1
         return state, metrics
 
@@ -512,7 +576,7 @@ def make_train_multi_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                           tc: TrainConfig, *, step: int, fading: bool,
                           k: int, augment_cfg: Optional[AugmentConfig] = None,
                           ada_cfg: Optional[AdaConfig] = None,
-                          augment_p: float = 1.0):
+                          augment_p: float = 1.0, process_group=None):
     """``k`` iterations in one call (counterpart of pgx's scanned
     ``make_train_multi_step``):
     ``fn(state, reals, labels, alphas, *, draws) -> (state, summed_metrics)``.
@@ -526,7 +590,9 @@ def make_train_multi_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     plain ones (it must start on a ``gp_every`` boundary, as pgx's), each
     the single step's body; the metrics are summed on the device and
     nothing synchronizes the host inside the window.  Constraints as pgx's:
-    ``n_critic == 1`` and ``k`` a positive multiple of ``gp_every``."""
+    ``n_critic == 1`` and ``k`` a positive multiple of ``gp_every``.
+    ``process_group``: each iteration is the single step's over the group
+    (``make_train_step``), its draws the global batch's."""
     if tc.n_critic != 1:
         raise ValueError("multi-step dispatch requires n_critic == 1")
     if k < 1 or k % tc.gp_every != 0:
@@ -535,7 +601,7 @@ def make_train_multi_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     mk = lambda gp: make_train_step(
         gcfg, dcfg, tc, step=step, fading=fading, update_g=True,
         apply_gp=gp, augment_cfg=augment_cfg, ada_cfg=ada_cfg,
-        augment_p=augment_p)
+        augment_p=augment_p, process_group=process_group)
     body_gp = mk(True)
     body_plain = mk(False) if tc.gp_every > 1 else body_gp
 

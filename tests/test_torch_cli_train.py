@@ -308,8 +308,23 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, name, flags, match):
     """As the flagship CLI: through ``maybe_init_multihost`` and
     ``LoopConfig``, before anything trains.  ``--checkpoint-backend orbax``
     is ported: every trainer reaches ``train_loop`` with
-    ``checkpoint_backend='orbax'``."""
+    ``checkpoint_backend='orbax'``.  ``--multihost`` is ported: without a
+    coordinator it raises before anything trains, and with one process it
+    initializes nothing and trains on the CPU (two ranks over gloo are in
+    tests/test_torch_parallel.py)."""
     module = importlib.import_module(f"pgx_torch.cli.{name}")
+    if match == "multihost":
+        with mock.patch.object(_loop_owner(module), "train_loop",
+                               side_effect=AssertionError("trained")), \
+                pytest.raises(ValueError, match="coordinator address"):
+            module.main(TINY + TRAINERS[name][1] + flags + [
+                "--synthetic", "--device", "cpu", "--output",
+                str(tmp_path)])
+        _, kwargs = _spy_run(module, TINY + TRAINERS[name][1] + flags + [
+            "--num-processes", "1", "--synthetic", "--device", "cpu",
+            "--output", str(tmp_path)])
+        assert kwargs["device"] == "cpu"
+        return
     if match == "checkpoint_backend":
         args, _ = _spy_run(module, TINY + TRAINERS[name][1] + flags + [
             "--synthetic", "--device", "cpu", "--output", str(tmp_path)])

@@ -180,7 +180,9 @@ def test_fid_given_data_equals_pgx(tmp_path):
 
 def test_extractor_scopes_tf32_off_and_refuses_a_mesh():
     """TF32 is off inside the call and the caller's flags come back after
-    it, also when the forward raises; ``mesh=`` is not ported."""
+    it, also when the forward raises; a mesh that spans processes is
+    refused (a mesh of this process's devices is in
+    tests/test_torch_parallel.py)."""
     ext = tfid.make_extractor(device="cpu")
     seen = []
 
@@ -208,8 +210,10 @@ def test_extractor_scopes_tf32_off_and_refuses_a_mesh():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = before
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tfid.make_extractor(device="cpu", mesh=object())
+    from pgx_torch.parallel.mesh import Mesh
+    with pytest.raises(ValueError, match="own devices"):
+        tfid.make_extractor(device="cpu", mesh=Mesh(
+            (torch.device("cpu"),), world=2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tfid.make_extractor()

@@ -366,7 +366,9 @@ def test_cli_refuses_unported_flags(tmp_path, flags, match):
     """What is not ported raises; ``--steps-per-call`` and ``--gp-mode jvp``
     are ported: the CLI trains with them and saves them in the trial's
     config.  ``--checkpoint-backend orbax`` is ported: the CLI reaches
-    ``train_loop`` with ``checkpoint_backend='orbax'``."""
+    ``train_loop`` with ``checkpoint_backend='orbax'``.  ``--multihost`` is
+    ported: without a coordinator address it raises before anything
+    trains; with one process it trains as without the flag."""
     if match == "checkpoint_backend":
         seen = {}
 
@@ -387,8 +389,12 @@ def test_cli_refuses_unported_flags(tmp_path, flags, match):
         if match == "gp_mode":
             assert tckpt.load_config(trial)["train"]["gp_mode"] == "jvp"
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match="coordinator address"):
         cli.main(CLI_ARGS + ["--output", str(tmp_path)] + flags)
+    trial = cli.main(CLI_ARGS + ["--output", str(tmp_path)] + flags
+                     + ["--num-processes", "1"])
+    rows = _rows(trial)
+    assert [r.split(",")[0] for r in rows[1:]] == ["2", "4", "6", "8"]
 
 
 def test_zoo_ada_generator_matches_pgx():

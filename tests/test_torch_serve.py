@@ -285,7 +285,10 @@ def test_warmup_all_buckets(tiny_trial):
 
 
 def test_unported_and_unavailable_devices_raise(tiny_trial):
-    with pytest.raises(NotImplementedError):
+    """data_parallel beyond the devices of the service's type raises pgx's
+    ValueError (the CPU is one device; the split itself is in
+    tests/test_torch_parallel.py)."""
+    with pytest.raises(ValueError, match="data_parallel=2 but only 1"):
         GeneratorService(tiny_trial, data_parallel=2, **CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

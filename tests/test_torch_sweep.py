@@ -262,7 +262,8 @@ def test_training_fid_equals_pgx(setup):
 def test_fid_sweep_cli(setup, capsys, monkeypatch):
     """``pgx_torch.cli.fid_sweep`` on a pgx-written trial with the weights
     file, KID on: the files, the best-of line, the comparable /
-    in-training split, and ``--data-parallel 2`` refused."""
+    in-training split, and ``--data-parallel 2`` refused on the CPU's one
+    device."""
     from pgx_torch.cli import fid_sweep
     monkeypatch.setattr(fid_sweep, "make_extractor", lambda *a, **k: _Cut(
         tfid.make_extractor(*a, **k)))
@@ -287,5 +288,5 @@ def test_fid_sweep_cli(setup, capsys, monkeypatch):
     st = _scores(trial)
     assert np.isfinite(st["fid_score.json"][name])
     assert np.isfinite(st["kid_score.json"][name][0])
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(SystemExit, match="needs that many devices; have 1"):
         fid_sweep.main(args + ["--data-parallel", "2"])
