@@ -209,7 +209,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    imply, the replicas bit for bit at the end of each run, rank 0 alone
    writing (the other rank's directory stays empty and the trial it is
    told to resume does not exist).
-12. card   — nvidia-smi's name and power limit.
+12. tp      — channel-sharded model parallelism on a (data, model) = (1, 2)
+   grid of two gloo ranks on the one card (``--tp-rank`` subprocesses,
+   importing only pgx_torch), the train state sharded over the model axis
+   (``pgx_torch.parallel.tp``): the f32 flagship at 128px, global batch 32,
+   TF32 off, learning rate 0, one reverse and one jvp iteration without
+   and with ADA, metrics and the gathered D and G gradients against world
+   1 on rank 0 at phase 11's yardstick; four bf16 ADA iterations with the
+   controller, launches per iteration on each rank as the configs imply,
+   the blocks and the gathered state bit for bit over the grid
+   (``check_replica_consistency(mesh=)``), ms per iteration per rank, the
+   state's bytes whole and at rest, and the step's gathers and reductions
+   alone (ms and bytes); the 512px recipe at full width (global batch 8,
+   jvp, gp_every 4, fused_g, ADA with the controller), its penalty and
+   three plain iterations with launches per iteration checked, ms per
+   iteration, each rank's state bytes at rest and peak memory, against
+   world 1 at batch 8 and 4 on rank 0; the flagship CLI with
+   ``--model-parallel 2`` (64px, 4 iterations, a checkpoint whose tensors
+   are whole and equal to the last gathered state), then resumed at model
+   1 in this process to 8 iterations at 128px, launches as the configs
+   imply, rank 0 alone writing.
+13. card   — nvidia-smi's name and power limit.
 
 Depth cut for phase 11's time: phase 9's trial holds one checkpoint (was
 two); each checkpoint cost each sweep ~45 s of host sqrtm and KID.
@@ -218,7 +238,8 @@ Every bf16 kernel row of phase 2 also carries the kernel's device time
 from a CUDA graph (``device_ms``), beside the back-to-back time (``ms``).
 
 Prints JSON lines; the last two lines before the final one are the
-kernels table (ten entries, each with ``launches_ddp``) and the card, the last line is
+kernels table (ten entries, each with ``launches_ddp`` and
+``launches_tp``) and the card, the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -228,6 +249,7 @@ import contextlib
 import dataclasses
 import http.client
 import json
+import math
 import os
 import signal
 import statistics
@@ -3196,9 +3218,10 @@ def recipe_launches(gen, dcfg, mode: str, apply_gp: bool) -> dict:
     return out
 
 
-def recipe_state(gcfg, dcfg, **tc_kw):
+def recipe_state(gcfg, dcfg, mesh=None, **tc_kw):
     """A bf16 recipe state (seed 0), the controller at ADA_P0, and its two
-    steps (the penalty iteration and the plain one)."""
+    steps (the penalty iteration and the plain one); ``mesh``: the steps
+    over that grid (the caller shards the state)."""
     from pgx_torch.augment import AdaConfig, bgc_config, init_ada_state
     from pgx_torch.train import TrainConfig, init_train_state, \
         make_train_step
@@ -3209,7 +3232,7 @@ def recipe_state(gcfg, dcfg, **tc_kw):
     steps = {gp: make_train_step(gcfg, dcfg, tc, step=R512_STEP,
                                  fading=False, apply_gp=gp,
                                  augment_cfg=bgc_config(),
-                                 ada_cfg=AdaConfig())
+                                 ada_cfg=AdaConfig(), mesh=mesh)
              for gp in (True, False)}
     return tc, state, steps
 
@@ -5092,14 +5115,17 @@ def ddp_serve_fid_phase(torch, cfg, params) -> dict:
     return out
 
 
-def run_ddp_ranks(torch) -> list:
+def run_ddp_ranks(torch, flag: str = "--ddp-rank", root=None) -> list:
     """The two gloo ranks as subprocesses of this script on the one card
-    (``python3 chip_smoke.py --ddp-rank R WORLD PORT DIR``), each importing
-    only pgx_torch; their reports, by rank.  A rank that fails or
-    outlives the limit fails the phase; both are stopped."""
+    (``python3 chip_smoke.py --ddp-rank R WORLD PORT DIR``; ``flag``
+    ``--tp-rank`` for phase 12), each importing only pgx_torch; their
+    reports, by rank.  A rank that fails or outlives the limit fails the
+    phase; both are stopped.  ``root``: the caller's directory (kept), else
+    a temporary one (deleted)."""
     import shutil
     here = os.path.dirname(os.path.abspath(__file__))
-    root = tempfile.mkdtemp(prefix="pgx_ddp_")
+    keep = root is not None
+    root = root if keep else tempfile.mkdtemp(prefix="pgx_ddp_")
     port = free_port()
     procs, logs = [], []
     try:
@@ -5107,7 +5133,7 @@ def run_ddp_ranks(torch) -> list:
             log = open(os.path.join(root, f"rank{r}.log"), "w")
             logs.append(log)
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--ddp-rank",
+                [sys.executable, os.path.abspath(__file__), flag,
                  str(r), str(DDP_WORLD), str(port), root], cwd=here,
                 env={**os.environ, "PYTHONPATH": here}, stdout=log,
                 stderr=subprocess.STDOUT))
@@ -5140,7 +5166,8 @@ def run_ddp_ranks(torch) -> list:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 def f32_grad_error(got: dict, want: dict, prefix: str) -> dict:
@@ -5165,8 +5192,62 @@ def f32_grad_error(got: dict, want: dict, prefix: str) -> dict:
     return worst
 
 
-def ddp_rank_main(argv) -> int:
-    """One gloo rank of the ddp phase (a subprocess of this script)."""
+def f32_world_1_check(torch, cfg, dcfg, mine: dict, label: str) -> dict:
+    """DDP_F32_VARIANTS at world 1 in this process (rank 0; the other rank
+    idle), each against ``mine[name]`` = (metrics, D's and G's gradients
+    by name (Adam's mu at learning rate 0), the controller's p) from the
+    ranks: metrics within 1e-3 (1e-4 absolute), gradients within 3e-2 of
+    each tensor's largest entry and 5e-3 in the mean (the f32 train
+    check's yardstick)."""
+    from pgx_torch.augment import AdaConfig, bgc_config, init_ada_state
+    from pgx_torch.train import make_train_step
+    g1, d1, tc1, ref_state = new_train_state(cfg, dcfg, "float32")
+    checks = {}
+    for i, (name, kw, ada) in enumerate(DDP_F32_VARIANTS):
+        ref_state["ada"] = init_ada_state(ADA_P0, DEVICE)
+        aug = (dict(augment_cfg=bgc_config(), ada_cfg=AdaConfig())
+               if ada else {})
+        step = make_train_step(g1, d1, dataclasses.replace(
+            tc1, learning_rate=0.0, **kw), step=TRAIN_STEP, fading=False,
+            **aug)
+        real, labels, draws = ddp_inputs(torch, g1, 910 + i, ada)
+        _, m = step(ref_state, real, labels, 1.0, **draws)
+        torch.cuda.synchronize()
+        ref = ({k: float(v) for k, v in m.items()},
+               {f"{net}.{n}": t for net in ("d", "g")
+                for n, t in ref_state[f"opt_{net}"]["mu"].items()})
+        got_m, got_mu, got_p = mine[name]
+        worst_metric = 0.0
+        for k, v in ref[0].items():
+            err = abs(got_m[k] - v)
+            require(err <= 1e-4 + 1e-3 * abs(v),
+                    f"f32 {name}: metric {k} {label} {got_m[k]} vs "
+                    f"world 1 {v}")
+            worst_metric = max(worst_metric, err / max(abs(v), 1e-4))
+        dg = f32_grad_error(got_mu, ref[1], "d.")
+        gg = f32_grad_error(got_mu, ref[1], "g.")
+        for what, r in (("D", dg), ("G", gg)):
+            require(r["max_err_rel_to_largest_entry"] <= 3e-2
+                    and r["mean_err_rel_to_mean"] <= 5e-3,
+                    f"f32 {name}: {what} gradients {label} vs world 1 "
+                    f"{r}")
+        key = label.replace(" ", "_")
+        checks[name] = {"metric_max_rel_err": worst_metric,
+                        "d": dg, "g": gg, f"ada_p_{key}": got_p,
+                        "ada_p_world_1": float(ref_state["ada"]["p"]),
+                        f"metrics_{key}": got_m, "metrics_world_1": ref[0]}
+    out = {"tol": {"metric_rel": 1e-3, "metric_abs": 1e-4,
+                   "grad_max_rel_to_largest": 3e-2,
+                   "grad_mean_rel_to_mean": 5e-3},
+           "variants": checks}
+    del ref_state
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_rank_main(argv, work=None) -> int:
+    """One gloo rank of the ddp phase (a subprocess of this script);
+    ``work`` the phase's rank function (``ddp_rank_work`` when None)."""
     import torch
     import torch.distributed as dist
     from pgx_torch.ops.kernels import build
@@ -5180,7 +5261,7 @@ def ddp_rank_main(argv) -> int:
             "a rank built the library (the parent builds it first)")
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank)
-    report = ddp_rank_work(torch, rank, world, root)
+    report = (work or ddp_rank_work)(torch, rank, world, root)
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
         json.dump(report, f)
     # both reports are on disk before either rank leaves; then leave
@@ -5219,12 +5300,12 @@ def ddp_rank_work(torch, rank: int, world: int, root: str) -> dict:
         for k, v in got.items():
             launches[k] += v
 
-    def variant_step(g, d, tc, kw, ada, group_):
+    def variant_step(g, d, tc, kw, ada):
         aug = (dict(augment_cfg=bgc_config(), ada_cfg=AdaConfig())
                if ada else {})
         return make_train_step(g, d, dataclasses.replace(tc, **kw),
                                step=TRAIN_STEP, fading=False,
-                               process_group=group_, **aug)
+                               process_group=group, **aug)
 
     # ---- f32: world 2 against this script's world-1 iteration ---------
     t_phase = time.perf_counter()
@@ -5233,7 +5314,7 @@ def ddp_rank_work(torch, rank: int, world: int, root: str) -> dict:
     mine = {}
     for i, (name, kw, ada) in enumerate(DDP_F32_VARIANTS):
         state["ada"] = init_ada_state(ADA_P0, DEVICE)
-        step = variant_step(g, d, tc0, kw, ada, group)
+        step = variant_step(g, d, tc0, kw, ada)
         real, labels, draws = ddp_inputs(torch, g, 910 + i, ada)
         K.reset_launch_counts()
         _, m = step(state, real[rows], labels[rows], 1.0, **draws)
@@ -5246,44 +5327,8 @@ def ddp_rank_work(torch, rank: int, world: int, root: str) -> dict:
     del state
     torch.cuda.empty_cache()
     if rank == 0:
-        g1, d1, tc1, ref_state = new_train_state(cfg, dcfg, "float32")
-        checks = {}
-        for i, (name, kw, ada) in enumerate(DDP_F32_VARIANTS):
-            ref_state["ada"] = init_ada_state(ADA_P0, DEVICE)
-            step = variant_step(g1, d1, dataclasses.replace(
-                tc1, learning_rate=0.0), kw, ada, None)
-            real, labels, draws = ddp_inputs(torch, g1, 910 + i, ada)
-            _, m = step(ref_state, real, labels, 1.0, **draws)
-            torch.cuda.synchronize()
-            ref = ({k: float(v) for k, v in m.items()},
-                   {f"{net}.{n}": t for net in ("d", "g")
-                    for n, t in ref_state[f"opt_{net}"]["mu"].items()})
-            got_m, got_mu, got_p = mine[name]
-            worst_metric = 0.0
-            for k, v in ref[0].items():
-                err = abs(got_m[k] - v)
-                require(err <= 1e-4 + 1e-3 * abs(v),
-                        f"f32 {name}: metric {k} world 2 {got_m[k]} vs "
-                        f"world 1 {v}")
-                worst_metric = max(worst_metric, err / max(abs(v), 1e-4))
-            dg = f32_grad_error(got_mu, ref[1], "d.")
-            gg = f32_grad_error(got_mu, ref[1], "g.")
-            for what, r in (("D", dg), ("G", gg)):
-                require(r["max_err_rel_to_largest_entry"] <= 3e-2
-                        and r["mean_err_rel_to_mean"] <= 5e-3,
-                        f"f32 {name}: {what} gradients world 2 vs world 1 "
-                        f"{r}")
-            checks[name] = {"metric_max_rel_err": worst_metric,
-                            "d": dg, "g": gg, "ada_p_world_2": got_p,
-                            "ada_p_world_1": float(ref_state["ada"]["p"]),
-                            "metrics_world_2": got_m,
-                            "metrics_world_1": ref[0]}
-        out["f32_check"] = {"tol": {"metric_rel": 1e-3, "metric_abs": 1e-4,
-                                    "grad_max_rel_to_largest": 3e-2,
-                                    "grad_mean_rel_to_mean": 5e-3},
-                            "variants": checks}
-        del ref_state
-        torch.cuda.empty_cache()
+        out["f32_check"] = f32_world_1_check(torch, cfg, dcfg, mine,
+                                             "world 2")
     mine.clear()
     dist.barrier()
     out["f32_s"] = time.perf_counter() - t_phase
@@ -5497,9 +5542,457 @@ def ddp_phase(torch, cfg, dcfg, params) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. model parallelism: the train state channel-sharded over two gloo ranks
+# ---------------------------------------------------------------------------
+
+TP_BF16_ITERS = 4         # bf16 ADA iterations on the grid (the first warms)
+TP_512_ITERS = 4          # the recipe's penalty iteration, then 3 plain ones
+# the CLI's loop on the grid: 2 iterations a mini-step at the global batch
+# 32, 64px fade + stable (iterations 0-3, cut there), then resumed at model
+# 1 in this process: 128px fade + stable (4-7); checkpoints and grids at
+# 1, 4 and 5, 8 (DDP_LOOP_CHECKPOINTS), CSV rows at 2, 4, 6, 8
+TP_LOOP_ARGS = ["--synthetic", "--channels", "512", "--z-dim", "512",
+                "--num-classes", "10", "--max-step", "6", "--init-step", "5",
+                "--dtype", "bfloat16", "--batch-size", str(TRAIN_BATCH),
+                "--images-per-mini-step", str(2 * TRAIN_BATCH),
+                "--ada-p", str(ADA_P0), "--sample-every", "4",
+                "--checkpoint-every", "4", "--log-every", "2"]
+
+
+def tp_collective_costs(torch, mesh, state, reps: int = 5) -> dict:
+    """The step's collectives alone, on the sharded state's G and D: the
+    gather of both at the top of the step, D's again after its update, the
+    reduction of D's and then G's gradients (zeros of the whole shapes).
+    Median ms of ``reps`` and the bytes of the whole tensors each moves
+    (the form the group's backend picks: gloo all-reduces whole buffers
+    through host memory)."""
+    import torch.distributed as dist
+    from pgx_torch.parallel import tp
+    gen, disc = state["g"], state["d"]
+
+    def whole_shape(mod, n, p):
+        k = mesh.n_model if n in tp.sharded_names(mod) else 1
+        return (*p.shape[:-1], p.shape[-1] * k)
+
+    def nbytes(mods, sharded_only):
+        return sum(math.prod(whole_shape(m, n, p)) * p.element_size()
+                   for m in mods for n, p in m.named_parameters()
+                   if n in tp.sharded_names(m) or not sharded_only)
+
+    def timed(fn):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(ts)
+
+    def gather(mods):
+        blocks = tp.unshard_(mesh, mods)
+        for m, b in zip(mods, blocks):
+            tp.reshard_(m, b)
+
+    grads = {m: [torch.zeros(whole_shape(m, n, p), dtype=p.dtype,
+                             device=p.device)
+                 for n, p in m.named_parameters()] for m in (gen, disc)}
+    out = {"gather_g_d_ms": timed(lambda: gather((gen, disc))),
+           "gather_g_d_bytes": nbytes((gen, disc), True),
+           "gather_d_ms": timed(lambda: gather((disc,))),
+           "gather_d_bytes": nbytes((disc,), True),
+           "reduce_d_ms": timed(lambda: tp.reduce_gradients(
+               mesh, (disc,), grads[disc])),
+           "reduce_g_ms": timed(lambda: tp.reduce_gradients(
+               mesh, (gen,), grads[gen])),
+           "reduce_bytes": nbytes((gen, disc), False),
+           "backend": dist.get_backend(mesh.model_group)}
+    out["per_step_ms"] = (out["gather_g_d_ms"] + out["gather_d_ms"]
+                          + out["reduce_d_ms"] + out["reduce_g_ms"])
+    out["per_step_bytes"] = (out["gather_g_d_bytes"] + out["gather_d_bytes"]
+                             + out["reduce_bytes"])
+    return out
+
+
+def tp_rank_work(torch, rank: int, world: int, root: str) -> dict:
+    """One rank of the (1, 2) grid: the f32 check (rank 0 also runs the
+    world-1 reference), the bf16 ADA iterations with the state checked and
+    the collectives timed, the 512px recipe at full width (rank 0 also at
+    world 1, batch 8 and 4), and the flagship CLI's loop at model 2."""
+    import torch.distributed as dist
+    from pgx_torch import checkpoint as ckpt
+    from pgx_torch.augment import AdaConfig, bgc_config, init_ada_state
+    from pgx_torch.cli import common
+    from pgx_torch.cli import conditional_proper_cifar_train as cli
+    from pgx_torch.models import zoo
+    from pgx_torch.ops import kernels as K
+    from pgx_torch.parallel import tp
+    from pgx_torch.parallel.stats import check_replica_consistency
+    from pgx_torch.train import make_train_step
+    mesh = tp.make_mesh_2d(1, world)
+    require((mesh.n_data, mesh.n_model, mesh.d, mesh.m) == (1, world, 0,
+                                                            rank),
+            f"rank {rank} at {mesh}")
+    cfg = zoo.conditional_correct_generator(
+        z_dim=512, num_classes=10, channel=512, max_step=6, dtype="bfloat16")
+    dcfg = zoo.conditional_correct_discriminator_wgangp(
+        feat_dim=512, num_classes=10, max_step=6, dtype="bfloat16")
+    b = TRAIN_BATCH // world
+    rows = slice(rank * b, (rank + 1) * b)
+    launches = {k: 0 for k in K.launch_counts()}
+    out = {"rank": rank, "rank_batch": b,
+           "grid": [mesh.n_data, mesh.n_model, mesh.d, mesh.m]}
+
+    def add_launches(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    recorded = ([], [], [], [])
+
+    def iteration(run, record):
+        """One iteration of the main path with launch counts from 0
+        around it; ``record``: every kernel call recorded too
+        (``recorded_run``), for the parent to hold against the plain
+        versions at these shapes.  Its result (the metrics: no name keeps
+        the state alive past its ``del``) and launches."""
+        if record:
+            res, got, _, calls = recorded_run(torch, run)
+            for acc, c in zip(recorded, calls):
+                acc.extend(c)
+            return res, got
+        K.reset_launch_counts()
+        res = run()
+        torch.cuda.synchronize()
+        return res, K.launch_counts()
+
+    # ---- f32: model 2 against this script's world-1 iteration ---------
+    t_phase = time.perf_counter()
+    g, d, tc, state = new_train_state(cfg, dcfg, "float32")
+    tp.shard_state(mesh, state)
+    mine = {}
+    for i, (name, kw, ada) in enumerate(DDP_F32_VARIANTS):
+        state["ada"] = init_ada_state(ADA_P0, DEVICE)
+        aug = (dict(augment_cfg=bgc_config(), ada_cfg=AdaConfig())
+               if ada else {})
+        step = make_train_step(g, d, dataclasses.replace(
+            tc, learning_rate=0.0, **kw), step=TRAIN_STEP, fading=False,
+            mesh=mesh, **aug)
+        real, labels, draws = ddp_inputs(torch, g, 910 + i, ada)
+        # ---- the main path: counts from 0 around the iteration ----
+        m, got = iteration(lambda: step(
+            state, real[rows], labels[rows], 1.0, **draws)[1], True)
+        add_launches(got)
+        # ------------------------------------------------------------
+        whole = tp.gather_state(mesh, {k: state[k] for k in
+                                       ("g", "d", "opt_g", "opt_d")})
+        mine[name] = ({k: float(v) for k, v in m.items()},
+                      {f"{net}.{n}": t for net in ("d", "g")
+                       for n, t in whole[f"opt_{net}"]["mu"].items()},
+                      float(state["ada"]["p"]))
+        del whole
+    del state
+    torch.cuda.empty_cache()
+    if rank == 0:
+        out["f32_check"] = f32_world_1_check(torch, cfg, dcfg, mine,
+                                             "model 2")
+    mine.clear()
+    dist.barrier()
+    out["f32_s"] = time.perf_counter() - t_phase
+
+    # ---- bf16 ADA iterations on the grid, the state, the collectives ---
+    g, d, tc, state = new_train_state(cfg, dcfg, "bfloat16")
+    state["ada"] = init_ada_state(ADA_P0, DEVICE)
+    want = calls_per_iteration(g, d, TRAIN_STEP, "shear")
+    whole_shapes = {k: tuple(v.shape) for k, v in
+                    ckpt.state_payload(state)["g"].items()}
+    whole_bytes = tp.resident_bytes(state)
+    tp.shard_state(mesh, state)
+    step = make_train_step(g, d, tc, step=TRAIN_STEP, fading=False,
+                           augment_cfg=bgc_config(),
+                           ada_cfg=AdaConfig(interval_batches=1), mesh=mesh)
+    times, ps = [], []
+    for i in range(TP_BF16_ITERS):
+        real, labels, draws = ddp_inputs(torch, g, 950 + i, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # ---- the main path: counts from 0 around each iteration (the
+        # first, out of the median, recorded) ----
+        m, got = iteration(lambda: step(
+            state, real[rows], labels[rows], 1.0, **draws)[1], i == 0)
+        # ------------------------------------------------------------
+        times.append(1e3 * (time.perf_counter() - t0))
+        require(got == want, f"rank {rank} bf16 iteration {i}: launches "
+                             f"{got} != {want}")
+        add_launches(got)
+        require(all(math.isfinite(float(v)) for v in m.values()),
+                f"rank {rank} bf16 metrics {m}")
+        ps.append(float(state["ada"]["p"]))
+    t0 = time.perf_counter()
+    check_replica_consistency(state, label="bf16 state", mesh=mesh)
+    out["bf16"] = {"launches_per_iteration": want,
+                   "ms_per_iteration": statistics.median(times[1:]),
+                   "ms_each": times, "ada_p": ps,
+                   "state_check_s": time.perf_counter() - t0,
+                   "state_bytes_whole": whole_bytes,
+                   "state_bytes_at_rest": tp.resident_bytes(state),
+                   "collectives": tp_collective_costs(torch, mesh, state)}
+    del state, step
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # ---- the 512px recipe at full width on the grid ------------------
+    gcfg5, dcfg5 = recipe_pair("bfloat16")
+    b5 = R512_BATCH // world
+    rows5 = slice(rank * b5, (rank + 1) * b5)
+    base5 = allocated_at_rest(torch)
+    _, state5, steps5 = recipe_state(gcfg5, dcfg5, mesh=mesh,
+                                     gp_mode="jvp")
+    want5 = {gp: recipe_launches(state5["g"], dcfg5, "jvp", gp)
+             for gp in (True, False)}
+    whole5 = tp.resident_bytes(state5)
+    tp.shard_state(mesh, state5)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times5 = []
+    for i in range(TP_512_ITERS):
+        gp = i % R512_GP_EVERY == 0
+        real, labels, draws = recipe_draws(torch, gcfg5, 970 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # ---- the main path: counts from 0 around each iteration (the
+        # penalty one and the first plain one recorded) ----
+        m, got = iteration(lambda: steps5[gp](
+            state5, real[rows5], labels[rows5], 1.0, **draws)[1], i < 2)
+        # ------------------------------------------------------------
+        times5.append(1e3 * (time.perf_counter() - t0))
+        require(got == want5[gp], f"rank {rank} 512px iteration {i}: "
+                                  f"launches {got} != {want5[gp]}")
+        add_launches(got)
+        require(all(math.isfinite(float(v)) for v in m.values()),
+                f"rank {rank} 512px metrics {m}")
+    del real, labels, draws, m
+    r512 = {"ms_each": times5, "penalty_ms": times5[0],
+            "plain_ms_median": statistics.median(times5[1:]),
+            "state_bytes_whole": whole5,
+            "state_bytes_at_rest": tp.resident_bytes(state5),
+            "allocated_at_rest": allocated_at_rest(torch) - base5,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches_per_iteration": {"penalty": want5[True],
+                                       "plain": want5[False]}}
+    check_replica_consistency(state5, label="512px state", mesh=mesh)
+    del state5, steps5
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        # world 1 in this process, the other rank idle
+        for batch in (R512_BATCH, R512_BATCH // world):
+            base1 = allocated_at_rest(torch)
+            _, st1, steps1 = recipe_state(gcfg5, dcfg5, gp_mode="jvp")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ts = []
+            for i in range(TP_512_ITERS):
+                real, labels, draws = recipe_draws(torch, gcfg5, 970 + i,
+                                                   batch=batch)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                steps1[i % R512_GP_EVERY == 0](st1, real, labels, 1.0,
+                                               **draws)
+                torch.cuda.synchronize()
+                ts.append(1e3 * (time.perf_counter() - t0))
+            del real, labels, draws
+            r512[f"world_1_batch_{batch}"] = {
+                "ms_each": ts, "plain_ms_median": statistics.median(ts[1:]),
+                "state_bytes": tp.resident_bytes(st1),
+                "allocated_at_rest": allocated_at_rest(torch) - base1,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            del st1, steps1
+            torch.cuda.empty_cache()
+    out["r512"] = r512
+    dist.barrier()
+
+    # ---- the flagship CLI's loop at model 2, cut at 4 iterations -----
+    loop_root = os.path.join(root, f"loop_rank{rank}")
+    os.makedirs(loop_root)
+    last_gather = {}
+    gather_state = tp.gather_state
+    loop_config = common.loop_config_from_args
+
+    def recorded_gather(mesh_, state_):
+        whole = gather_state(mesh_, state_)
+        if rank == 0 and "opt_g" in whole:
+            last_gather.clear()
+            last_gather.update(
+                {k: v.detach().cpu() for k, v in flat_payload(
+                    ckpt.state_payload(whole)).items()
+                 if isinstance(v, torch.Tensor)})
+        return whole
+
+    def cut(args, **extra):
+        return dataclasses.replace(loop_config(args, **extra),
+                                   total_iterations=DDP_LOOP_SPLIT)
+
+    t0 = time.perf_counter()
+    with mock.patch.object(tp, "gather_state", recorded_gather), \
+            mock.patch.object(common, "loop_config_from_args", cut):
+        # ---- the main path: counts from 0 around the CLI run ----
+        K.reset_launch_counts()
+        trial = cli.main(TP_LOOP_ARGS + ["--model-parallel", str(world),
+                                         "--output", loop_root])
+        torch.cuda.synchronize()
+        loop_l = K.launch_counts()
+        # ----------------------------------------------------------
+    add_launches(loop_l)
+    want = {k: DDP_LOOP_SPLIT * v for k, v in
+            calls_per_iteration(cfg, dcfg, 5, "shear").items()}
+    if rank == 0:   # the grids at 1 and 4: one G forward each
+        for k, v in g_calls_per_forward(cfg, 5).items():
+            want[k] += 2 * v
+    require(loop_l == want, f"rank {rank} loop launches {loop_l} != {want}")
+    files = sorted(os.path.relpath(os.path.join(dp, f), loop_root)
+                   for dp, _, fs in os.walk(loop_root) for f in fs)
+    loop = {"seconds": time.perf_counter() - t0, "launches": loop_l,
+            "files_written": len(files)}
+    if rank == 0:
+        saved = flat_payload(torch.load(os.path.join(
+            trial, "checkpoint", f"{DDP_LOOP_SPLIT:03d}_state.pt"),
+            map_location="cpu", weights_only=True))
+        tensors = {k: v for k, v in saved.items()
+                   if isinstance(v, torch.Tensor)}
+        require(tensors.keys() == last_gather.keys(),
+                "checkpoint keys != the gathered state's")
+        require(all(torch.equal(tensors[k], last_gather[k])
+                    for k in tensors), "checkpoint != the gathered state")
+        require(all(tuple(tensors[f"g.{k}"].shape) == v
+                    for k, v in whole_shapes.items()),
+                "the checkpoint's G is not whole")
+        loop["trial"] = trial
+        loop["checkpoint_tensors_equal_gathered"] = len(tensors)
+    else:
+        require(files == [], f"rank {rank} wrote {files[:5]}")
+    out["loop"] = loop
+    out["launches"] = launches
+    out["recorded_calls"] = [list(dict.fromkeys(c)) for c in recorded]
+    return out
+
+
+def allocated_at_rest(torch) -> int:
+    """The card allocator's reading with nothing of a step alive: garbage
+    collected, the card idle, the cache emptied."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def as_call(x):
+    """A recorded call back from JSON: its lists as tuples again."""
+    return tuple(as_call(v) for v in x) if isinstance(x, list) else x
+
+
+def flat_payload(tree, prefix: str = "") -> dict:
+    """A nested dict (a ``state_payload``) flattened to ``{'a.b': leaf}``."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_payload(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def tp_phase(torch, cfg, dcfg) -> dict:
+    """Phase 12: the two gloo ranks of the (1, 2) grid, then the ranks'
+    trial resumed at model 1 in this process to 128px.  ``launches`` sums
+    every kernel launch of the phase's main paths (each rank's iterations
+    and loop, and the resumed run).  The calls of the ranks' recorded
+    iterations are held against the plain versions here (``hold``), and
+    the allocator's readings at rest are held against world 1's."""
+    import shutil
+    from pgx_torch.cli import conditional_proper_cifar_train as cli
+    from pgx_torch.ops import kernels as K
+    t0 = time.monotonic()
+    root = tempfile.mkdtemp(prefix="pgx_tp_")
+    try:
+        torch.cuda.empty_cache()
+        ranks = run_ddp_ranks(torch, "--tp-rank", root)
+        ranks_s = time.monotonic() - t0
+        r0, r1 = ranks
+        # ---- the main path: counts from 0 around the resumed run ----
+        K.reset_launch_counts()
+        t_resume = time.perf_counter()
+        trial = cli.main(TP_LOOP_ARGS + ["--output", os.path.join(
+            root, "resume"), "--resume", r0["loop"]["trial"]])
+        torch.cuda.synchronize()
+        resume_l = K.launch_counts()
+        # ----------------------------------------------------------
+        resume_s = time.perf_counter() - t_resume
+        want = {k: (DDP_LOOP_TOTAL - DDP_LOOP_SPLIT) * v for k, v in
+                calls_per_iteration(cfg, dcfg, 6, "shear").items()}
+        for k, v in g_calls_per_forward(cfg, 6).items():   # grids at 5, 8
+            want[k] += 2 * v
+        require(resume_l == want, f"resumed loop launches {resume_l} != "
+                                  f"{want}")
+        require(trial == r0["loop"]["trial"], f"resumed into {trial}")
+        resumed = ddp_check_trial(trial)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(resume_l)
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    require(r0["bf16"]["launches_per_iteration"]
+            == r1["bf16"]["launches_per_iteration"], "ranks' launches")
+    # every call the ranks' recorded iterations made (each f32 variant,
+    # the first bf16 ADA iteration, the 512px penalty and plain ones),
+    # held here against the plain versions unless a phase held it already
+    recorded = [list(dict.fromkeys(as_call(c) for r in ranks
+                                   for c in r["recorded_calls"][j]))
+                for j in range(4)]
+    held = hold(torch, "tp: a model-2 rank's rows (the flagship at 16, "
+                       "the 512px recipe at 4)", recorded)
+    # the allocator at rest: model 2 holds about half the sharded bytes
+    # fewer than world 1 at the same rows
+    w1 = r0["r512"][f"world_1_batch_{R512_BATCH // DDP_WORLD}"]
+    memory = {"world_1_allocated_at_rest": w1["allocated_at_rest"]}
+    for r in ranks:
+        half = r["r512"]["state_bytes_whole"] - r["r512"][
+            "state_bytes_at_rest"]
+        saved = w1["allocated_at_rest"] - r["r512"]["allocated_at_rest"]
+        memory[f"rank{r['rank']}"] = {
+            "allocated_at_rest": r["r512"]["allocated_at_rest"],
+            "saved_bytes": saved, "half_the_sharded_bytes": half,
+            "saved_over_half": saved / half}
+        require(abs(saved - half) <= 0.1 * half,
+                f"rank {r['rank']}: the allocator at rest holds {saved} "
+                f"bytes fewer than world 1's, not about {half} (half the "
+                f"sharded bytes): {memory}")
+    return {
+        "grid": "(n_data, n_model) = (1, 2): two gloo ranks sharing one "
+                "card, collectives through host memory",
+        "f32_check": r0["f32_check"],
+        "bf16": {f"rank{r['rank']}": r["bf16"] for r in ranks},
+        "ms_per_iteration_by_rank": [r["bf16"]["ms_per_iteration"]
+                                     for r in ranks],
+        "r512": {f"rank{r['rank']}": r["r512"] for r in ranks},
+        "r512_allocated_at_rest": memory,
+        "kernels_held": held,
+        "loop": {f"rank{r['rank']}": r["loop"] for r in ranks},
+        "resumed_at_model_1": {"seconds": resume_s, "launches": resume_l,
+                               "csv": resumed["csv"],
+                               "checkpoints": resumed["checkpoints"]},
+        "f32_s_by_rank": [r["f32_s"] for r in ranks],
+        "ranks_s": ranks_s, "launches": launches,
+        "seconds": time.monotonic() - t0}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--ddp-rank"]:     # a rank of phase 11
         return ddp_rank_main(sys.argv[2:])
+    if sys.argv[1:2] == ["--tp-rank"]:      # a rank of phase 12
+        return ddp_rank_main(sys.argv[2:], tp_rank_work)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -5634,6 +6127,10 @@ def main() -> int:
     ddp = ddp_phase(torch, cfg, dcfg, params)
     emit({"phase": "ddp", **ddp, "total_s": time.monotonic() - t_start})
     ddp_launches = ddp["launches"]
+    # 12. model parallelism: the state sharded over two gloo ranks
+    tp_run = tp_phase(torch, cfg, dcfg)
+    emit({"phase": "tp", **tp_run, "total_s": time.monotonic() - t_start})
+    tp_launches = tp_run["launches"]
     recipe_launches_ = {k: recipe["cli"]["launches"][k] + sum(
         m[f"launches_{it}_iteration"][k] for m in recipe["bare"].values()
         for it in ("penalty", "plain")) for k in recipe["cli"]["launches"]}
@@ -5662,7 +6159,7 @@ def main() -> int:
         eval_l = eval_launches[name]
         eval_bf16_l = eval_bf16_launches[name]
         require(train_launches > 0 and ada_launches > 0 and loop_l > 0
-                and ddp_launches[name] > 0
+                and ddp_launches[name] > 0 and tp_launches[name] > 0
                 and (serve_launches > 0 or not on_serve)
                 and ((eval_l > 0 and eval_bf16_l > 0) or not on_serve),
                 f"{name}: not launched on its main path")
@@ -5672,7 +6169,7 @@ def main() -> int:
                               + loop_l + recipe_launches_[name] + eval_l
                               + eval_bf16_l + cli_launches[name]
                               + artifact_launches[name]
-                              + ddp_launches[name]),
+                              + ddp_launches[name] + tp_launches[name]),
                  "launches_serve": serve_launches,
                  "launches_eval_sweep": eval_l,
                  "launches_eval_sweep_bf16": eval_bf16_l,
@@ -5683,6 +6180,7 @@ def main() -> int:
                  "launches_cli": cli_launches[name],
                  "launches_export_artifact": artifact_launches[name],
                  "launches_ddp": ddp_launches[name],
+                 "launches_tp": tp_launches[name],
                  # the launches of one run of the path named in "per": ms,
                  # plain_ms and bound_ms are sums over these
                  "launches_per_path_run": head[(name, "bfloat16")]["calls"],
@@ -5738,7 +6236,8 @@ def main() -> int:
                 "launches_train_ada": ada["launches"][A_BWD2],
                 "launches_train_loop": loop_launches[A_BWD2],
                 "launches_train_512_recipe": recipe_launches_[A_BWD2],
-                "launches_ddp": ddp_launches[A_BWD2]}
+                "launches_ddp": ddp_launches[A_BWD2],
+                "launches_tp": tp_launches[A_BWD2]}
     require(all(v > 0 for v in launches.values()),
             f"{A_BWD2}: not launched on its main path ({launches})")
     launches["launches_cli"] = cli_launches[A_BWD2]
@@ -5763,9 +6262,10 @@ def main() -> int:
     source, replaces = SOURCES[A_JVP]
     tg = recipe["tangent"]
     launches = {"launches_train_512_recipe": recipe_launches_[A_JVP],
-                "launches_ddp": ddp_launches[A_JVP]}
+                "launches_ddp": ddp_launches[A_JVP],
+                "launches_tp": tp_launches[A_JVP]}
     require(launches["launches_train_512_recipe"] > 0
-            and launches["launches_ddp"] > 0
+            and launches["launches_ddp"] > 0 and launches["launches_tp"] > 0
             and recipe["bare"]["reverse"]["launches_penalty_iteration"][
                 A_JVP] == 0,
             f"{A_JVP}: launches {launches}, reverse mode "
@@ -5796,7 +6296,8 @@ def main() -> int:
                  "launches_train_ada": ada["launches"][F_],
                  "launches_train_loop": loop_launches[F_],
                  "launches_train_512_recipe": recipe_launches_[F_],
-                 "launches_ddp": ddp_launches[F_]}),
+                 "launches_ddp": ddp_launches[F_],
+                 "launches_tp": tp_launches[F_]}),
             (D_, "one bf16 ADA iteration (gather warp) at batch 32: 6 "
                  "forward and 2 backward launches", gather_launches[D_], {
                      "launches_train_ada_gather": gather_launches[D_],
@@ -5813,6 +6314,7 @@ def main() -> int:
         launches.setdefault("launches_train_512_recipe",
                             recipe_launches_[name])
         launches.setdefault("launches_ddp", ddp_launches[name])
+        launches.setdefault("launches_tp", tp_launches[name])
         launches["launches_cli"] = cli_launches[name]
         agg = fde[(name, "bfloat16")]
         entry = {"name": name, "route": "cuda", "source": source,
@@ -5844,7 +6346,7 @@ def main() -> int:
                 for ax in (3, 2)}
         kernels.append(entry)
 
-    # 12. the card
+    # 13. the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

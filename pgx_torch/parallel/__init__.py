@@ -1,16 +1,19 @@
-"""Data parallelism of the port (counterpart of ``pgx/parallel``): one
-process per rank under a ``torch.distributed`` process group, the
-collectives GSPMD places implicitly in ``pgx``, the data mesh, and the
-cross-process statistics.
+"""Data and model parallelism of the port (counterpart of ``pgx/parallel``):
+one process per rank under a ``torch.distributed`` process group, the
+collectives GSPMD places implicitly in ``pgx``, the data mesh, the
+cross-process statistics, and (``tp``) the 2-D ``(data, model)`` grid with
+the train state channel-sharded over its model axis.
 
-Tensor and spatial model parallelism (``pgx/parallel/tp.py``) is not
-ported yet: its names raise ``NotImplementedError``.
+``tp.py``'s ``spatial`` mode is not ported yet: ``spatial_batch_sharding``
+raises ``NotImplementedError``.
 """
 
 from pgx_torch.parallel import stats  # noqa: F401
 from pgx_torch.parallel.collectives import (  # noqa: F401
     all_reduce_sum,
     average_,
+    gather_model_axis,
+    reduce_to_shards,
 )
 from pgx_torch.parallel.distributed import (  # noqa: F401
     broadcast_obj,
@@ -36,19 +39,13 @@ from pgx_torch.parallel.stats import (  # noqa: F401
     psum_moments,
     report,
 )
-
-
-def _not_ported(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"pgx_torch.parallel.{name}: tensor and spatial model "
-            f"parallelism (pgx/parallel/tp.py) is not ported yet")
-    fn.__name__ = name
-    return fn
-
-
-make_mesh_2d = _not_ported("make_mesh_2d")
-make_mesh_2d_for_batch = _not_ported("make_mesh_2d_for_batch")
-shard_state = _not_ported("shard_state")
-spatial_batch_sharding = _not_ported("spatial_batch_sharding")
-state_shardings = _not_ported("state_shardings")
+from pgx_torch.parallel.tp import (  # noqa: F401
+    Mesh2D,
+    gather_state,
+    make_mesh_2d,
+    make_mesh_2d_for_batch,
+    shard_state,
+    spatial_batch_sharding,
+    state_shardings,
+    use_spatial_sharding,
+)

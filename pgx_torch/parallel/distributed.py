@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from pgx_torch.parallel.collectives import rank, world_size
+from pgx_torch.parallel.collectives import first_rank, rank, world_size
 from pgx_torch.utils import resolve_device
 
 
@@ -79,7 +79,7 @@ def broadcast_obj(obj=None, group=None):
     if world_size(group) == 1:
         return obj
     box = [obj if rank(group) == 0 else None]
-    dist.broadcast_object_list(box, src=0, group=group)
+    dist.broadcast_object_list(box, src=first_rank(group), group=group)
     return box[0]
 
 
@@ -130,7 +130,7 @@ def broadcast_state(state, group=None):
     if tensors or gens:
         flat = torch.cat([_bytes_of(v, wire) for _, v in tensors]
                          + [_bytes_of(g.get_state(), wire) for _, g in gens])
-        dist.broadcast(flat, src=0, group=group)
+        dist.broadcast(flat, src=first_rank(group), group=group)
         lo = 0
         with torch.no_grad():
             for _, v in tensors:

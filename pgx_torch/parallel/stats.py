@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from pgx_torch.parallel.collectives import rank, world_size
+from pgx_torch.parallel.collectives import first_rank, rank, world_size
 from pgx_torch.parallel.distributed import (_bytes_of, _wire_device,
                                             broadcast_obj, named_state_leaves)
 
@@ -127,14 +127,26 @@ def _leaf_diff(mine: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 def check_replica_consistency(tree, atol: float = 0.0, label: str = "state",
-                              group=None) -> None:
+                              group=None, mesh=None) -> None:
     """Assert that a replicated tree (a train state, a module) holds the
     same values on every rank: rank 0's copy is broadcast, each rank takes
     the largest difference of every leaf (NaN equal to NaN), and an
     all-reduce MAX of those finds the leaves that differ anywhere.  Raises
     ``AssertionError`` naming the first such leaf on every rank.  Python
     scalars and generator states are compared exactly.  One process:
-    nothing to compare."""
+    nothing to compare.
+
+    ``mesh`` (a ``pgx_torch.parallel.tp.Mesh2D`` whose model axis shards
+    the train state ``tree``): the blocks are compared within each data
+    group (the ranks that hold the same block), then the gathered whole
+    state over the world; every rank calls it."""
+    if mesh is not None and mesh.n_model > 1:
+        from pgx_torch.parallel.tp import gather_state
+        check_replica_consistency(tree, atol, f"{label} (blocks)",
+                                  mesh.data_group)
+        check_replica_consistency(gather_state(mesh, tree), atol, label,
+                                  mesh.world_group)
+        return
     if world_size(group) == 1:
         return
     leaves = list(named_state_leaves(tree))
@@ -146,7 +158,7 @@ def check_replica_consistency(tree, atol: float = 0.0, label: str = "state",
     diffs = torch.zeros(len(tensors), dtype=torch.float32, device=wire)
     if tensors:
         flat = torch.cat([_bytes_of(v, wire) for _, v in tensors])
-        dist.broadcast(flat, src=0, group=group)
+        dist.broadcast(flat, src=first_rank(group), group=group)
         lo = 0
         for i, (_, v) in enumerate(tensors):
             n = v.numel() * v.element_size()

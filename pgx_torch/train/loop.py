@@ -34,6 +34,16 @@ Design notes (CUDA):
   and writes checkpoints, grids, logs, ``timing.json``, the store and the
   FID ticks; every rank enters every step, and the state is replicated
   from rank 0 at the start.
+* ``model_parallel=n`` (``model_parallel_mode='channels'``) over such a
+  group lays the ranks out as a ``(world / n, n)`` grid
+  (``pgx_torch.parallel.tp``): after init or resume the state keeps only
+  each rank's block of its sharded leaves, every rank still takes its own
+  rows of the global batch, and every host read (checkpoint, store, sample
+  grid, FID tick) gathers the whole state on every rank at the same
+  iteration, rank 0 alone writing: a checkpoint is the same files at any
+  ``n``.  As in pgx across hosts, an interrupt writes no emergency
+  checkpoint then (the gather is a collective one process's signal cannot
+  start).
 """
 
 from __future__ import annotations
@@ -58,7 +68,9 @@ from pgx_torch.data.pipeline import DevicePrefetcher, array_batches
 from pgx_torch.models.config import DiscriminatorConfig, GeneratorConfig
 from pgx_torch.models.generator import _state_dict_of
 from pgx_torch.parallel import collectives as coll
-from pgx_torch.parallel.distributed import broadcast_obj, host_batch_slice
+from pgx_torch.parallel import tp
+from pgx_torch.parallel.distributed import (broadcast_obj, broadcast_state,
+                                            host_batch_slice)
 from pgx_torch.parallel.mesh import make_mesh_for_batch, replicate
 from pgx_torch.train.schedule import schedule_from_dict, schedule_to_dict
 from pgx_torch.train.wgan import (TrainConfig, draw_augment_sources,
@@ -71,9 +83,11 @@ from pgx_torch.utils.png import save_image_grid
 
 @dataclasses.dataclass
 class LoopConfig:
-    """``pgx.train.loop.LoopConfig``, field for field.  A value whose code
-    path is not ported yet raises ``NotImplementedError`` here:
-    ``model_parallel > 1`` (tensor and spatial model parallelism).
+    """``pgx.train.loop.LoopConfig``, field for field.  ``model_parallel >
+    1`` shards the train state over a model axis of the process group's
+    ranks (``model_parallel_mode='channels'``; ``'spatial'`` is not ported
+    yet and raises ``NotImplementedError``; either needs ``use_mesh``,
+    pgx's ``ValueError`` otherwise).
     ``checkpoint_backend='orbax'`` keeps the full state in the port's
     step-indexed store (``pgx_torch.checkpoint.step_store``: asynchronous
     writes, atomic commits) in place of ``{iter}_state.pt``.  ``use_mesh``
@@ -120,9 +134,16 @@ class LoopConfig:
             raise ValueError(f"steps_per_call must be >= 0 (0: auto), got "
                              f"{self.steps_per_call}")
         if self.model_parallel > 1:
-            raise NotImplementedError(
-                f"LoopConfig.model_parallel={self.model_parallel!r} is not "
-                f"ported yet")
+            if not self.use_mesh:
+                raise ValueError("model_parallel requires use_mesh=True")
+            if self.model_parallel_mode not in ("channels", "spatial"):
+                raise ValueError(
+                    f"unknown model_parallel_mode "
+                    f"{self.model_parallel_mode!r} (channels|spatial)")
+            if self.model_parallel_mode == "spatial":
+                raise NotImplementedError(
+                    f"LoopConfig.model_parallel_mode='spatial' is "
+                    f"{tp.SPATIAL_SLICE}")
 
 
 def make_trial_dir(loop_cfg: LoopConfig) -> Tuple[str, str]:
@@ -351,8 +372,12 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     mesh_batch = 0
     for b in stage_batches:
         mesh_batch = math.gcd(mesh_batch, b)
-    mesh = None
-    if loop_cfg.use_mesh:
+    mesh = mesh2 = None
+    if loop_cfg.use_mesh and loop_cfg.model_parallel > 1:
+        # the ranks as a (data, model) grid; the state is sharded below
+        mesh2 = tp.make_mesh_2d_for_batch(mesh_batch, loop_cfg.model_parallel,
+                                          group=group)
+    elif loop_cfg.use_mesh:
         # over several ranks it raises at launch, not when the offending
         # stage begins, unless the ranks divide every stage's batch
         mesh = make_mesh_for_batch(mesh_batch, devices=[dev], group=group)
@@ -374,8 +399,11 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         """One checkpoint write (periodic / interrupt / final): the npz
         pair always; the full state as ``{iter}_state.pt`` or, with the
         store, as its step ``it`` (written in the background).  Rank 0
-        alone writes: the state is replicated."""
+        alone writes: the state is replicated, or with a model axis
+        gathered whole on every rank first (a collective)."""
         nonlocal store
+        if mesh2 is not None:
+            current_state = tp.gather_state(mesh2, current_state)
         if not is_main:
             return
         ckpt.save_checkpoint(trial_dir, it, current_state,
@@ -429,6 +457,9 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     if mesh is not None:
         # rank 0's state (the fresh one, or the resumed one) on every rank
         state = replicate(mesh, state)
+    elif mesh2 is not None:
+        # rank 0's whole state on every rank, then each keeps its blocks
+        state = tp.shard_state(mesh2, broadcast_state(state, group))
 
     log_path = os.path.join(trial_dir, f"train_log_{postfix}.txt")
     log_ada = augment_cfg is not None
@@ -452,6 +483,8 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                             if augment_cfg is not None else None)
 
     step_cache: Dict[Any, Callable] = {}
+    step_group = (dict(mesh=mesh2) if mesh2 is not None
+                  else dict(process_group=group))
     gen_cache: Dict[Any, Callable] = {}
     sample_rng = np.random.RandomState(loop_cfg.seed + 1)
     sample_z, sample_labels, sample_nrow = _sample_grid_inputs(
@@ -463,7 +496,10 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     # the in-training FID samples the EMA generator on its device and
     # takes the features there too; it shares the grids' sampling cache
     fid_hook = None
-    if is_main and loop_cfg.fid_every > 0:      # rank 0 alone scores
+    # the ticks are decided alike on every rank (a model axis gathers G_ema
+    # on each); rank 0 alone scores
+    fid_ticks = loop_cfg.fid_every > 0 and hasattr(dataset, "at_resolution")
+    if is_main and loop_cfg.fid_every > 0:
         if not hasattr(dataset, "at_resolution"):
             warnings.warn("in-training FID needs an array-backed dataset "
                           "with per-resolution caches; for folder/WikiArt "
@@ -547,7 +583,7 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                     step_cache[mkey] = make_train_multi_step(
                         gcfg, dcfg, tc, step=st.step, fading=st.fading,
                         k=w, augment_cfg=augment_cfg, ada_cfg=ada_cfg,
-                        augment_p=augment_p, process_group=group)
+                        augment_p=augment_p, **step_group)
                 i0 = i
                 interrupts.in_step = True
                 state, metrics = step_cache[mkey](
@@ -567,7 +603,7 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                         gcfg, dcfg, tc, step=st.step, fading=st.fading,
                         update_g=update_g, apply_gp=apply_gp,
                         augment_cfg=augment_cfg, ada_cfg=ada_cfg,
-                        augment_p=augment_p, process_group=group)
+                        augment_p=augment_p, **step_group)
                 z, eps, aug_draws = draws(i, imgs)
                 # alpha as the f32 scalar pgx's loop hands its step
                 alpha = float(np.float32(st.alpha))
@@ -612,13 +648,18 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 # stage by construction; alpha has advanced)
                 st = schedule.state_at(it - 1)
                 alpha = alphas[-1]
-            if is_main and (it % loop_cfg.sample_every == 0
-                            or i == start_iter):
+            sample_now = it % loop_cfg.sample_every == 0 or i == start_iter
+            fid_now = fid_ticks and it % loop_cfg.fid_every == 0
+            g_ema = state["g_ema"]
+            if mesh2 is not None and (sample_now or fid_now):
+                # every rank enters the gather; rank 0 alone reads it
+                g_ema = tp.gather_module(mesh2, g_ema)
+            if is_main and sample_now:
                 gkey = (st.step, st.fading)
                 if gkey not in gen_cache:
                     gen_cache[gkey] = make_eval_generate(
                         gcfg, step=st.step, fading=st.fading)
-                images = gen_cache[gkey](state["g_ema"], sample_z,
+                images = gen_cache[gkey](g_ema, sample_z,
                                          sample_labels, alpha)
                 save_image_grid(
                     os.path.join(trial_dir, "sample",
@@ -631,9 +672,9 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 except OSError:
                     pass  # a failed periodic write never ends the run
 
-            if fid_hook is not None and it % loop_cfg.fid_every == 0:
+            if fid_hook is not None and fid_now:
                 try:
-                    fid = fid_hook.score(trial_dir, it, state["g_ema"], st)
+                    fid = fid_hook.score(trial_dir, it, g_ema, st)
                     if loop_cfg.verbose:
                         print(f"{it}; FID: {fid:.4f} "
                               f"(res {st.resolution})", flush=True)
@@ -685,8 +726,10 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     except (KeyboardInterrupt, SystemExit):
         # an interrupted run leaves a resumable checkpoint at the exact
         # iteration it stopped; the state is whole here (interrupts land
-        # between steps)
-        if is_main and not interrupts.in_step:
+        # between steps).  Not with a model axis: the gather is a
+        # collective one process's signal cannot start (pgx's rule for a
+        # state sharded across hosts)
+        if is_main and not interrupts.in_step and mesh2 is None:
             it = int(state["iteration"])
             try:
                 save_full(it, state)

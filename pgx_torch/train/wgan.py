@@ -70,6 +70,16 @@ rank, and each rank keeps its rows.  ``DistributedDataParallel`` cannot
 stand in: the step takes its gradients with ``torch.autograd.grad``, which
 fires none of its hooks, and the penalty differentiates through the
 collectives.
+
+With ``mesh`` (a ``pgx_torch.parallel.tp.Mesh2D`` and a state
+``shard_state`` has sharded over its model axis) the step is the same over
+the world group, every rank of the grid taking its own rows, and the
+parameters are gathered whole at the top of the step (outside autograd),
+D again after its update; each gradient is averaged over the world and cut
+to this rank's block; Adam and the EMA run on the blocks; the whole
+parameters are released at the end (``pgx_torch.parallel.tp``).  A
+``process_group`` is the ``(world, 1)`` grid of the same type, with nothing
+sharded: one reduction, ``tp.reduce_gradients``, serves both.
 """
 
 from __future__ import annotations
@@ -93,7 +103,8 @@ from pgx_torch.models.config import DiscriminatorConfig, GeneratorConfig
 from pgx_torch.models.discriminator import Discriminator, init_discriminator
 from pgx_torch.models.generator import (Generator, _state_dict_of,
                                         generator_apply, init_generator)
-from pgx_torch.parallel.collectives import average_, rank, world_size
+from pgx_torch.parallel import tp
+from pgx_torch.parallel.collectives import rank, world_size
 from pgx_torch.utils import resolve_device
 
 METRICS = ("d_loss", "grad_penalty", "real_score", "fake_score", "d_total",
@@ -256,11 +267,14 @@ def _grads_of(loss: torch.Tensor,
 
 @torch.no_grad()
 def _adam_update(module: torch.nn.Module, grads: List[torch.Tensor],
-                 opt: Dict[str, Any], tc: TrainConfig) -> None:
+                 opt: Dict[str, Any], tc: TrainConfig,
+                 shards: Optional[Dict[str, torch.Tensor]] = None) -> None:
     """optax.adam's update, in place: bias-corrected moments on one shared
-    step count, eps outside the square root."""
+    step count, eps outside the square root.  ``shards``: the blocks a
+    sharded module's parameters keep at rest, updated in their place."""
+    shards = shards or {}
     names = [n for n, _ in module.named_parameters()]
-    params = list(module.parameters())
+    params = [shards.get(n, p) for n, p in module.named_parameters()]
     mu = [opt["mu"][n] for n in names]
     nu = [opt["nu"][n] for n in names]
     opt["count"] += 1
@@ -323,7 +337,8 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                     update_g: bool = True, apply_gp: bool = True,
                     augment_cfg: Optional[AugmentConfig] = None,
                     ada_cfg: Optional[AdaConfig] = None,
-                    augment_p: float = 1.0, process_group=None):
+                    augment_p: float = 1.0, process_group=None,
+                    mesh: Optional[tp.Mesh2D] = None):
     """The train step for one (stage, fade phase):
     ``fn(state, real, labels, alpha, *, z, eps, aug_draws=None)
     -> (state, metrics)``.
@@ -351,10 +366,22 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     global batch, ``z`` and ``eps`` the global batch's draws (the same on
     every rank; the step keeps its rows) and ``aug_draws`` sources of the
     global batch's draws; the result is pgx's step at the global batch
-    (module docstring)."""
-    group = process_group
-    world = world_size(group) if group is not None else 1
-    me = rank(group) if group is not None else 0
+    (module docstring).
+
+    ``mesh`` (a ``tp.Mesh2D``, in place of ``process_group``): the same
+    over the grid's world group, on a state ``tp.shard_state`` sharded
+    over its model axis (module docstring)."""
+    if mesh is not None:
+        if process_group is not None:
+            raise ValueError("pass mesh= or process_group=, not both")
+        group = mesh.world_group if mesh.world > 1 else None
+    else:
+        # pure data parallelism: the (world, 1) grid, nothing sharded
+        group = process_group
+        mesh = (tp.Mesh2D(1, 1) if group is None else
+                tp.Mesh2D(world_size(group), 1, rank(group), 0, group))
+    sharded = mesh.n_model > 1
+    world, me = mesh.world, mesh.rank
     conditional = gcfg.conditioning != "none"
     fused = bool(tc.fused_g) and update_g
     lam = tc.lambda_gp * tc.gp_every
@@ -370,6 +397,24 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         return _cast(module, dtype, detach)
 
     def train_step(state, real, labels, alpha, *, z, eps, aug_draws=None):
+        if not sharded:
+            return step_body(state, real, labels, alpha, z, eps, aug_draws)
+        gen, disc = state["g"], state["d"]
+        if not (tp.sharded_names(gen) and tp.sharded_names(disc)):
+            raise ValueError("a mesh with a model axis needs a state that "
+                             "tp.shard_state sharded")
+        # the blocks at rest are the master weights; the whole parameters
+        # live for this step only
+        blocks = tp.unshard_(mesh, (gen, disc))
+        try:
+            return step_body(state, real, labels, alpha, z, eps, aug_draws,
+                             blocks)
+        finally:
+            tp.reshard_(gen, blocks[0])
+            tp.reshard_(disc, blocks[1])
+
+    def step_body(state, real, labels, alpha, z, eps, aug_draws,
+                  blocks=({}, {})):
         gen, disc = state["g"], state["d"]
         lab = labels if conditional else None
         bsz = real.shape[0]
@@ -515,22 +560,23 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 gp_list = list(gen.parameters())
                 loss, aux, logits = d_loss_with(
                     aug_d_fake(g_apply(g_params)), d_cast)
-                grads = _grads_of(loss, d_params + gp_list)
-                if group is not None:
-                    average_(grads, group, world)
+                grads = tp.reduce_gradients(
+                    mesh, (disc, gen), _grads_of(loss, d_params + gp_list))
                 return (grads[:len(d_params)],
                         [-g for g in grads[len(d_params):]], aux, logits)
             with torch.no_grad():
                 fake = aug_d_fake(g_apply(g_params))
             loss, aux, logits = d_loss_with(fake, d_cast)
-            grads = _grads_of(loss, d_params)
-            if group is not None:
-                average_(grads, group, world)
+            grads = tp.reduce_gradients(mesh, (disc,),
+                                        _grads_of(loss, d_params))
             return grads, None, aux, logits
 
         d_grads, g_grads, metrics, real_logits = d_step()
-        _adam_update(disc, d_grads, state["opt_d"], tc)
+        _adam_update(disc, d_grads, state["opt_d"], tc, blocks[1])
         del d_grads
+        if sharded and update_g and not fused:
+            # the G step scores G against the updated D: gather it again
+            tp.unshard_(mesh, (disc,), (blocks[1],))
 
         if augment_cfg is not None and ada_cfg is not None:
             state["ada"] = ada_update(state["ada"], real_logits, ada_cfg,
@@ -553,17 +599,19 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                     g_loss = -torch.mean(d_apply(
                         aug_g_fake(g_apply(g_params)),
                         cast_of(disc, d_dtype)))
-                    g_grads = _grads_of(g_loss, list(gen.parameters()))
-                if group is not None:
-                    average_(g_grads, group, world)
+                    g_grads = tp.reduce_gradients(
+                        mesh, (gen,),
+                        _grads_of(g_loss, list(gen.parameters())))
                 metrics["g_loss"] = g_loss.detach()
                 del g_loss
-            _adam_update(gen, g_grads, state["opt_g"], tc)
+            _adam_update(gen, g_grads, state["opt_g"], tc, blocks[0])
             with torch.no_grad():
                 ema = list(state["g_ema"].parameters())
                 torch._foreach_mul_(ema, tc.ema_decay)
-                torch._foreach_add_(ema, list(gen.parameters()),
-                                    alpha=1.0 - tc.ema_decay)
+                torch._foreach_add_(
+                    ema, [blocks[0].get(n, p)
+                          for n, p in gen.named_parameters()],
+                    alpha=1.0 - tc.ema_decay)
         if group is not None:
             _mean_over_ranks(metrics, group, world)
         state["iteration"] += 1
@@ -576,7 +624,8 @@ def make_train_multi_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                           tc: TrainConfig, *, step: int, fading: bool,
                           k: int, augment_cfg: Optional[AugmentConfig] = None,
                           ada_cfg: Optional[AdaConfig] = None,
-                          augment_p: float = 1.0, process_group=None):
+                          augment_p: float = 1.0, process_group=None,
+                          mesh: Optional[tp.Mesh2D] = None):
     """``k`` iterations in one call (counterpart of pgx's scanned
     ``make_train_multi_step``):
     ``fn(state, reals, labels, alphas, *, draws) -> (state, summed_metrics)``.
@@ -591,8 +640,9 @@ def make_train_multi_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     the single step's body; the metrics are summed on the device and
     nothing synchronizes the host inside the window.  Constraints as pgx's:
     ``n_critic == 1`` and ``k`` a positive multiple of ``gp_every``.
-    ``process_group``: each iteration is the single step's over the group
-    (``make_train_step``), its draws the global batch's."""
+    ``process_group`` / ``mesh``: each iteration is the single step's over
+    the group or the grid (``make_train_step``), its draws the global
+    batch's."""
     if tc.n_critic != 1:
         raise ValueError("multi-step dispatch requires n_critic == 1")
     if k < 1 or k % tc.gp_every != 0:
@@ -601,7 +651,7 @@ def make_train_multi_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     mk = lambda gp: make_train_step(
         gcfg, dcfg, tc, step=step, fading=fading, update_g=True,
         apply_gp=gp, augment_cfg=augment_cfg, ada_cfg=ada_cfg,
-        augment_p=augment_p, process_group=process_group)
+        augment_p=augment_p, process_group=process_group, mesh=mesh)
     body_gp = mk(True)
     body_plain = mk(False) if tc.gp_every > 1 else body_gp
 

@@ -311,8 +311,30 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, name, flags, match):
     ``checkpoint_backend='orbax'``.  ``--multihost`` is ported: without a
     coordinator it raises before anything trains, and with one process it
     initializes nothing and trains on the CPU (two ranks over gloo are in
-    tests/test_torch_parallel.py)."""
+    tests/test_torch_parallel.py).  ``--model-parallel`` is ported
+    (channels mode): with ``--no-mesh`` it raises pgx's ``ValueError``;
+    with the mesh every trainer hands ``model_parallel=2`` to the loop,
+    which with one process raises pgx's ``ValueError`` for too few devices
+    before anything trains (two ranks train in
+    tests/test_torch_tp_loop.py)."""
     module = importlib.import_module(f"pgx_torch.cli.{name}")
+    if match == "model_parallel":
+        with mock.patch.object(_loop_owner(module), "train_loop",
+                               side_effect=AssertionError("trained")), \
+                pytest.raises(ValueError, match="requires use_mesh=True"):
+            module.main(TINY + TRAINERS[name][1] + flags + [
+                "--synthetic", "--device", "cpu", "--output",
+                str(tmp_path)])
+        argv = [a for a in TINY if a != "--no-mesh"] + TRAINERS[name][1] \
+            + flags + ["--synthetic", "--device", "cpu", "--output",
+                       str(tmp_path)]
+        args, _ = _spy_run(module, argv)
+        assert (args[5].model_parallel, args[5].model_parallel_mode) == (
+            2, "channels")
+        with pytest.raises(ValueError, match="model_parallel=2 does not "
+                                             "divide the 1 available"):
+            module.main(argv)
+        return
     if match == "multihost":
         with mock.patch.object(_loop_owner(module), "train_loop",
                                side_effect=AssertionError("trained")), \

@@ -268,8 +268,26 @@ def test_loop_config_refuses_unported_options(tmp_path, field, value):
     into fid_score.json, marked in-training (parity with pgx's loop is in
     tests/test_torch_eval_loop.py).  ``checkpoint_backend='orbax'`` is
     ported and accepted: the loop reaches ``train_loop`` with it and keeps
-    the full state in the step-indexed store, not in ``*_state.pt``."""
-    if field == "checkpoint_backend":
+    the full state in the step-indexed store, not in ``*_state.pt``.
+    ``model_parallel`` is ported (channels mode): the config is accepted,
+    and one process has too few ranks for a model axis of 2 (pgx's
+    ``ValueError`` for too few devices, before anything trains); the
+    spatial mode raises, naming the next slice, and so does a model axis
+    without the mesh (pgx's ``ValueError``).  Two ranks train in
+    tests/test_torch_tp_loop.py."""
+    if field == "model_parallel":
+        assert LoopConfig(**{field: value}).model_parallel == value
+        with pytest.raises(ValueError, match="model_parallel=2 does not "
+                                             "divide the 1 available"):
+            _loop(tmp_path, model_parallel=value)
+        assert not os.listdir(tmp_path)
+        with pytest.raises(NotImplementedError, match="next slice"):
+            LoopConfig(model_parallel=value, model_parallel_mode="spatial")
+        with pytest.raises(ValueError, match="requires use_mesh"):
+            LoopConfig(model_parallel=value, use_mesh=False)
+        with pytest.raises(ValueError, match="unknown model_parallel_mode"):
+            LoopConfig(model_parallel=value, model_parallel_mode="rows")
+    elif field == "checkpoint_backend":
         assert LoopConfig(**{field: value}).checkpoint_backend == "orbax"
         trial = _loop(tmp_path, total_iterations=2, keep_full_state=True,
                       checkpoint_backend=value)

@@ -267,10 +267,16 @@ def test_mesh_helpers_match_pgx():
     assert tpar.broadcast_obj({"a": 1}) == {"a": 1}
     got = tpar.make_global_batch(one, {"x": x, "y": None})
     assert torch.equal(got["x"], torch.as_tensor(x)) and got["y"] is None
-    for name in ("make_mesh_2d", "make_mesh_2d_for_batch", "shard_state",
-                 "spatial_batch_sharding", "state_shardings"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            getattr(tpar, name)()
+    # tp.py's names: channels mode ported (tests/test_torch_tp*.py), the
+    # spatial mode's placement raising, naming the next slice
+    grid = tpar.make_mesh_2d_for_batch(8, 1)
+    assert (grid.shape, grid.world) == ({"data": 1, "model": 1}, 1)
+    assert tpar.make_mesh_2d(1, 1) == grid
+    assert tpar.shard_state(grid, {"x": 1}) == {"x": 1}
+    assert tpar.state_shardings({"x": torch.zeros(4)}, grid) == {
+        "x": ("model",)} and tpar.use_spatial_sharding(8, 2)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        tpar.spatial_batch_sharding(grid)
     from pgx_torch.parallel.distributed import backend_for
     assert backend_for("cpu") == "gloo"
 

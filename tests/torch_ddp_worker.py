@@ -15,6 +15,7 @@ import os
 import pickle
 import sys
 import types
+from unittest import mock
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -240,6 +241,145 @@ def case_step(inp, rank, world):
     return results
 
 
+def case_tp_step(inp, rank, world):
+    """WGAN-GP iterations of the port on a (data, model) grid of the
+    ``world`` ranks: the state sharded over the model axis, each rank its
+    rows of the batch, the global draws handed in; the gathered state
+    back, and the bytes the rank held before and after sharding."""
+    from pgx_torch.augment import AdaConfig, bgc_config
+    from pgx_torch.models import zoo
+    from pgx_torch.parallel import tp
+    from pgx_torch.parallel.stats import check_replica_consistency
+    from pgx_torch.train import TrainConfig, make_train_step
+    gcfg = zoo.conditional_correct_generator(**inp["gkw"])
+    dcfg = zoo.conditional_correct_discriminator_wgangp(**inp["dkw"])
+    mesh = tp.make_mesh_2d(world // inp["n_model"], inp["n_model"])
+    results = {}
+    for name, var in inp["variants"].items():
+        tc = TrainConfig(**var["tc"])
+        state = _state_from(gcfg, dcfg, tc, var["state"])
+        whole_bytes = tp.resident_bytes(state)
+        tp.shard_state(mesh, state)
+        kw = {}
+        if var["ada"]:
+            kw = dict(augment_cfg=bgc_config(),
+                      ada_cfg=AdaConfig(**var["ada"]))
+        metrics = []
+        for it in var["iterations"]:
+            step = make_train_step(gcfg, dcfg, tc, step=var["step"],
+                                   fading=False, apply_gp=it["apply_gp"],
+                                   mesh=mesh, **kw)
+            aug = (None if it["aug"] is None
+                   else [ReplayDraws(a) for a in it["aug"]])
+            state, m = step(
+                state, torch.from_numpy(_rows(it["real"], mesh.rank, world)),
+                torch.from_numpy(_rows(it["labels"], mesh.rank, world)), 1.0,
+                z=torch.from_numpy(it["z"]), eps=torch.from_numpy(it["eps"]),
+                aug_draws=aug)
+            metrics.append({k: float(v) for k, v in m.items()})
+        check_replica_consistency(state, label=name, mesh=mesh)
+        results[name] = {"metrics": metrics,
+                         "state": _flat_state(tp.gather_state(mesh, state)),
+                         "bytes": (whole_bytes, tp.resident_bytes(state)),
+                         "grid": (mesh.d, mesh.m)}
+    if inp.get("forms"):
+        results["forms"] = _forms(mesh, state, rank)
+    return results
+
+
+def _error(fn, *args):
+    """``fn(*args)``'s ValueError message (None when it returns)."""
+    try:
+        fn(*args)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def case_tp_units(inp, rank, world):
+    """The grid's layout and subgroups, its errors, the state's blocks
+    gathered back, and the consistency check over the grid."""
+    from pgx_torch.models import zoo
+    from pgx_torch.parallel import tp
+    from pgx_torch.parallel.stats import check_replica_consistency
+    from pgx_torch.train import TrainConfig
+    out = {}
+    mesh = tp.make_mesh_2d(1, world)
+    out["grid"] = (mesh.n_data, mesh.n_model, mesh.d, mesh.m, mesh.rank)
+    out["model_group"] = dist.get_process_group_ranks(mesh.model_group)
+    out["data_group"] = dist.get_process_group_ranks(mesh.data_group)
+    out["for_batch"] = tp.make_mesh_2d_for_batch(8, world).shape
+    out["errors"] = {
+        "too_few": _error(tp.make_mesh_2d, 2, world),
+        "off_the_mesh": _error(tp.make_mesh_2d, 1, 1),
+        "indivisible_model": _error(tp.make_mesh_2d_for_batch, 8, 3),
+        "batch": _error(tp.make_mesh_2d_for_batch, 3, world)}
+    # each rank on a host of its own: one process per host
+    with mock.patch("socket.gethostname", lambda: f"host{rank}"):
+        out["errors"]["model_axis_spans_hosts"] = _error(tp.make_mesh_2d, 1,
+                                                         world)
+    gcfg = zoo.conditional_correct_generator(**inp["gkw"])
+    dcfg = zoo.conditional_correct_discriminator_wgangp(**inp["dkw"])
+    state = _state_from(gcfg, dcfg, TrainConfig(), inp["state"])
+    whole_bytes = tp.resident_bytes(state)
+    tp.shard_state(mesh, state)
+    out["bytes"] = (whole_bytes, tp.resident_bytes(state))
+    out["shardings"] = tp.state_shardings(state, mesh)
+    out["gathered"] = _flat_state(tp.gather_state(mesh, state))
+    check_replica_consistency(state, label="sharded", mesh=mesh)
+    if rank == 1:
+        with torch.no_grad():
+            state["opt_d"]["nu"][inp["perturb"]][..., 0] += 1e-7
+    try:
+        check_replica_consistency(state, label="sharded", mesh=mesh)
+        out["perturbed"] = None
+    except AssertionError as e:
+        out["perturbed"] = str(e)
+    return out
+
+
+def _forms(mesh, state, rank):
+    """The gather and the gradient reduction of the step in both forms
+    (``'gloo'``: all_reduce alone; ``'nccl'``: all_gather_into_tensor,
+    reduce_scatter_tensor and the data group's all_reduce), on the
+    sharded state's blocks and on gradients that differ by rank."""
+    from pgx_torch.parallel import collectives as coll
+    from pgx_torch.parallel import tp
+    mods = (state["g"], state["d"])
+    blocks = [p.data for mod in mods for n, p in mod.named_parameters()
+              if n in tp.sharded_names(mod)]
+    wholes = {"gloo": coll._gather_gloo(mesh, blocks),
+              "nccl": coll._gather_nccl(mesh, blocks)}
+    gen = torch.Generator().manual_seed(100 + rank)
+    shapes = [(*p.shape[:-1], p.shape[-1] * (mesh.n_model if n in
+                                              tp.sharded_names(mod) else 1))
+              for mod in mods for n, p in mod.named_parameters()]
+    grads = [torch.randn(sh, generator=gen, dtype=torch.float64)
+             for sh in shapes]
+    flags = [n in tp.sharded_names(mod) for mod in mods
+             for n, _ in mod.named_parameters()]
+    # the gloo form averages in place: each form on its own copies
+    reduced = {"gloo": coll._reduce_gloo(mesh, [g.clone() for g in grads],
+                                         flags),
+               "nccl": coll._reduce_nccl(mesh, [g.clone() for g in grads],
+                                         flags)}
+    return {
+        "gather_bitwise": all(torch.equal(a, b) for a, b in
+                              zip(wholes["gloo"], wholes["nccl"])),
+        "gather_blocks_bitwise": all(
+            torch.equal(w[..., mesh.m * b.shape[-1]:
+                          (mesh.m + 1) * b.shape[-1]], b)
+            for w, b in zip(wholes["gloo"], blocks)),
+        "reduce_max_rel": max(
+            float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(reduced["gloo"], reduced["nccl"])),
+        "reduce_bitwise": all(torch.equal(a, b) for a, b in
+                              zip(reduced["gloo"], reduced["nccl"])),
+        "reduce_shapes": [tuple(t.shape) for t in reduced["gloo"]],
+        "grads": [g.numpy() for g in grads],
+        "reduced": [t.numpy() for t in reduced["gloo"]]}
+
+
 def _tiny_pair():
     from pgx_torch.models import zoo
     gcfg = zoo.conditional_correct_generator(
@@ -298,6 +438,69 @@ def case_loop(inp, rank, world):
             "files": files}
 
 
+def case_tp_loop(inp, rank, world):
+    """train_loop on the (1, world) grid: a run with a checkpoint and
+    sample grids beside the same run at model 1 (pure data parallelism
+    over the same ranks), a resume at model 2 of each, both again in
+    windows of 2 iterations, and the step-indexed store stopped and
+    resumed at model 2.  Rank 0 copies the model-2 trial
+    before it is resumed (the caller resumes the copy at model 1)."""
+    import shutil
+    from pgx_torch.data.datasets import synthetic_dataset
+    from pgx_torch.parallel import broadcast_obj, tp
+    from pgx_torch.parallel.stats import check_replica_consistency
+    from pgx_torch.train import LoopConfig, ProperSchedule, TrainConfig
+    from pgx_torch.train.loop import train_loop
+    gcfg, dcfg = _tiny_pair()
+    root = inp["root"] if rank == 0 else inp["root1"]
+    ds = synthetic_dataset(n=64, size=32, channels=3, num_classes=3, seed=0)
+    sched = ProperSchedule(images_seen_per_mini_step=16, batch_size=8,
+                           max_step=3, init_step=2)
+    checked = []
+
+    def run(name, total, model, resume=None, **kw):
+        mesh = tp.make_mesh_2d(1, world) if model > 1 else None
+
+        def on_iteration(i, st, state, metrics):
+            if i == total - 1:
+                check_replica_consistency(state, label=f"{name} {i}",
+                                          mesh=mesh)
+                checked.append((name, i + 1, sorted(
+                    tp.sharded_names(state["g"]))[:1]))
+        trial = train_loop(
+            gcfg, dcfg, TrainConfig(), sched, ds,
+            LoopConfig(trial_name=name, main_path=os.path.join(root, name),
+                       batch_size=8, sample_every=2, checkpoint_every=2,
+                       log_every=2, total_iterations=total, verbose=False,
+                       snapshot_sources=False, model_parallel=model, **kw),
+            resume_dir=resume,
+            # the hook turns windows off: the windowed runs go without
+            hooks=({} if kw.get("steps_per_call") else
+                   {"on_iteration": on_iteration}),
+            device="cpu")
+        return broadcast_obj(trial)
+
+    out = {"trials": {}}
+    out["trials"]["tp"] = run("tp", 4, world)
+    out["trials"]["dp"] = run("dp", 4, 1)
+    if rank == 0:
+        shutil.copytree(out["trials"]["tp"], inp["copy"])
+    dist.barrier()
+    run("tp", 6, world, resume=out["trials"]["tp"])
+    # a model-1 checkpoint resumed at model 2
+    run("dp", 6, world, resume=out["trials"]["dp"])
+    # windows of 2 iterations (make_train_multi_step over the grid)
+    out["trials"]["tp_window"] = run("tp_window", 4, world, steps_per_call=2)
+    out["trials"]["dp_window"] = run("dp_window", 4, 1, steps_per_call=2)
+    store = run("store", 2, world, checkpoint_backend="orbax")
+    out["trials"]["store"] = run("store", 4, world, resume=store,
+                                 checkpoint_backend="orbax")
+    out["checked"] = checked
+    out["files"] = sorted(os.path.relpath(os.path.join(d, f), root)
+                          for d, _, fs in os.walk(root) for f in fs)
+    return out
+
+
 def broadcast_trial(trial):
     from pgx_torch.parallel import broadcast_obj
     return broadcast_obj(trial)
@@ -318,6 +521,17 @@ def case_cli(inp, rank, world):
             "world": dist.get_world_size(), "backend": dist.get_backend()}
 
 
+def case_cli_hosts(inp, rank, world):
+    """The trainer's --multihost launch with --model-parallel when every
+    rank runs on a host of its own: the grid refuses it on every rank."""
+    with mock.patch("socket.gethostname", lambda: f"host{rank}"):
+        try:
+            case_cli(inp, rank, world)
+        except ValueError as e:
+            return {"error": str(e), "world": dist.get_world_size()}
+    return {"error": None}
+
+
 CASES = {n[len("case_"):]: f for n, f in globals().items()
          if n.startswith("case_")}
 
@@ -329,7 +543,7 @@ def main():
     with open(os.path.join(d, "in.pkl"), "rb") as f:
         inp = pickle.load(f)
     global WORLD
-    if case != "cli":
+    if not case.startswith("cli"):
         from pgx_torch.parallel import initialize_multihost
         initialize_multihost(f"127.0.0.1:{port}", world, rank, device="cpu")
         WORLD = dist.group.WORLD
