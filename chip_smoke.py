@@ -86,7 +86,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    The in-process run also scores FID every 6 iterations (256 samples, at
    64px and at 128px) with any RuntimeWarning made an error: finite
    in-training entries in fid_score.json and fid_score_meta.json, each
-   tick's seconds beside the log windows'.
+   tick's seconds beside the log windows'.  The data path's C++ runtime
+   (``pgx_torch.native``, built with g++ from the checkout's copy of the
+   source) must be available: its build and load seconds are reported.
 7. cli     — the remaining entry points of pgx_torch.cli, each in this
    process on the card with launch counts from 0 around it and one line
    (seconds, launches, the check's result), in temporary directories the
@@ -228,7 +230,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``--model-parallel 2`` (64px, 4 iterations, a checkpoint whose tensors
    are whole and equal to the last gathered state), then resumed at model
    1 in this process to 8 iterations at 128px, launches as the configs
-   imply, rank 0 alone writing.
+   imply, rank 0 alone writing.  The same two ranks also run the spatial
+   mode (its f32 variants after the channels mode's, its bf16 and 512px
+   iterations before the CLI's loop) on a (1, 2) grid (``make_mesh_2d(..., mode='spatial')``: every
+   image split over H, the state whole): the f32 variants against the same
+   world-1 references, two bf16 ADA iterations of the flagship at the
+   global batch 32 (launches per rank = world 1's, the state bit for bit
+   over the ranks), the 512px recipe with the whole batch of 8 on each
+   rank (its penalty and a plain iteration, launches checked, each rank's
+   peak beside world 1's at batch 8 and 4, and under the former), and one
+   more of each path with every halo exchange, gather and reduce-scatter
+   waited for and timed (calls, ms, bytes a step).  Every kernel call of
+   the recorded iterations, kernel C on its haloed tiles among them, is
+   held against its plain version here.
 13. card   — nvidia-smi's name and power limit.
 
 Depth cut for phase 11's time: phase 9's trial holds one checkpoint (was
@@ -2555,9 +2569,20 @@ def train_loop_phase(torch, bare: dict):
     its run from that iteration."""
     import glob
     import shutil
+    from pgx_torch import native
     from pgx_torch.cli import conditional_proper_cifar_train as cli
     from pgx_torch.ops import kernels as K
 
+    # the data path's C++ runtime, built from the checkout's source here
+    t_native = time.perf_counter()
+    require(native.native_available(), f"the C++ host runtime did not "
+                                       f"build: {native.unavailable_reason}")
+    native_report = {"available": True,
+                     "build_s": native.build_seconds,
+                     "load_s": time.perf_counter() - t_native,
+                     "library": os.path.relpath(
+                         native.library_path(), os.path.dirname(
+                             os.path.abspath(__file__)))}
     here = os.path.dirname(os.path.abspath(__file__))
     from scipy.linalg import LinAlgWarning
     root = tempfile.mkdtemp(prefix="pgx_train_loop_")
@@ -2657,6 +2682,7 @@ def train_loop_phase(torch, bare: dict):
         "bare_step_img_per_s": {"train": bare["train"],
                                 "train_ada": bare["train_ada"]},
         "prefetch_wait_s": {"total": sum(waits), "per_resolution": waits},
+        "native_runtime": native_report,
         "checkpoint_writes": probes["writes"],
         "full_checkpoint_s_mean": statistics.mean(
             w["seconds"] for w in full),
@@ -5192,17 +5218,14 @@ def f32_grad_error(got: dict, want: dict, prefix: str) -> dict:
     return worst
 
 
-def f32_world_1_check(torch, cfg, dcfg, mine: dict, label: str) -> dict:
+def f32_world_1_refs(torch, cfg, dcfg) -> dict:
     """DDP_F32_VARIANTS at world 1 in this process (rank 0; the other rank
-    idle), each against ``mine[name]`` = (metrics, D's and G's gradients
-    by name (Adam's mu at learning rate 0), the controller's p) from the
-    ranks: metrics within 1e-3 (1e-4 absolute), gradients within 3e-2 of
-    each tensor's largest entry and 5e-3 in the mean (the f32 train
-    check's yardstick)."""
+    idle): per variant its metrics, D's and G's gradients by name (Adam's
+    mu at learning rate 0, copied) and the controller's p."""
     from pgx_torch.augment import AdaConfig, bgc_config, init_ada_state
     from pgx_torch.train import make_train_step
     g1, d1, tc1, ref_state = new_train_state(cfg, dcfg, "float32")
-    checks = {}
+    refs = {}
     for i, (name, kw, ada) in enumerate(DDP_F32_VARIANTS):
         ref_state["ada"] = init_ada_state(ADA_P0, DEVICE)
         aug = (dict(augment_cfg=bgc_config(), ada_cfg=AdaConfig())
@@ -5213,9 +5236,28 @@ def f32_world_1_check(torch, cfg, dcfg, mine: dict, label: str) -> dict:
         real, labels, draws = ddp_inputs(torch, g1, 910 + i, ada)
         _, m = step(ref_state, real, labels, 1.0, **draws)
         torch.cuda.synchronize()
-        ref = ({k: float(v) for k, v in m.items()},
-               {f"{net}.{n}": t for net in ("d", "g")
-                for n, t in ref_state[f"opt_{net}"]["mu"].items()})
+        refs[name] = ({k: float(v) for k, v in m.items()},
+                      {f"{net}.{n}": t.clone() for net in ("d", "g")
+                       for n, t in ref_state[f"opt_{net}"]["mu"].items()},
+                      float(ref_state["ada"]["p"]))
+    del ref_state
+    torch.cuda.empty_cache()
+    return refs
+
+
+def f32_world_1_check(torch, cfg, dcfg, mine: dict, label: str,
+                      refs=None) -> dict:
+    """DDP_F32_VARIANTS at world 1 (``refs``, else ``f32_world_1_refs``
+    here), each against ``mine[name]`` = (metrics, D's and G's gradients
+    by name (Adam's mu at learning rate 0), the controller's p) from the
+    ranks: metrics within 1e-3 (1e-4 absolute), gradients within 3e-2 of
+    each tensor's largest entry and 5e-3 in the mean (the f32 train
+    check's yardstick)."""
+    if refs is None:
+        refs = f32_world_1_refs(torch, cfg, dcfg)
+    checks = {}
+    for name, _, _ in DDP_F32_VARIANTS:
+        ref = refs[name]
         got_m, got_mu, got_p = mine[name]
         worst_metric = 0.0
         for k, v in ref[0].items():
@@ -5234,15 +5276,12 @@ def f32_world_1_check(torch, cfg, dcfg, mine: dict, label: str) -> dict:
         key = label.replace(" ", "_")
         checks[name] = {"metric_max_rel_err": worst_metric,
                         "d": dg, "g": gg, f"ada_p_{key}": got_p,
-                        "ada_p_world_1": float(ref_state["ada"]["p"]),
+                        "ada_p_world_1": ref[2],
                         f"metrics_{key}": got_m, "metrics_world_1": ref[0]}
-    out = {"tol": {"metric_rel": 1e-3, "metric_abs": 1e-4,
-                   "grad_max_rel_to_largest": 3e-2,
-                   "grad_mean_rel_to_mean": 5e-3},
-           "variants": checks}
-    del ref_state
-    torch.cuda.empty_cache()
-    return out
+    return {"tol": {"metric_rel": 1e-3, "metric_abs": 1e-4,
+                    "grad_max_rel_to_largest": 3e-2,
+                    "grad_mean_rel_to_mean": 5e-3},
+            "variants": checks}
 
 
 def ddp_rank_main(argv, work=None) -> int:
@@ -5615,11 +5654,262 @@ def tp_collective_costs(torch, mesh, state, reps: int = 5) -> dict:
     return out
 
 
-def tp_rank_work(torch, rank: int, world: int, root: str) -> dict:
-    """One rank of the (1, 2) grid: the f32 check (rank 0 also runs the
-    world-1 reference), the bf16 ADA iterations with the state checked and
-    the collectives timed, the 512px recipe at full width (rank 0 also at
-    world 1, batch 8 and 4), and the flagship CLI's loop at model 2."""
+TP_SPATIAL_BF16_ITERS = 2   # spatial: the flagship's bf16 ADA iterations
+                            # (the first recorded), then one timed apart
+TP_SPATIAL_512_ITERS = 2    # spatial: the recipe's penalty iteration and a
+                            # plain one (both recorded), then one of each
+                            # with the collectives timed
+
+
+@contextlib.contextmanager
+def timing_row_collectives(torch, seen: dict):
+    """Every row collective of spatial mode made inside the block, waited
+    for before and after: per kind (``halo``: one neighbour exchange;
+    ``gather``; ``reduce_scatter``, the gather's backward) its calls, ms
+    and bytes: the rows a rank sends its neighbours, the whole images a
+    gather returns, the whole gradient a reduce-scatter takes (gloo moves
+    ``n_model`` times a halo's rows through host memory)."""
+    from pgx_torch.parallel import collectives as coll
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    def timed(kind, fn, size):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            row = seen.setdefault(kind, {"calls": 0, "ms": 0.0, "bytes": 0})
+            row["calls"] += 1
+            row["ms"] += 1e3 * (time.perf_counter() - t0)
+            row["bytes"] += size(args, out)
+            return out
+        return run
+
+    with mock.patch.object(coll, "_exchange", timed(
+            "halo", coll._exchange, lambda a, o: nbytes(a[1], a[2]))), \
+            mock.patch.object(coll, "_gather_rows", timed(
+                "gather", coll._gather_rows, lambda a, o: nbytes(o))), \
+            mock.patch.object(coll, "_reduce_scatter_rows", timed(
+                "reduce_scatter", coll._reduce_scatter_rows,
+                lambda a, o: nbytes(a[1]))):
+        yield seen
+    seen["per_step_ms"] = sum(r["ms"] for r in seen.values()
+                              if isinstance(r, dict))
+    seen["per_step_bytes"] = sum(r["bytes"] for r in seen.values()
+                                 if isinstance(r, dict))
+
+
+class RankRuns:
+    """A rank's main-path runs: ``run(fn, record)`` counts every launch
+    from 0 around ``fn()`` (with ``record``, every kernel call recorded
+    too, ``recorded_run``, for the parent to hold against the plain
+    versions) and returns its result and launches; ``add`` sums launches
+    into ``launches``."""
+
+    def __init__(self, torch):
+        from pgx_torch.ops import kernels as K
+        self.torch, self.K = torch, K
+        self.launches = {k: 0 for k in K.launch_counts()}
+        self.recorded = ([], [], [], [])
+
+    def add(self, got: dict) -> None:
+        add_counts(self.launches, got)
+
+    def run(self, fn, record: bool):
+        if record:
+            res, got, _, calls = recorded_run(self.torch, fn)
+            for acc, c in zip(self.recorded, calls):
+                acc.extend(c)
+            return res, got
+        self.K.reset_launch_counts()
+        res = fn()
+        self.torch.cuda.synchronize()
+        return res, self.K.launch_counts()
+
+
+def spatial_f32(torch, mesh, cfg, dcfg, iteration, add_launches) -> dict:
+    """DDP_F32_VARIANTS of the f32 flagship at 128px on the spatial grid
+    ``mesh`` at learning rate 0, every call recorded: per variant (metrics,
+    D's and G's gradients, the controller's p) for the world-1 check."""
+    from pgx_torch.augment import AdaConfig, bgc_config, init_ada_state
+    from pgx_torch.parallel import tp
+    from pgx_torch.train import make_train_step
+    place = tp.spatial_batch_sharding(mesh)
+    rows = place.batch_rows(TRAIN_BATCH)
+    g, d, tc, state = new_train_state(cfg, dcfg, "float32")
+    mine = {}
+    for i, (name, kw, ada) in enumerate(DDP_F32_VARIANTS):
+        state["ada"] = init_ada_state(ADA_P0, DEVICE)
+        aug = (dict(augment_cfg=bgc_config(), ada_cfg=AdaConfig())
+               if ada else {})
+        step = make_train_step(g, d, dataclasses.replace(
+            tc, learning_rate=0.0, **kw), step=TRAIN_STEP, fading=False,
+            mesh=mesh, **aug)
+        real, labels, draws = ddp_inputs(torch, g, 910 + i, ada)
+        # ---- the main path: counts from 0 around the iteration ----
+        m, got = iteration(lambda: step(
+            state, place(real), labels[rows], 1.0, **draws)[1], True)
+        # ------------------------------------------------------------
+        add_launches(got)
+        mine[name] = ({k: float(v) for k, v in m.items()},
+                      {f"{net}.{n}": t.clone() for net in ("d", "g")
+                       for n, t in state[f"opt_{net}"]["mu"].items()},
+                      float(state["ada"]["p"]))
+    del state
+    torch.cuda.empty_cache()
+    return mine
+
+
+def spatial_bf16(torch, mesh, cfg, dcfg, iteration, add_launches) -> dict:
+    """The flagship's bf16 ADA iterations on the spatial grid ``mesh``
+    (the first recorded), launches per iteration as world 1's, the state
+    the same on every rank bit for bit, then one iteration with the row
+    collectives timed (``timing_row_collectives``)."""
+    from pgx_torch.augment import AdaConfig, bgc_config, init_ada_state
+    from pgx_torch.parallel import tp
+    from pgx_torch.parallel.stats import check_replica_consistency
+    from pgx_torch.train import make_train_step
+    place = tp.spatial_batch_sharding(mesh)
+    rows = place.batch_rows(TRAIN_BATCH)
+    g, d, tc, state = new_train_state(cfg, dcfg, "bfloat16")
+    state["ada"] = init_ada_state(ADA_P0, DEVICE)
+    want = calls_per_iteration(g, d, TRAIN_STEP, "shear")
+    step = make_train_step(g, d, tc, step=TRAIN_STEP, fading=False,
+                           augment_cfg=bgc_config(),
+                           ada_cfg=AdaConfig(interval_batches=1), mesh=mesh)
+    times = []
+    for i in range(TP_SPATIAL_BF16_ITERS + 1):
+        real, labels, draws = ddp_inputs(torch, g, 990 + i, True)
+        if i == TP_SPATIAL_BF16_ITERS:
+            seen = {}
+            with timing_row_collectives(torch, seen):
+                step(state, place(real), labels[rows], 1.0, **draws)
+            break
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # ---- the main path: counts from 0 around each iteration (the
+        # first recorded) ----
+        m, got = iteration(lambda: step(
+            state, place(real), labels[rows], 1.0, **draws)[1], i == 0)
+        # ------------------------------------------------------------
+        times.append(1e3 * (time.perf_counter() - t0))
+        require(got == want, f"spatial bf16 iteration {i}: launches {got} "
+                             f"!= {want}")
+        add_launches(got)
+        require(all(math.isfinite(float(v)) for v in m.values()),
+                f"spatial bf16 metrics {m}")
+    check_replica_consistency(state, label="spatial bf16 state",
+                              group=mesh.world_group)
+    del state, step
+    torch.cuda.empty_cache()
+    return {"launches_per_iteration": want, "ms_each": times,
+            "ms_per_iteration": statistics.median(times[1:]),
+            "rows": [rows.start, rows.stop],
+            "height_rows": [place.height_rows(cfg.resolution(TRAIN_STEP))
+                            .start, place.height_rows(
+                                cfg.resolution(TRAIN_STEP)).stop],
+            "collectives": seen}
+
+
+def spatial_512(torch, mesh, iteration, add_launches) -> dict:
+    """The 512px recipe (bf16, jvp, gp_every 4, fused_g, ADA) on the
+    spatial grid ``mesh``: every rank the whole batch of its data position
+    (8 rows at n_data 1), its rows of H; the penalty and a plain iteration
+    recorded, launches as world 1's, the peak memory over them, then one
+    of each with the row collectives timed."""
+    from pgx_torch.parallel import tp
+    from pgx_torch.parallel.stats import check_replica_consistency
+    gcfg5, dcfg5 = recipe_pair("bfloat16")
+    place = tp.spatial_batch_sharding(mesh)
+    rows5 = place.batch_rows(R512_BATCH)
+    _, state5, steps5 = recipe_state(gcfg5, dcfg5, mesh=mesh, gp_mode="jvp")
+    want5 = {gp: recipe_launches(state5["g"], dcfg5, "jvp", gp)
+             for gp in (True, False)}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times5 = []
+    for i in range(TP_SPATIAL_512_ITERS):
+        gp = i % R512_GP_EVERY == 0
+        real, labels, draws = recipe_draws(torch, gcfg5, 970 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # ---- the main path: counts from 0 around each iteration (both
+        # recorded) ----
+        m, got = iteration(lambda: steps5[gp](
+            state5, place(real), labels[rows5], 1.0, **draws)[1], True)
+        # ------------------------------------------------------------
+        times5.append(1e3 * (time.perf_counter() - t0))
+        require(got == want5[gp], f"spatial 512px iteration {i}: launches "
+                                  f"{got} != {want5[gp]}")
+        add_launches(got)
+        require(all(math.isfinite(float(v)) for v in m.values()),
+                f"spatial 512px metrics {m}")
+    del real, labels, draws, m
+    peak = torch.cuda.max_memory_allocated()
+    collectives = {}
+    for gp, seed in ((True, 980), (False, 981)):
+        real, labels, draws = recipe_draws(torch, gcfg5, seed)
+        seen = {}
+        with timing_row_collectives(torch, seen):
+            steps5[gp](state5, place(real), labels[rows5], 1.0, **draws)
+        collectives["penalty" if gp else "plain"] = seen
+    del real, labels, draws
+    check_replica_consistency(state5, label="spatial 512px state",
+                              group=mesh.world_group)
+    del state5, steps5
+    torch.cuda.empty_cache()
+    res = gcfg5.resolution(R512_STEP)
+    return {"ms_each": times5, "penalty_ms": times5[0],
+            "plain_ms": times5[1], "rows": [rows5.start, rows5.stop],
+            "height_rows": [place.height_rows(res).start,
+                            place.height_rows(res).stop],
+            "peak_memory_bytes": peak, "collectives": collectives,
+            "launches_per_iteration": {"penalty": want5[True],
+                                       "plain": want5[False]}}
+
+
+def spatial_rank_work(torch, rank: int, world: int, root: str) -> dict:
+    """One rank of the (1, world) spatial grid alone
+    (``tools/nccl_ranks.py spatial``): the f32 check against world 1 on
+    rank 0, the bf16 iterations and the 512px recipe (phase 12 runs the
+    same pieces beside the channels mode's)."""
+    import torch.distributed as dist
+    from pgx_torch.models import zoo
+    from pgx_torch.parallel import tp
+    cfg = zoo.conditional_correct_generator(
+        z_dim=512, num_classes=10, channel=512, max_step=6, dtype="bfloat16")
+    dcfg = zoo.conditional_correct_discriminator_wgangp(
+        feat_dim=512, num_classes=10, max_step=6, dtype="bfloat16")
+    mesh = tp.make_mesh_2d(1, world, mode="spatial")
+    runs = RankRuns(torch)
+    out = {"rank": rank, "grid": [mesh.n_data, mesh.n_model, mesh.d,
+                                  mesh.m]}
+    mine = spatial_f32(torch, mesh, cfg, dcfg, runs.run, runs.add)
+    if rank == 0:
+        out["f32_check"] = f32_world_1_check(torch, cfg, dcfg, mine,
+                                             f"spatial model {world}")
+    mine.clear()
+    dist.barrier()
+    out["bf16"] = spatial_bf16(torch, mesh, cfg, dcfg, runs.run, runs.add)
+    dist.barrier()
+    out["r512"] = spatial_512(torch, mesh, runs.run, runs.add)
+    out["launches"] = runs.launches
+    out["recorded_calls"] = [list(dict.fromkeys(c)) for c in runs.recorded]
+    return out
+
+
+def tp_rank_work(torch, rank: int, world: int, root: str,
+                 n_model: int = 0, spatial: bool = True) -> dict:
+    """One rank of the (world / n_model, n_model) grid (n_model = world
+    unless given): the f32 check (rank 0 also runs the world-1 reference),
+    the bf16 ADA iterations with the state checked and the collectives
+    timed, the 512px recipe at full width (rank 0 also at world 1, batch 8
+    and 4), and the flagship CLI's loop on the grid; with ``spatial`` also
+    the spatial mode's f32 check, bf16 iterations and 512px recipe on the
+    (1, world) grid (``spatial_f32``, ``spatial_bf16``, ``spatial_512``),
+    the f32 ones held against the same world-1 references."""
     import torch.distributed as dist
     from pgx_torch import checkpoint as ckpt
     from pgx_torch.augment import AdaConfig, bgc_config, init_ada_state
@@ -5630,9 +5920,10 @@ def tp_rank_work(torch, rank: int, world: int, root: str) -> dict:
     from pgx_torch.parallel import tp
     from pgx_torch.parallel.stats import check_replica_consistency
     from pgx_torch.train import make_train_step
-    mesh = tp.make_mesh_2d(1, world)
-    require((mesh.n_data, mesh.n_model, mesh.d, mesh.m) == (1, world, 0,
-                                                            rank),
+    n_model = n_model or world
+    mesh = tp.make_mesh_2d(world // n_model, n_model)
+    require((mesh.n_data, mesh.n_model, mesh.d, mesh.m)
+            == (world // n_model, n_model, rank // n_model, rank % n_model),
             f"rank {rank} at {mesh}")
     cfg = zoo.conditional_correct_generator(
         z_dim=512, num_classes=10, channel=512, max_step=6, dtype="bfloat16")
@@ -5640,31 +5931,13 @@ def tp_rank_work(torch, rank: int, world: int, root: str) -> dict:
         feat_dim=512, num_classes=10, max_step=6, dtype="bfloat16")
     b = TRAIN_BATCH // world
     rows = slice(rank * b, (rank + 1) * b)
-    launches = {k: 0 for k in K.launch_counts()}
     out = {"rank": rank, "rank_batch": b,
            "grid": [mesh.n_data, mesh.n_model, mesh.d, mesh.m]}
-
-    def add_launches(got):
-        for k, v in got.items():
-            launches[k] += v
-
-    recorded = ([], [], [], [])
-
-    def iteration(run, record):
-        """One iteration of the main path with launch counts from 0
-        around it; ``record``: every kernel call recorded too
-        (``recorded_run``), for the parent to hold against the plain
-        versions at these shapes.  Its result (the metrics: no name keeps
-        the state alive past its ``del``) and launches."""
-        if record:
-            res, got, _, calls = recorded_run(torch, run)
-            for acc, c in zip(recorded, calls):
-                acc.extend(c)
-            return res, got
-        K.reset_launch_counts()
-        res = run()
-        torch.cuda.synchronize()
-        return res, K.launch_counts()
+    # every run of the main path returns its metrics alone: no name keeps
+    # the state alive past its ``del``
+    runs = RankRuns(torch)
+    iteration, add_launches = runs.run, runs.add
+    launches, recorded = runs.launches, runs.recorded
 
     # ---- f32: model 2 against this script's world-1 iteration ---------
     t_phase = time.perf_counter()
@@ -5693,12 +5966,28 @@ def tp_rank_work(torch, rank: int, world: int, root: str) -> dict:
         del whole
     del state
     torch.cuda.empty_cache()
-    if rank == 0:
-        out["f32_check"] = f32_world_1_check(torch, cfg, dcfg, mine,
-                                             "model 2")
-    mine.clear()
-    dist.barrier()
     out["f32_s"] = time.perf_counter() - t_phase
+    if spatial:
+        # ---- spatial mode, f32: the same variants on the (1, world)
+        # spatial grid, the images split over H ----
+        t_sp = time.perf_counter()
+        smesh = tp.make_mesh_2d(1, world, mode="spatial")
+        mine_sp = spatial_f32(torch, smesh, cfg, dcfg, iteration,
+                              add_launches)
+        out["spatial"] = {"f32_s": time.perf_counter() - t_sp}
+    if rank == 0:
+        refs = f32_world_1_refs(torch, cfg, dcfg)
+        out["f32_check"] = f32_world_1_check(torch, cfg, dcfg, mine,
+                                             f"model {n_model}", refs)
+        if spatial:
+            out["spatial"]["f32_check"] = f32_world_1_check(
+                torch, cfg, dcfg, mine_sp, f"spatial model {world}", refs)
+        del refs
+        torch.cuda.empty_cache()
+    mine.clear()
+    if spatial:
+        mine_sp.clear()
+    dist.barrier()
 
     # ---- bf16 ADA iterations on the grid, the state, the collectives ---
     g, d, tc, state = new_train_state(cfg, dcfg, "bfloat16")
@@ -5811,6 +6100,17 @@ def tp_rank_work(torch, rank: int, world: int, root: str) -> dict:
             torch.cuda.empty_cache()
     out["r512"] = r512
     dist.barrier()
+    if spatial:
+        # ---- spatial mode: the flagship's bf16 ADA iterations and the
+        # 512px recipe with the whole batch on every rank ----
+        t_sp = time.perf_counter()
+        out["spatial"]["bf16"] = spatial_bf16(torch, smesh, cfg, dcfg,
+                                              iteration, add_launches)
+        dist.barrier()
+        out["spatial"]["r512"] = spatial_512(torch, smesh, iteration,
+                                             add_launches)
+        out["spatial"]["bf16_512_s"] = time.perf_counter() - t_sp
+        dist.barrier()
 
     # ---- the flagship CLI's loop at model 2, cut at 4 iterations -----
     loop_root = os.path.join(root, f"loop_rank{rank}")
@@ -5838,7 +6138,7 @@ def tp_rank_work(torch, rank: int, world: int, root: str) -> dict:
             mock.patch.object(common, "loop_config_from_args", cut):
         # ---- the main path: counts from 0 around the CLI run ----
         K.reset_launch_counts()
-        trial = cli.main(TP_LOOP_ARGS + ["--model-parallel", str(world),
+        trial = cli.main(TP_LOOP_ARGS + ["--model-parallel", str(n_model),
                                          "--output", loop_root])
         torch.cuda.synchronize()
         loop_l = K.launch_counts()
@@ -5952,7 +6252,8 @@ def tp_phase(torch, cfg, dcfg) -> dict:
                                    for c in r["recorded_calls"][j]))
                 for j in range(4)]
     held = hold(torch, "tp: a model-2 rank's rows (the flagship at 16, "
-                       "the 512px recipe at 4)", recorded)
+                       "the 512px recipe at 4; spatial: every row, half "
+                       "of H, kernel C on haloed tiles)", recorded)
     # the allocator at rest: model 2 holds about half the sharded bytes
     # fewer than world 1 at the same rows
     w1 = r0["r512"][f"world_1_batch_{R512_BATCH // DDP_WORLD}"]
@@ -5969,10 +6270,36 @@ def tp_phase(torch, cfg, dcfg) -> dict:
                 f"rank {r['rank']}: the allocator at rest holds {saved} "
                 f"bytes fewer than world 1's, not about {half} (half the "
                 f"sharded bytes): {memory}")
+    # spatial mode: each rank's peak over the 512px recipe with the whole
+    # batch and half the rows of H, beside world 1's at batch 8 and 4
+    w1_8 = r0["r512"][f"world_1_batch_{R512_BATCH}"]["peak_memory_bytes"]
+    w1_4 = w1["peak_memory_bytes"]
+    spatial = {
+        "grid": "(n_data, n_model) = (1, 2), mode 'spatial': the images "
+                "split over H, the state whole on both ranks",
+        "f32_check": r0["spatial"]["f32_check"],
+        "bf16": {f"rank{r['rank']}": r["spatial"]["bf16"] for r in ranks},
+        "r512": {f"rank{r['rank']}": r["spatial"]["r512"] for r in ranks},
+        "r512_peak_memory_bytes": {
+            **{f"rank{r['rank']}": r["spatial"]["r512"]["peak_memory_bytes"]
+               for r in ranks},
+            f"world_1_batch_{R512_BATCH}": w1_8,
+            f"world_1_batch_{R512_BATCH // DDP_WORLD}": w1_4},
+        "seconds_by_rank": [r["spatial"]["f32_s"]
+                            + r["spatial"]["bf16_512_s"] for r in ranks]}
+    for r in ranks:
+        peak = r["spatial"]["r512"]["peak_memory_bytes"]
+        require(peak < w1_8, f"rank {r['rank']}: the spatial 512px peak "
+                             f"{peak} is not under world 1's at batch "
+                             f"{R512_BATCH} ({w1_8})")
+    require(r0["spatial"]["bf16"]["launches_per_iteration"]
+            == r1["spatial"]["bf16"]["launches_per_iteration"],
+            "spatial ranks' launches")
     return {
         "grid": "(n_data, n_model) = (1, 2): two gloo ranks sharing one "
                 "card, collectives through host memory",
         "f32_check": r0["f32_check"],
+        "spatial": spatial,
         "bf16": {f"rank{r['rank']}": r["bf16"] for r in ranks},
         "ms_per_iteration_by_rank": [r["bf16"]["ms_per_iteration"]
                                      for r in ranks],

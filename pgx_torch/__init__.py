@@ -21,9 +21,9 @@ FID and KID, the checkpoint sweep, the in-training FID), the reference
 ``torch.ops.pgx_torch`` nodes), the step-indexed store of the full state
 (``pgx_torch.checkpoint.step_store``), the host utilities
 (``pgx_torch.utils``), data parallelism (``pgx_torch.parallel``: one
-process per rank, the collectives GSPMD places in ``pgx``), channel-sharded
-model parallelism (``pgx_torch.parallel.tp``: a (data, model) grid of
-ranks, the train state sharded over its model axis) and every CLI of
-``pgx/cli`` under ``pgx_torch.cli``.  Not yet: ``tp.py``'s spatial mode and
-the C++ host runtime of the data path (``pgx/native.py``).
+process per rank, the collectives GSPMD places in ``pgx``), model
+parallelism (``pgx_torch.parallel.tp``: a (data, model) grid of ranks, the
+train state sharded over its model axis or the images split over H across
+it), the C++ host runtime of the data path (``pgx_torch.native``, built at
+first use) and every CLI of ``pgx/cli`` under ``pgx_torch.cli``.
 """

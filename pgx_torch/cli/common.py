@@ -6,8 +6,9 @@ for ``cpu``); ``--compile-cache`` has no counterpart.
 ``--checkpoint-backend orbax`` selects the port's step-indexed store.
 ``--multihost`` runs one process per rank (``maybe_init_multihost``);
 with it ``--model-parallel N`` lays the ranks out as a (world / N, N) grid
-and shards the train state over its model axis (``pgx_torch.parallel.tp``).
-``--model-parallel-mode spatial`` is not ported yet: ``LoopConfig`` raises.
+and shards the train state over its model axis (``pgx_torch.parallel.tp``),
+or with ``--model-parallel-mode spatial`` splits every image over H across
+it, the state whole on every rank.
 """
 
 from __future__ import annotations
@@ -120,13 +121,17 @@ def add_common_args(p: argparse.ArgumentParser,
                    help="run N iterations per call (a window; 'auto' "
                         "times each stage's first steps and picks N)")
     p.add_argument("--model-parallel", type=int, default=1,
-                   help="model-axis shards: the train state's channels "
-                        "split over N ranks of --multihost (the world must "
-                        "divide by N and the batch by the world)")
+                   help="model-axis shards over N ranks of --multihost "
+                        "(the world must divide by N and the batch by the "
+                        "world)")
     p.add_argument("--model-parallel-mode", default="channels",
                    choices=["channels", "spatial"],
-                   help="with --model-parallel > 1: channels (the state "
-                        "sharded); spatial is not ported yet")
+                   help="with --model-parallel > 1: channels (the train "
+                        "state's channels split over the model axis) or "
+                        "spatial (every image split over H across it, halo "
+                        "exchanges around each 3x3 conv and resampling; the "
+                        "state whole; stages shorter than the axis split "
+                        "the batch only)")
     p.add_argument("--checkpoint-backend", default="npz",
                    choices=["npz", "orbax"],
                    help="full-train-state format: npz (the default: the "

@@ -30,6 +30,15 @@ discriminator.
 With the train step's ``weights_cast='once'`` a layer receives a weight
 already rounded to the compute dtype, and the He constant (rounded to that
 dtype, as pgx multiplies by a Python scalar) is applied after the rounding.
+
+``rows`` (a ``pgx_torch.parallel.tp.Mesh2D`` with a model axis, in spatial
+mode; None for whole images): the input is this rank's rows of images split
+over H across the model group, and so is the output.  A padding-1 3x3 conv takes a halo of one row from each
+neighbour (``halo_exchange``): cuDNN's conv runs on the tile haloed with
+zeros at the true edges and pads W alone; kernel C runs on the tile with
+no rows added at the true edges (its own SAME padding stands there) and
+the halo's output rows are cropped, so it sees ``H / n + 2`` rows, or
+``H / n + 1`` at an edge.
 """
 
 from __future__ import annotations
@@ -46,7 +55,8 @@ from pgx_torch.ops.kernels import (bias_pixelnorm_lrelu, conv3x3_epilogue)
 from pgx_torch.ops.kernels import conv_epilogue as kernel_c
 from pgx_torch.ops.kernels import epilogue as kernel_a
 from pgx_torch.ops.resize import upsample2x
-from pgx_torch.parallel.collectives import all_reduce_sum, world_size
+from pgx_torch.parallel.collectives import (all_reduce_sum, halo_exchange,
+                                            world_size)
 
 # ---------------------------------------------------------------------------
 # PixelNorm / LeakyReLU / minibatch stddev
@@ -126,14 +136,15 @@ def _he_scaled(w: torch.Tensor, fan_in: int, dtype) -> torch.Tensor:
 
 
 def _conv_nhwc(x: torch.Tensor, w_hwio: torch.Tensor,
-               padding: int) -> torch.Tensor:
+               padding) -> torch.Tensor:
     y = conv2d(x.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1), padding)
     return y.permute(0, 2, 3, 1)
 
 
 def equal_conv2d(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
-                 padding: int = 0, bias: bool = True) -> torch.Tensor:
-    """EqualConv2d over NHWC ``x`` with the raw HWIO kernel ``w``."""
+                 padding=0, bias: bool = True) -> torch.Tensor:
+    """EqualConv2d over NHWC ``x`` with the raw HWIO kernel ``w``;
+    ``padding`` an int or an ``(h, w)`` pair."""
     kh, kw, in_ch, _ = w.shape
     y = _conv_nhwc(x, _he_scaled(w, in_ch * kh * kw, x.dtype), padding)
     if not bias:
@@ -142,17 +153,23 @@ def equal_conv2d(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
 
 
 def equal_conv2d_up2x(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
-                      bias: bool = True) -> torch.Tensor:
+                      bias: bool = True, rows=None) -> torch.Tensor:
     """``equal_conv2d(w, b, upsample2x(x), padding=1)`` for a 3x3 kernel.
 
     ``pgx`` composes the upsample into a 6x6 kernel over the dilated input
     and corrects the border afterwards; both are exact forms of this
     sequence, which is computed here as written (an upsample, then one
-    cuDNN conv), so no border correction is needed."""
+    cuDNN conv), so no border correction is needed.  ``rows``: module
+    docstring (the upsample and the conv each take their halo)."""
     kh, kw, _, _ = w.shape
     if (kh, kw) != (3, 3):
         raise ValueError("equal_conv2d_up2x is specialized to 3x3 kernels")
-    y = equal_conv2d(w, b, upsample2x(x), padding=1, bias=bias)
+    up = upsample2x(x, rows)
+    if rows is not None:
+        y = equal_conv2d(w, b, halo_exchange(up, rows, 1, "zero"),
+                         padding=(0, 1), bias=bias)
+    else:
+        y = equal_conv2d(w, b, up, padding=1, bias=bias)
     return y.contiguous()
 
 
@@ -235,13 +252,28 @@ def conv_epilogue(y: torch.Tensor, b: torch.Tensor, use_pixel_norm: bool,
 
 def _conv_step(conv: EqualConv2d, x: torch.Tensor, padding: int,
                use_pixel_norm: bool, slope: float,
-               fused: bool = True) -> torch.Tensor:
+               fused: bool = True, rows=None) -> torch.Tensor:
     """One conv + epilogue.  ``fused``: kernel C for a padding-1 3x3 conv
     that it takes (where pgx's ``_maybe_fused_conv_step`` applies).
     Otherwise, and for every other conv, cuDNN's conv then the epilogue
     (kernel A), which is the only form that may sit under a double
-    backward."""
+    backward.  ``rows``: module docstring (padding-1 3x3 convs only)."""
     kh, kw, in_ch, _ = conv.w.shape
+    if rows is not None and (padding != 1 or (kh, kw) != (3, 3)):
+        raise ValueError(f"a {kh}x{kw} conv with padding {padding} does not "
+                         f"run on rows split over H")
+    if rows is not None:
+        if fused and kernel_c.supported(x, conv.w):
+            h, top = x.shape[1], int(rows.m > 0)
+            tile = halo_exchange(x, rows, 1, "none")
+            w = _scaled(conv.w, math.sqrt(2.0 / (in_ch * kh * kw)))
+            out = conv3x3_epilogue(tile, w, conv.b,
+                                   use_pixel_norm=use_pixel_norm,
+                                   slope=slope)
+            return out[:, top:top + h].contiguous()
+        y = equal_conv2d(conv.w, conv.b, halo_exchange(x, rows, 1, "zero"),
+                         padding=(0, 1), bias=False)
+        return conv_epilogue(y, conv.b, use_pixel_norm, slope)
     if (fused and padding == 1 and (kh, kw) == (3, 3)
             and kernel_c.supported(x, conv.w)):
         w = _scaled(conv.w, math.sqrt(2.0 / (in_ch * kh * kw)))
@@ -274,24 +306,29 @@ class SingleConvBlock(nn.Module):
 def conv_block(p: ConvBlock, x: torch.Tensor, padding1: int = 1,
                padding2: Optional[int] = None, use_pixel_norm: bool = True,
                slope: float = 0.2, upsample_first: bool = False,
-               fused: bool = True) -> torch.Tensor:
+               fused: bool = True, rows=None) -> torch.Tensor:
     """``upsample_first`` runs a bilinear upsample2x before conv1 — the
     caller passes the LOW-res input.  ``fused=False`` keeps kernel C out
-    (see ``_conv_step``)."""
+    (see ``_conv_step``).  ``rows``: module docstring."""
     padding2 = padding1 if padding2 is None else padding2
     if upsample_first:
-        x = equal_conv2d_up2x(p.conv1.w, p.conv1.b, x, bias=False)
+        x = equal_conv2d_up2x(p.conv1.w, p.conv1.b, x, bias=False,
+                              rows=rows)
         x = conv_epilogue(x, p.conv1.b, use_pixel_norm, slope)
     else:
-        x = _conv_step(p.conv1, x, padding1, use_pixel_norm, slope, fused)
-    return _conv_step(p.conv2, x, padding2, use_pixel_norm, slope, fused)
+        x = _conv_step(p.conv1, x, padding1, use_pixel_norm, slope, fused,
+                       rows)
+    return _conv_step(p.conv2, x, padding2, use_pixel_norm, slope, fused,
+                      rows)
 
 
 def single_conv_block(p: SingleConvBlock, x: torch.Tensor, padding: int = 1,
                       use_pixel_norm: bool = True, slope: float = 0.2,
                       upsample_first: bool = False,
-                      fused: bool = True) -> torch.Tensor:
+                      fused: bool = True, rows=None) -> torch.Tensor:
     if upsample_first:
-        x = equal_conv2d_up2x(p.conv1.w, p.conv1.b, x, bias=False)
+        x = equal_conv2d_up2x(p.conv1.w, p.conv1.b, x, bias=False,
+                              rows=rows)
         return conv_epilogue(x, p.conv1.b, use_pixel_norm, slope)
-    return _conv_step(p.conv1, x, padding, use_pixel_norm, slope, fused)
+    return _conv_step(p.conv1, x, padding, use_pixel_norm, slope, fused,
+                      rows)

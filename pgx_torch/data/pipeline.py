@@ -1,7 +1,8 @@
 """Batching, normalization, and device prefetch.
 
 Counterpart of ``pgx/data/pipeline.py``: numpy batch assembly on the host,
-``[-1, 1]`` normalization, and a background thread that lands each batch on
+``[-1, 1]`` normalization (the C++ runtime's gather and normalize,
+``pgx_torch.native``, or its numpy fallback), and a background thread that lands each batch on
 the device one step ahead, so the card does not wait on the host.  The
 batch streams are ``pgx``'s, batch for batch.
 """
@@ -17,13 +18,17 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from pgx_torch import native
 from pgx_torch.data.datasets import ArrayDataset, ImageFolderDataset
 from pgx_torch.utils import resolve_device
 
 
 def normalize_to_unit(images_u8: np.ndarray) -> np.ndarray:
-    """uint8 [0,255] -> float32 [-1, 1] (Normalize(0.5, 0.5)).  The float32
-    division by 127.5 is what ``pgx``'s C++ runtime computes, bit for bit."""
+    """uint8 [0,255] -> float32 [-1, 1] (Normalize(0.5, 0.5)): the C++
+    runtime (``pgx_torch.native``) when it is built, numpy otherwise; both
+    divide in float32 by 127.5, bit for bit."""
+    if images_u8.dtype == np.uint8:
+        return native.normalize_u8(images_u8)
     return images_u8.astype(np.float32) / 127.5 - 1.0
 
 
@@ -44,8 +49,11 @@ def array_batches(dataset: ArrayDataset, batch_size: int, resolution: int,
         order = rng.permutation(n)
         for start in range(0, n - batch_size + 1, batch_size):
             idx = order[start:start + batch_size]
-            yield (normalize_to_unit(images[idx]),
-                   labels[idx] if labels is not None else None)
+            # the runtime's fused gather + normalize when it is built
+            batch = (native.gather_normalize(images, idx)
+                     if images.dtype == np.uint8
+                     else normalize_to_unit(images[idx]))
+            yield batch, labels[idx] if labels is not None else None
 
 
 @contextmanager

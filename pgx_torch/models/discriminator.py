@@ -11,6 +11,13 @@ the blocks.
 Every conv block is called with ``fused=False``: the discriminator sits
 under the gradient penalty's double backward, so its convs are cuDNN's and
 their epilogues kernel A; kernel C never runs here.
+
+``rows`` (a ``tp.Mesh2D`` in spatial mode): the images are this rank's
+rows, split over H across the model group.  ``from_rgb`` (1x1) runs on the
+rows, the label plane is cut to them, every 3x3 conv takes its halo, the
+2x2 pools stay local while a rank holds an even number of rows; the rows
+are gathered whole before the minibatch statistic and the 4x4 head, or
+before a pool where a rank holds one row (the pool would cross the cut).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from pgx_torch.models.config import DiscriminatorConfig
 from pgx_torch.models.generator import (Params, l2_normalize,
                                         load_params_tree)
 from pgx_torch.ops.resize import downsample2x
+from pgx_torch.parallel.collectives import gather_rows, split_rows
 from pgx_torch.utils import resolve_device
 
 
@@ -111,30 +119,36 @@ class Discriminator(nn.Module):
     def forward(self, img: torch.Tensor,
                 labels: Optional[torch.Tensor] = None, *, step: int,
                 alpha=1.0, fading: bool = False,
-                stddev_groups: int = 1, stddev_group=None) -> torch.Tensor:
+                stddev_groups: int = 1, stddev_group=None,
+                rows=None) -> torch.Tensor:
         return discriminator_apply(self, img, labels, step=step, alpha=alpha,
                                    fading=fading, stddev_groups=stddev_groups,
-                                   stddev_group=stddev_group)
+                                   stddev_group=stddev_group, rows=rows)
 
 
-def _block(disc: Discriminator, k: int, x: torch.Tensor) -> torch.Tensor:
+def _block(disc: Discriminator, k: int, x: torch.Tensor,
+           rows=None) -> torch.Tensor:
     p = disc.blocks[str(4 * 2 ** k)]
     if k == 0:
         return L.conv_block(p, x, padding1=1, padding2=0, fused=False)
     if disc.cfg.block_type == "single":
-        return L.single_conv_block(p, x, padding=1, fused=False)
-    return L.conv_block(p, x, fused=False)
+        return L.single_conv_block(p, x, padding=1, fused=False, rows=rows)
+    return L.conv_block(p, x, fused=False, rows=rows)
 
 
 def _from_rgb(disc: Discriminator, k: int, img: torch.Tensor,
-              labels: Optional[torch.Tensor]) -> torch.Tensor:
+              labels: Optional[torch.Tensor], rows=None) -> torch.Tensor:
     cfg = disc.cfg
     if cfg.conditioning == "label_plane":
         # the per-resolution spatial label plane, one more image channel
-        res = img.shape[1]
+        # (W is never split: it names the resolution)
+        res = img.shape[2]
         plane = L.embedding(disc.embeddings[str(res)].w, labels,
                             equalized=cfg.equal_embed, dtype=img.dtype)
-        img = torch.cat([img, plane.reshape(-1, res, res, 1)], dim=-1)
+        plane = plane.reshape(-1, res, res, 1)
+        if rows is not None:
+            plane = split_rows(plane, rows)
+        img = torch.cat([img, plane], dim=-1)
     conv = disc.from_rgb[str(4 * 2 ** k)]
     return L.equal_conv2d(conv.w, conv.b, img)
 
@@ -142,29 +156,44 @@ def _from_rgb(disc: Discriminator, k: int, img: torch.Tensor,
 def discriminator_apply(disc: Discriminator, img: torch.Tensor,
                         labels: Optional[torch.Tensor] = None, *, step: int,
                         alpha=1.0, fading: bool = False,
-                        stddev_groups: int = 1,
-                        stddev_group=None) -> torch.Tensor:
+                        stddev_groups: int = 1, stddev_group=None,
+                        rows=None) -> torch.Tensor:
     """Score a batch of NHWC images entering at the resolution of ``step``.
 
     Returns (B, 1) for the plain and label-plane heads, (B,) for the
     projection head.  ``stddev_groups > 1`` takes the minibatch-stddev
     statistic per contiguous B/groups slice (``TrainConfig.d_concat``);
     ``stddev_group`` (a process group, ``pgx``'s ``stddev_axis_name``)
-    takes it over the batch of every rank."""
+    takes it over the batch of every rank.  ``rows``: module docstring
+    (``stddev_group`` then holds the ranks of the other batch rows, not the
+    model group: the statistic runs on whole images)."""
     cfg = disc.cfg
     step = min(step, cfg.max_step)
     dtype = cfg.compute_dtype
     img = img.to(dtype)
     entry = cfg.entry_stage(step)
+    lay = rows if rows is not None and rows.n_model > 1 else None
+    img_lay = lay
 
-    x = _from_rgb(disc, entry, img, labels)
+    x = _from_rgb(disc, entry, img, labels, lay)
     for k in range(entry, 0, -1):
-        x = downsample2x(_block(disc, k, x))
+        x = _block(disc, k, x, lay)
+        if lay is not None and x.shape[1] % 2:
+            # one row a rank: the 2x2 pool would cross the cut
+            x = gather_rows(x, lay)
+            lay = None
+        x = downsample2x(x)
         if k == entry and fading:
             a = torch.as_tensor(alpha, dtype=dtype, device=x.device)
-            skip = _from_rgb(disc, entry - 1, downsample2x(img), labels)
+            src = img
+            if img_lay is not None and lay is None:
+                src = gather_rows(img, img_lay)
+            skip = _from_rgb(disc, entry - 1, downsample2x(src), labels, lay)
             x = (1 - a) * skip + a * x
 
+    if lay is not None:
+        # the minibatch statistic and the 4x4 head see whole images
+        x = gather_rows(x, lay)
     x = L.minibatch_stddev(x, groups=stddev_groups, group=stddev_group)
     x = _block(disc, 0, x)                      # -> (B, 1, 1, feat)
     h = x.reshape(x.shape[0], -1)

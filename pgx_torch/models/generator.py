@@ -22,6 +22,7 @@ from pgx_torch.ops.kernels import pixel_norm_lrelu
 from pgx_torch.ops.kernels.pixel_norm_lrelu import (
     supported as pixel_norm_lrelu_supported)
 from pgx_torch.ops.resize import upsample2x
+from pgx_torch.parallel.collectives import split_rows
 from pgx_torch.utils import resolve_device
 
 Params = Dict[str, Any]
@@ -135,24 +136,26 @@ class Generator(nn.Module):
         return load_params_tree(cls(cfg, trainable), tree).to(dev)
 
     def forward(self, z: torch.Tensor, labels: Optional[torch.Tensor] = None,
-                *, step: int, alpha=1.0, fading: bool = False) -> torch.Tensor:
+                *, step: int, alpha=1.0, fading: bool = False,
+                rows=None) -> torch.Tensor:
         return generator_apply(self, z, labels, step=step, alpha=alpha,
-                               fading=fading)
+                               fading=fading, rows=rows)
 
 
 def _block(gen: Generator, k: int, x: torch.Tensor,
-           upsample_first: bool = False) -> torch.Tensor:
+           upsample_first: bool = False, rows=None) -> torch.Tensor:
     cfg = gen.cfg
     p = gen.blocks[str(4 * 2 ** k)]
     if k == 0 and cfg.arch == "proper":
         # PixelNorm hardcoded in the reference's fused 4x4 block
-        return L.single_conv_block(p, x, padding=1, use_pixel_norm=True)
+        return L.single_conv_block(p, x, padding=1, use_pixel_norm=True,
+                                   rows=rows)
     if cfg.block_type == "single":
         return L.single_conv_block(p, x, padding=1,
                                    use_pixel_norm=cfg.pixel_norm,
-                                   upsample_first=upsample_first)
+                                   upsample_first=upsample_first, rows=rows)
     return L.conv_block(p, x, use_pixel_norm=cfg.pixel_norm,
-                        upsample_first=upsample_first)
+                        upsample_first=upsample_first, rows=rows)
 
 
 def _to_rgb(gen: Generator, k: int, x: torch.Tensor) -> torch.Tensor:
@@ -162,15 +165,35 @@ def _to_rgb(gen: Generator, k: int, x: torch.Tensor) -> torch.Tensor:
 
 def generator_apply(gen: Generator, z: torch.Tensor,
                     labels: Optional[torch.Tensor] = None, *, step: int,
-                    alpha=1.0, fading: bool = False) -> torch.Tensor:
+                    alpha=1.0, fading: bool = False,
+                    rows=None) -> torch.Tensor:
     """A batch of NHWC images at the resolution of ``step``.
 
     ``fading`` selects the alpha blend with the previous stage's head (the
-    reference's ``0 <= alpha < 1`` branch)."""
+    reference's ``0 <= alpha < 1`` branch).
+
+    ``rows`` (a ``tp.Mesh2D`` in spatial mode, whose ``n_model`` divides
+    the resolution): the images come out as this rank's rows, split over H
+    across the model group.  G splits at the first resolution ``n_model``
+    divides: its 4x4 input (the latent projection computed whole and cut,
+    kernel B on the rank's rows) for ``n_model <= 4``, else after the first
+    stage that high; every conv above runs on rows with halos
+    (``pgx_torch.core.layers``), as do the upsamples and the fading blend's
+    upsample of the previous head."""
     cfg = gen.cfg
     step = min(step, cfg.max_step)
     dtype = cfg.compute_dtype
     z = z.to(dtype)
+    split = rows is not None and rows.n_model > 1
+    lay = None        # the layout so far: None whole, else ``rows``
+
+    def place(x):
+        # whole until the height splits over the model axis
+        nonlocal lay
+        if split and lay is None and x.shape[1] % rows.n_model == 0:
+            lay = rows
+            return split_rows(x, rows)
+        return x
 
     if cfg.conditioning != "none":
         embed = L.embedding(gen.embedding.w, labels,
@@ -182,22 +205,28 @@ def generator_apply(gen: Generator, z: torch.Tensor,
 
     # stage 0: latent -> 4x4, then pixel-norm + lrelu (kernel B where it
     # takes the width)
-    x = L.latent_to_4x4(gen.input.w, gen.input.b, z).contiguous()
+    x = place(L.latent_to_4x4(gen.input.w, gen.input.b, z).contiguous())
     if pixel_norm_lrelu_supported(x):
         x = pixel_norm_lrelu(x, cfg.input_lrelu_slope)
     else:
         x = L.leaky_relu(L.pixel_norm(x), cfg.input_lrelu_slope)
-    x = _block(gen, 0, x)
+    x = place(_block(gen, 0, x, rows=lay))
 
     out_stage = cfg.out_stage(step)
-    feats = {0: x}
+    feats = {0: (x, lay)}
     for k in range(1, out_stage + 1):
+        height = x.shape[1] * (lay.n_model if lay is not None else 1)
         if (cfg.fuse_up_conv_min_size
-                and x.shape[1] >= cfg.fuse_up_conv_min_size):
-            x = _block(gen, k, x, upsample_first=True)
+                and height >= cfg.fuse_up_conv_min_size):
+            x = _block(gen, k, x, upsample_first=True, rows=lay)
         else:
-            x = _block(gen, k, upsample2x(x))
-        feats[k] = x
+            x = _block(gen, k, upsample2x(x, lay), rows=lay)
+        x = place(x)
+        feats[k] = (x, lay)
+    if split and lay is None:
+        raise ValueError(f"a {x.shape[1]}px image does not split over "
+                         f"{rows.n_model} model ranks "
+                         f"(tp.use_spatial_sharding)")
 
     # the proper arch's step==2-with-tanh quirk skips the blend
     no_fade_quirk = cfg.arch == "proper" and step == 2 and cfg.tanh
@@ -205,7 +234,10 @@ def generator_apply(gen: Generator, z: torch.Tensor,
     can_fade = out_stage > first_head and not no_fade_quirk
     if fading and can_fade:
         a = torch.as_tensor(alpha, dtype=dtype, device=x.device)
-        skip = upsample2x(_to_rgb(gen, out_stage - 1, feats[out_stage - 1]))
+        prev, prev_lay = feats[out_stage - 1]
+        skip = upsample2x(_to_rgb(gen, out_stage - 1, prev), prev_lay)
+        if prev_lay is None and lay is not None:
+            skip = split_rows(skip, lay)
         rgb = (1 - a) * skip + a * _to_rgb(gen, out_stage, x)
     else:
         rgb = _to_rgb(gen, out_stage, x)

@@ -16,7 +16,8 @@ This is the fix the PyTorch GAN code bases use (StyleGAN2-ADA's
 written in forward ops — the input gradient as a transposed convolution,
 the weight gradient as a second Function — so differentiating the backward
 again only ever asks cuDNN for forward, data-gradient and weight-gradient
-kernels.  Stride 1, dilation 1, one group, as the models use.
+kernels.  Stride 1, dilation 1, one group, as the models use; ``padding``
+an int or an ``(h, w)`` pair (spatial mode's haloed tiles pad W alone).
 
 ``needs_input_grad`` of a Python Function says whether an input requires
 grad at all, not whether this backward call needs it; so the penalty's
@@ -39,8 +40,9 @@ def _weight_gradient(gy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                      padding: int) -> torch.Tensor:
     """cuDNN's weight gradient of ``conv2d(x, w, padding)`` for the output
     cotangent ``gy`` (``w`` gives the shape only)."""
+    pad = [padding, padding] if isinstance(padding, int) else list(padding)
     return torch.ops.aten.convolution_backward(
-        gy, x, w, None, [1, 1], [padding, padding], [1, 1], False, [0, 0],
+        gy, x, w, None, [1, 1], pad, [1, 1], False, [0, 0],
         1, [False, True, False])[1]
 
 
@@ -93,8 +95,7 @@ class _Conv2dGradWeight(torch.autograd.Function):
         return ggy, gx, None, None
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, padding: int = 0
-           ) -> torch.Tensor:
+def conv2d(x: torch.Tensor, w: torch.Tensor, padding=0) -> torch.Tensor:
     """``F.conv2d(x, w, padding=padding)`` for NCHW ``x`` (any memory
     format) and OIHW ``w``, differentiable to second order through cuDNN's
     forward, data-gradient and weight-gradient kernels."""

@@ -2,10 +2,9 @@
 one process per rank under a ``torch.distributed`` process group, the
 collectives GSPMD places implicitly in ``pgx``, the data mesh, the
 cross-process statistics, and (``tp``) the 2-D ``(data, model)`` grid with
-the train state channel-sharded over its model axis.
-
-``tp.py``'s ``spatial`` mode is not ported yet: ``spatial_batch_sharding``
-raises ``NotImplementedError``.
+the train state channel-sharded over its model axis (``channels`` mode) or
+the images split over H across it (``spatial`` mode: the row collectives
+``halo_exchange``, ``gather_rows`` and ``split_rows``).
 """
 
 from pgx_torch.parallel import stats  # noqa: F401
@@ -13,7 +12,10 @@ from pgx_torch.parallel.collectives import (  # noqa: F401
     all_reduce_sum,
     average_,
     gather_model_axis,
+    gather_rows,
+    halo_exchange,
     reduce_to_shards,
+    split_rows,
 )
 from pgx_torch.parallel.distributed import (  # noqa: F401
     broadcast_obj,
@@ -45,6 +47,8 @@ from pgx_torch.parallel.tp import (  # noqa: F401
     make_mesh_2d,
     make_mesh_2d_for_batch,
     shard_state,
+    SpatialSharding,
+    spatial_active,
     spatial_batch_sharding,
     state_shardings,
     use_spatial_sharding,

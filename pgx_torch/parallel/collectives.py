@@ -29,6 +29,40 @@ model group and an ``all_reduce`` over the data group); on gloo they use
 ``all_reduce`` alone (a zero-filled whole buffer with this rank's block
 written in; ``average_``, then the slice).  The group's backend picks; both
 forms compute the same numbers.
+
+Spatial model parallelism (``tp``'s ``spatial`` mode: every rank of a model
+group holds rows ``[m * h, (m + 1) * h)`` of every image) adds the row
+collectives over the model group, each an autograd Function that is
+differentiable to any order in both modes, as ``all_reduce_sum`` is:
+
+* ``halo_exchange`` gives each rank ``rows`` rows of each neighbour on the
+  model axis above and below its own, filled at the true image edges by the
+  caller's rule (``'zero'``: SAME padding; ``'edge'``: the edge row
+  repeated, bilinear resampling's clamp; ``'none'``: no rows).  Its
+  backward adds each halo row's gradient into the neighbour's edge row it
+  came from (``_HaloReturn``, whose own backward is the exchange again).
+* ``gather_rows`` joins the ranks' rows into whole images on every rank;
+  its backward is the reduce-scatter (``_ReduceScatterRows``: the sum of
+  every rank's gradient of the whole image, this rank's rows), whose own
+  backward is the gather.
+* ``split_rows``, the gather's inverse, takes this rank's rows of a whole
+  image back: a local slice, whose backward pads with zeros.
+
+They share one convention: a tensor every rank of the group computes alike
+(a whole image after ``gather_rows``, a loss) carries on each rank that
+rank's part of its gradient, the parts summing to the gradient, and a
+tensor each rank holds its own part of (rows) carries its whole gradient.
+Every collective's backward is its exact adjoint under it, so a scalar
+every rank computes alike, differentiated on every rank, yields
+``n_model`` times its gradient summed over the group: the train step
+divides an input gradient taken that way by ``n_model`` and averages the
+parameters' gradients over the world.
+
+Each moves data in two forms that compute the same numbers: on NCCL the
+halo through ``batch_isend_irecv`` with the two neighbours alone and the
+rows through ``all_gather_into_tensor`` / ``reduce_scatter_tensor``; on
+gloo through ``all_reduce`` alone (zero-filled buffers with this rank's
+part written in).
 """
 
 from __future__ import annotations
@@ -39,7 +73,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["all_reduce_sum", "average_", "world_size", "rank", "active",
-           "first_rank", "gather_model_axis", "reduce_to_shards"]
+           "first_rank", "gather_model_axis", "reduce_to_shards",
+           "halo_exchange", "gather_rows", "split_rows"]
 
 
 def active(group=None) -> bool:
@@ -252,3 +287,251 @@ def _reduce_nccl(mesh, grads, sharded):
             out[i] = mine[lo:lo + size].view(*g.shape[:-1], g.shape[-1] // n)
             lo += size
     return out
+
+
+# ---------------------------------------------------------------------------
+# Spatial model parallelism: the row collectives over the model group
+# ---------------------------------------------------------------------------
+
+HALO_FILLS = ("zero", "edge", "none")
+
+
+def _exchange(mesh, up: Optional[torch.Tensor], down: Optional[torch.Tensor],
+              like: torch.Tensor):
+    """Each rank sends ``up`` to the rank above it on the model axis (m - 1)
+    and ``down`` to the one below (m + 1); returns ``(from_up, from_down)``,
+    what m - 1 sent down and m + 1 sent up (None at the true edges, where
+    ``up`` resp. ``down`` is None too).  Every tensor has ``like``'s shape
+    and dtype."""
+    if _nccl(mesh.model_group):
+        return _exchange_p2p(mesh, up, down, like)
+    return _exchange_gloo(mesh, up, down, like)
+
+
+def _exchange_p2p(mesh, up, down, like):
+    """``_exchange`` through ``batch_isend_irecv`` with the neighbours."""
+    peers = dist.get_process_group_ranks(mesh.model_group)
+    ops, from_up, from_down = [], None, None
+    if up is not None:
+        from_up = torch.empty_like(like, memory_format=torch.contiguous_format)
+        peer = peers[mesh.m - 1]
+        ops += [dist.P2POp(dist.isend, up.contiguous(), peer,
+                           mesh.model_group),
+                dist.P2POp(dist.irecv, from_up, peer, mesh.model_group)]
+    if down is not None:
+        from_down = torch.empty_like(like,
+                                     memory_format=torch.contiguous_format)
+        peer = peers[mesh.m + 1]
+        ops += [dist.P2POp(dist.isend, down.contiguous(), peer,
+                           mesh.model_group),
+                dist.P2POp(dist.irecv, from_down, peer, mesh.model_group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return from_up, from_down
+
+
+def _exchange_gloo(mesh, up, down, like):
+    """``_exchange`` through ``all_reduce`` alone: an ``(n_model, 2, ...)``
+    zero buffer with this rank's two parts written in."""
+    n, m = mesh.n_model, mesh.m
+    buf = torch.zeros((n, 2) + tuple(like.shape), dtype=like.dtype,
+                      device=like.device)
+    if up is not None:
+        buf[m, 0].copy_(up)
+    if down is not None:
+        buf[m, 1].copy_(down)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.model_group)
+    return (buf[m - 1, 1] if up is not None else None,
+            buf[m + 1, 0] if down is not None else None)
+
+
+def _halo_rows(mesh, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` (this rank's rows on dim 1) with ``rows`` rows of the rank
+    above before it and of the rank below after it (none at the true
+    edges)."""
+    if x.shape[1] < rows:
+        raise ValueError(f"a halo of {rows} rows needs at least {rows} rows "
+                         f"a rank, got {x.shape[1]}")
+    n, m = mesh.n_model, mesh.m
+    first, last = x[:, :rows], x[:, x.shape[1] - rows:]
+    from_up, from_down = _exchange(mesh, first if m > 0 else None,
+                                   last if m < n - 1 else None, first)
+    return torch.cat([t for t in (from_up, x, from_down) if t is not None],
+                     dim=1)
+
+
+def _halo_return(mesh, g: torch.Tensor, rows: int) -> torch.Tensor:
+    """The adjoint of ``_halo_rows``: the middle rows of ``g`` with the
+    gradient of each neighbour's halo added into the edge rows it was
+    taken from."""
+    n, m = mesh.n_model, mesh.m
+    top = rows if m > 0 else 0
+    bot = rows if m < n - 1 else 0
+    h = g.shape[1] - top - bot
+    gx = g[:, top:top + h].clone(memory_format=torch.contiguous_format)
+    from_up, from_down = _exchange(mesh, g[:, :top] if top else None,
+                                   g[:, top + h:] if bot else None,
+                                   gx[:, :rows])
+    if from_up is not None:
+        gx[:, :rows] += from_up
+    if from_down is not None:
+        gx[:, h - rows:] += from_down
+    return gx
+
+
+class _HaloExchange(torch.autograd.Function):
+    """``_halo_rows``; backward ``_HaloReturn``, jvp itself."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, rows):
+        ctx.mesh, ctx.rows = mesh, rows
+        return _halo_rows(mesh, x, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _HaloReturn.apply(g, ctx.mesh, ctx.rows), None, None
+
+    @staticmethod
+    def jvp(ctx, x_t, _mesh_t, _rows_t):
+        return _HaloExchange.apply(x_t, ctx.mesh, ctx.rows)
+
+
+class _HaloReturn(torch.autograd.Function):
+    """``_halo_return``; backward ``_HaloExchange``, jvp itself."""
+
+    @staticmethod
+    def forward(ctx, g, mesh, rows):
+        ctx.mesh, ctx.rows = mesh, rows
+        return _halo_return(mesh, g, rows)
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _HaloExchange.apply(gg, ctx.mesh, ctx.rows), None, None
+
+    @staticmethod
+    def jvp(ctx, g_t, _mesh_t, _rows_t):
+        return _HaloReturn.apply(g_t, ctx.mesh, ctx.rows)
+
+
+def halo_exchange(x: torch.Tensor, mesh, rows: int = 1,
+                  fill: str = "zero") -> torch.Tensor:
+    """``x``, this rank's rows of NHWC images split over H across
+    ``mesh``'s model group, with ``rows`` halo rows above and below: the
+    neighbours' edge rows inside the image, and at the true image edges
+    ``fill``'s rows (``'zero'``: zeros, a SAME conv's padding; ``'edge'``:
+    the edge row repeated, the clamp of ``align_corners=False`` bilinear
+    resampling; ``'none'``: nothing, so an edge rank's result has ``rows``
+    fewer rows on that side).  Differentiable to any order in both modes
+    (module docstring).  Every rank of the model group calls it with
+    tensors of the same shape, in the same order.  At ``n_model == 1`` only
+    the fill."""
+    if fill not in HALO_FILLS:
+        raise ValueError(f"fill must be one of {HALO_FILLS}, got {fill!r}")
+    n, m = mesh.n_model, mesh.m
+    y = _HaloExchange.apply(x, mesh, rows) if n > 1 else x
+    if fill == "none":
+        return y
+    if fill == "zero":
+        pad = lambda edge: torch.zeros_like(edge)
+    else:
+        pad = lambda edge: edge.expand(-1, rows, *edge.shape[2:])
+    parts = [y]
+    if m == 0:
+        parts.insert(0, pad(x[:, :1] if fill == "edge" else x[:, :rows]))
+    if m == n - 1:
+        parts.append(pad(x[:, -1:] if fill == "edge" else x[:, -rows:]))
+    return torch.cat(parts, dim=1)
+
+
+def _gather_rows(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The ranks' rows (dim 1) joined in model-axis order, on every rank."""
+    n = mesh.n_model
+    if _nccl(mesh.model_group):
+        flat = x.contiguous().view(-1)
+        buf = torch.empty(n * flat.numel(), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(buf, flat, group=mesh.model_group)
+        buf = buf.view(n, *x.shape)
+    else:
+        buf = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype,
+                          device=x.device)
+        buf[mesh.m].copy_(x)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.model_group)
+    b, h = x.shape[0], x.shape[1]
+    return buf.transpose(0, 1).reshape(b, n * h, *x.shape[2:])
+
+
+def _reduce_scatter_rows(mesh, y: torch.Tensor) -> torch.Tensor:
+    """The adjoint of ``_gather_rows``: ``y`` (whole on dim 1) summed over
+    the ranks, this rank's rows."""
+    n, m = mesh.n_model, mesh.m
+    if y.shape[1] % n:
+        raise ValueError(f"{y.shape[1]} rows do not split over {n} ranks")
+    h = y.shape[1] // n
+    if _nccl(mesh.model_group):
+        parts = y.reshape(y.shape[0], n, h, *y.shape[2:]).transpose(0, 1)
+        parts = parts.contiguous()
+        mine = torch.empty(parts[0].numel(), dtype=y.dtype, device=y.device)
+        dist.reduce_scatter_tensor(mine, parts.view(-1),
+                                   op=dist.ReduceOp.SUM,
+                                   group=mesh.model_group)
+        return mine.view(parts.shape[1:])
+    out = y.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.model_group)
+    return out[:, m * h:(m + 1) * h].contiguous()
+
+
+class _GatherRows(torch.autograd.Function):
+    """``_gather_rows``; backward ``_ReduceScatterRows``, jvp itself."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _gather_rows(mesh, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ReduceScatterRows.apply(g, ctx.mesh), None
+
+    @staticmethod
+    def jvp(ctx, x_t, _mesh_t):
+        return _GatherRows.apply(x_t, ctx.mesh)
+
+
+class _ReduceScatterRows(torch.autograd.Function):
+    """``_reduce_scatter_rows``; backward ``_GatherRows``, jvp itself."""
+
+    @staticmethod
+    def forward(ctx, y, mesh):
+        ctx.mesh = mesh
+        return _reduce_scatter_rows(mesh, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherRows.apply(g, ctx.mesh), None
+
+    @staticmethod
+    def jvp(ctx, y_t, _mesh_t):
+        return _ReduceScatterRows.apply(y_t, ctx.mesh)
+
+
+def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Whole images on every rank of ``mesh``'s model group from each
+    rank's rows (dim 1, rank m's block m), differentiable to any order in
+    both modes; its backward is the reduce-scatter (module docstring).  At
+    ``n_model == 1`` ``x`` itself."""
+    if mesh.n_model == 1:
+        return x
+    return _GatherRows.apply(x, mesh)
+
+
+def split_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows (dim 1, block ``mesh.m`` of ``mesh.n_model``) of
+    whole images: the inverse of ``gather_rows``, a local slice, copied
+    contiguous (its backward pads with zeros: module docstring)."""
+    n = mesh.n_model
+    if x.shape[1] % n:
+        raise ValueError(f"{x.shape[1]} rows do not split over {n} ranks")
+    if n == 1:
+        return x
+    h = x.shape[1] // n
+    return x[:, mesh.m * h:(mesh.m + 1) * h].contiguous()

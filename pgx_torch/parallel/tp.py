@@ -1,27 +1,32 @@
 """Model-axis parallelism (counterpart of ``pgx/parallel/tp.py``): a 2-D
-``(data, model)`` grid of ranks and the train state channel-sharded over
-its model axis.
+``(data, model)`` grid of ranks, in one of pgx's two modes: the train state
+channel-sharded over the model axis (``channels``), or the images split
+over H across it (``spatial``).
 
-``pgx`` places the state with ``NamedSharding`` and lets GSPMD partition
-the unchanged step.  The port runs one process per rank and chooses the
-partition itself: **the parameters are gathered, not the activations**.
+``pgx`` places the state and the images with ``NamedSharding`` and lets
+GSPMD partition the unchanged step.  The port runs one process per rank
+and chooses the partition itself.
 
 * **The grid.** ``n_data * n_model`` ranks, the model axis minor: rank
   ``d * n_model + m`` is grid position ``(d, m)``; the model groups are
   consecutive ranks, the data groups the ranks with the same ``m``.
-* **The state at rest** (``channels`` mode): every floating leaf whose
-  trailing dim divides ``n_model`` keeps only block ``m`` of that dim on
-  rank ``(d, m)`` (``_leaf_spec``, pgx's rule): conv HWIO kernels and
-  biases on C_out, the HWOI input projection on its latent dim, linears on
-  their output dim, the embedding table on its dim, for G, D, G_ema and
-  both Adam moments.  The 3-channel to_rgb heads, scalars, counters and
-  the random generator stay whole on every rank.
-* **The step** (``pgx_torch.train.make_train_step(..., mesh=)``): every
-  rank takes its own rows of the global batch, ``batch / (n_data *
-  n_model)``, so no arithmetic repeats across the model axis.  It gathers
-  G's and D's parameters whole over the model group at the top (outside
-  autograd, as ``weights_cast='once'`` makes its copy), runs pgx's step on
-  them, averages each gradient over the world and keeps its block
+  ``Mesh2D.mode`` names the mode; ``make_train_step(..., mesh=)`` and the
+  loop read it.
+
+``channels`` mode: **the parameters are gathered, not the activations**.
+
+* **The state at rest**: every floating leaf whose trailing dim divides
+  ``n_model`` keeps only block ``m`` of that dim on rank ``(d, m)``
+  (``_leaf_spec``, pgx's rule): conv HWIO kernels and biases on C_out, the
+  HWOI input projection on its latent dim, linears on their output dim,
+  the embedding table on its dim, for G, D, G_ema and both Adam moments.
+  The 3-channel to_rgb heads, scalars, counters and the random generator
+  stay whole on every rank.
+* **The step**: every rank takes its own rows of the global batch, ``batch
+  / (n_data * n_model)``, so no arithmetic repeats across the model axis.
+  It gathers G's and D's parameters whole over the model group at the top
+  (outside autograd, as ``weights_cast='once'`` makes its copy), runs pgx's
+  step on them, averages each gradient over the world and keeps its block
   (``pgx_torch.parallel.collectives.reduce_to_shards``), and runs Adam and
   the EMA on the blocks; D is gathered again after its update for the G
   step.  The whole parameters are released at the end of the step.
@@ -29,15 +34,37 @@ partition itself: **the parameters are gathered, not the activations**.
   collective every rank enters; the result is the whole state, so a
   checkpoint is the same files at any ``n_model``.
 
-What the model axis saves is the **state's bytes at rest**.  The
-activations are not split (each rank holds its rows, as at world
-``n_data * n_model`` of pure data parallelism), and the arithmetic is not
-split beyond the rows: kernels A, B and C pixel-normalise over every
-channel of a row, which a split C_out would make a cross-rank statistic.
+What the channels mode saves is the **state's bytes at rest**: the
+activations are not split (each rank holds its rows, as at world ``n_data
+* n_model`` of pure data parallelism), and kernels A, B and C
+pixel-normalise over every channel of a row, which a split C_out would
+make a cross-rank statistic.
 
-``spatial`` mode (images split over H with halo exchanges around every 3x3
-conv and resampling filter) is not ported yet: ``spatial_batch_sharding``
-raises.
+``spatial`` mode: **the activations are split, the state is not**.
+
+* **Placement** (``spatial_batch_sharding``, pgx's ``P('data',
+  'model')``): rank ``(d, m)`` holds the rows of data position ``d``
+  (``batch / n_data``) and rows ``[m * H / n, (m + 1) * H / n)`` of every
+  image; the model ranks of one data position share their batch rows.
+  The state is whole on every rank (``shard_state`` and ``gather_state``
+  leave it as it is), so host reads need no collective.
+* **The models** (``rows=mesh``): every padding-1 3x3 conv runs on its
+  rows with a halo of one row from each neighbour (zeros at the true
+  edges: SAME padding; kernel C on the haloed tile, its halo rows cropped
+  after), ``upsample2x`` with a halo that repeats the edge row at the true
+  edges, ``downsample2x`` locally (H / n even); G starts split at the first
+  resolution ``n_model`` divides (the 4x4 input for ``n_model <= 4``); D
+  gathers its rows whole before the minibatch statistic and the 4x4 head,
+  or earlier where a rank holds one row and the 2x2 pool would cross the
+  cut.  The ADA pipe warps whole images: gather, pipe, split.
+* **The step**: z, eps and the draws are sliced by ``d`` over ``n_data``;
+  the penalty's norms are summed over the model group; the gradients are
+  averaged over the world, every rank's loss counting once per model rank
+  (``collectives``' convention), and the penalty's input gradient divides
+  the model ranks' ``n_model`` copies out.
+* **Stages shorter than the axis** (``use_spatial_sharding`` says no: 4px
+  at ``n_model = 8``) fall back to batch-only placement, as pgx's do: each
+  rank its own rows of the world, the state still whole.
 """
 
 from __future__ import annotations
@@ -57,9 +84,7 @@ from pgx_torch.parallel.distributed import named_state_leaves
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-SPATIAL_SLICE = ("the next slice of the port (pgx/parallel/tp.py's spatial "
-                 "mode: halo exchanges around every 3x3 conv and resampling "
-                 "filter)")
+MODES = ("channels", "spatial")
 
 _MODULES = ("g", "d", "g_ema")
 _OPTS = {"opt_g": "g", "opt_d": "d"}
@@ -74,7 +99,8 @@ class Mesh2D:
     ``(d, m)``; ``world_group`` holds every rank, ``model_group`` this
     rank's row (the ranks ``d * n_model + [0, n_model)``), ``data_group``
     its column (the ranks with the same ``m``).  The groups are None at
-    world 1."""
+    world 1.  ``mode``: ``'channels'`` (the state sharded over the model
+    axis) or ``'spatial'`` (the images split over H across it)."""
 
     n_data: int
     n_model: int
@@ -83,6 +109,12 @@ class Mesh2D:
     world_group: Any = None
     model_group: Any = None
     data_group: Any = None
+    mode: str = "channels"
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"unknown model_parallel_mode {self.mode!r} "
+                             f"(channels|spatial)")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -97,9 +129,10 @@ class Mesh2D:
         return self.d * self.n_model + self.m
 
 
-def make_mesh_2d(n_data: int, n_model: int, group=None) -> Mesh2D:
+def make_mesh_2d(n_data: int, n_model: int, group=None,
+                 mode: str = "channels") -> Mesh2D:
     """The ``(data, model)`` grid over the ranks of ``group`` (the default
-    group when None; no group at world 1), model axis minor.
+    group when None; no group at world 1), model axis minor, in ``mode``.
 
     Raises pgx's ``ValueError`` when the world has fewer than ``n_data *
     n_model`` ranks, and when the model axis would span hosts: the ranks
@@ -109,6 +142,7 @@ def make_mesh_2d(n_data: int, n_model: int, group=None) -> Mesh2D:
     Every rank creates every subgroup, in the same order."""
     if n_data < 1 or n_model < 1:
         raise ValueError(f"mesh {n_data}x{n_model}: both axes must be >= 1")
+    Mesh2D(n_data, n_model, mode=mode)          # refuses an unknown mode
     world = world_size(group)
     need = n_data * n_model
     if world < need:
@@ -121,7 +155,7 @@ def make_mesh_2d(n_data: int, n_model: int, group=None) -> Mesh2D:
                          f"{world} processes; a multi-process run cannot "
                          f"leave a process off the mesh")
     if world == 1:
-        return Mesh2D(1, 1)
+        return Mesh2D(1, 1, mode=mode)
     me = rank(group)
     ranks = (list(range(world)) if group is None or group is dist.group.WORLD
              else dist.get_process_group_ranks(group))
@@ -138,7 +172,7 @@ def make_mesh_2d(n_data: int, n_model: int, group=None) -> Mesh2D:
             data_group = g
     return Mesh2D(n_data, n_model, me // n_model, me % n_model,
                   group if group is not None else dist.group.WORLD,
-                  model_group, data_group)
+                  model_group, data_group, mode)
 
 
 def _refuse_model_axis_across_hosts(n_data: int, n_model: int,
@@ -164,12 +198,14 @@ def _refuse_model_axis_across_hosts(n_data: int, n_model: int,
                 f"model axis must not span hosts")
 
 
-def make_mesh_2d_for_batch(batch_size: int, n_model: int,
-                           group=None) -> Mesh2D:
+def make_mesh_2d_for_batch(batch_size: int, n_model: int, group=None,
+                           mode: str = "channels") -> Mesh2D:
     """The grid of every rank of ``group`` with ``n_model`` on the model
-    axis.  Raises pgx's ``ValueError`` when ``n_model`` does not divide the
-    world.  Departure from pgx: every rank takes ``batch_size / world``
-    rows, so the world must divide the batch (``ValueError`` otherwise).
+    axis, in ``mode``.  Raises pgx's ``ValueError`` when ``n_model`` does
+    not divide the world.  Departure from pgx: every rank takes
+    ``batch_size / world`` rows (in spatial mode at the stages that fall
+    back to batch-only placement), so the world must divide the batch
+    (``ValueError`` otherwise).
     pgx shrinks the data axis to a divisor of the batch inside one process
     and refuses to across hosts; the port's ranks are processes, none of
     which can be dropped, so it always refuses."""
@@ -183,7 +219,7 @@ def make_mesh_2d_for_batch(batch_size: int, n_model: int,
             f"ranks of the {world // n_model}x{n_model} mesh (every rank "
             f"takes its own rows); a multi-host run cannot drop devices — "
             f"raise batch_size to a multiple of {world}")
-    return make_mesh_2d(world // n_model, n_model, group)
+    return make_mesh_2d(world // n_model, n_model, group, mode)
 
 
 def _leaf_spec(leaf, n_model: int) -> Tuple:
@@ -249,10 +285,10 @@ def shard_state(mesh: Mesh2D, state):
     ``state_shardings``), in place: each module's sharded parameters are
     re-pointed at their block, each Adam moment replaced by its block, the
     whole tensors freed.  Every rank must hold the same whole state
-    (``broadcast_state``).  Returns ``state``; at ``n_model == 1``
-    unchanged."""
+    (``broadcast_state``).  Returns ``state``; at ``n_model == 1`` and in
+    spatial mode (the state is whole on every rank) unchanged."""
     n, m = mesh.n_model, mesh.m
-    if n == 1:
+    if n == 1 or mesh.mode == "spatial":
         return state
     for key in _MODULES:
         module = state.get(key)
@@ -304,8 +340,9 @@ def gather_state(mesh: Mesh2D, state):
     A collective: every rank of the model group enters it (the loop: every
     rank, at the same iteration).  Keys other than ``g``, ``d``,
     ``g_ema``, ``opt_g`` and ``opt_d`` are shared, not copied.  At
-    ``n_model == 1`` the state itself."""
-    if mesh.n_model == 1:
+    ``n_model == 1`` and in spatial mode (nothing is sharded) the state
+    itself."""
+    if mesh.n_model == 1 or mesh.mode == "spatial":
         return state
     leaves = _sharded_leaves(state)
     shards = []
@@ -390,12 +427,48 @@ def resident_bytes(state) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def spatial_batch_sharding(mesh: Mesh2D):
-    """``spatial`` mode's image placement (batch over ``data``, H over
-    ``model``): not ported yet."""
-    raise NotImplementedError(
-        f"pgx_torch.parallel.spatial_batch_sharding: model_parallel_mode="
-        f"'spatial' is {SPATIAL_SLICE}")
+@dataclasses.dataclass(frozen=True)
+class SpatialSharding:
+    """One rank's part of a batch of NHWC images under pgx's ``P('data',
+    'model')``: the rows of data position ``d`` (block ``d`` of ``n_data``
+    on the batch dim) and block ``m`` of ``n_model`` on H; W and C whole."""
+
+    n_data: int
+    n_model: int
+    d: int
+    m: int
+
+    def batch_rows(self, batch: int) -> slice:
+        """This rank's rows of a global batch of ``batch``."""
+        if batch % self.n_data:
+            raise ValueError(f"batch {batch} does not split over "
+                             f"{self.n_data} data positions")
+        b = batch // self.n_data
+        return slice(self.d * b, (self.d + 1) * b)
+
+    def height_rows(self, height: int) -> slice:
+        """This rank's rows of an image ``height`` rows high."""
+        if height % self.n_model:
+            raise ValueError(f"height {height} does not split over "
+                             f"{self.n_model} model ranks")
+        h = height // self.n_model
+        return slice(self.m * h, (self.m + 1) * h)
+
+    def index(self, shape: Sequence[int]) -> Tuple[slice, ...]:
+        """This rank's index into a global NHWC array of ``shape`` (what
+        pgx's ``devices_indices_map`` gives the device at ``(d, m)``)."""
+        return (self.batch_rows(shape[0]), self.height_rows(shape[1]),
+                slice(None), slice(None))
+
+    def __call__(self, x):
+        """This rank's part of a global batch ``x`` (an array or tensor)."""
+        return x[self.index(x.shape)]
+
+
+def spatial_batch_sharding(mesh: Mesh2D) -> SpatialSharding:
+    """``spatial`` mode's image placement for this rank of ``mesh`` (batch
+    over ``data``, H over ``model``)."""
+    return SpatialSharding(mesh.n_data, mesh.n_model, mesh.d, mesh.m)
 
 
 def use_spatial_sharding(resolution: int, n_model: int) -> bool:
@@ -404,3 +477,11 @@ def use_spatial_sharding(resolution: int, n_model: int) -> bool:
     n_model-ways is impossible — those stages fall back to batch-only
     sharding.  Powers of two make divisibility the whole condition."""
     return resolution % n_model == 0
+
+
+def spatial_active(mesh: Optional[Mesh2D], resolution: int) -> bool:
+    """Whether a stage at ``resolution`` splits its images over ``mesh``'s
+    model axis: spatial mode, a model axis, and ``use_spatial_sharding``
+    (otherwise the stage takes batch-only placement)."""
+    return (mesh is not None and mesh.mode == "spatial" and mesh.n_model > 1
+            and use_spatial_sharding(resolution, mesh.n_model))

@@ -44,6 +44,16 @@ Design notes (CUDA):
   ``n``.  As in pgx across hosts, an interrupt writes no emergency
   checkpoint then (the gather is a collective one process's signal cannot
   start).
+* ``model_parallel_mode='spatial'`` lays the ranks out as the same grid
+  with the state whole on every rank (pgx replicates it there).  At a
+  stage ``tp.use_spatial_sharding`` accepts, rank ``(d, m)`` reads the
+  stream of data position ``d`` (``batch / n_data`` rows a batch, seeded
+  ``seed + 104729 * d``, so the model ranks of a position read the same
+  images) and keeps its rows of H (``tp.spatial_batch_sharding``); at a
+  stage it refuses (shorter than the model axis) each rank reads its own
+  rows of the world, as above.  Host reads need no gather: rank 0 writes
+  checkpoints, grids and FID ticks from its whole state, and an interrupt
+  leaves an emergency checkpoint as without a model axis.
 """
 
 from __future__ import annotations
@@ -69,8 +79,7 @@ from pgx_torch.models.config import DiscriminatorConfig, GeneratorConfig
 from pgx_torch.models.generator import _state_dict_of
 from pgx_torch.parallel import collectives as coll
 from pgx_torch.parallel import tp
-from pgx_torch.parallel.distributed import (broadcast_obj, broadcast_state,
-                                            host_batch_slice)
+from pgx_torch.parallel.distributed import broadcast_obj, broadcast_state
 from pgx_torch.parallel.mesh import make_mesh_for_batch, replicate
 from pgx_torch.train.schedule import schedule_from_dict, schedule_to_dict
 from pgx_torch.train.wgan import (TrainConfig, draw_augment_sources,
@@ -84,10 +93,10 @@ from pgx_torch.utils.png import save_image_grid
 @dataclasses.dataclass
 class LoopConfig:
     """``pgx.train.loop.LoopConfig``, field for field.  ``model_parallel >
-    1`` shards the train state over a model axis of the process group's
-    ranks (``model_parallel_mode='channels'``; ``'spatial'`` is not ported
-    yet and raises ``NotImplementedError``; either needs ``use_mesh``,
-    pgx's ``ValueError`` otherwise).
+    1`` lays the process group's ranks out with a model axis of that many
+    ranks: the train state sharded over it (``model_parallel_mode=
+    'channels'``) or the images split over H across it (``'spatial'``);
+    either needs ``use_mesh``, pgx's ``ValueError`` otherwise.
     ``checkpoint_backend='orbax'`` keeps the full state in the port's
     step-indexed store (``pgx_torch.checkpoint.step_store``: asynchronous
     writes, atomic commits) in place of ``{iter}_state.pt``.  ``use_mesh``
@@ -136,14 +145,10 @@ class LoopConfig:
         if self.model_parallel > 1:
             if not self.use_mesh:
                 raise ValueError("model_parallel requires use_mesh=True")
-            if self.model_parallel_mode not in ("channels", "spatial"):
+            if self.model_parallel_mode not in tp.MODES:
                 raise ValueError(
                     f"unknown model_parallel_mode "
                     f"{self.model_parallel_mode!r} (channels|spatial)")
-            if self.model_parallel_mode == "spatial":
-                raise NotImplementedError(
-                    f"LoopConfig.model_parallel_mode='spatial' is "
-                    f"{tp.SPATIAL_SLICE}")
 
 
 def make_trial_dir(loop_cfg: LoopConfig) -> Tuple[str, str]:
@@ -203,6 +208,24 @@ def _auto_k(ms: float, gp_every: int) -> int:
         return 1
     base = min(base, max(1, int(5000.0 / max(ms, 1e-3))))
     return max(gp_every * max(1, base // gp_every), 1)
+
+
+def _stage_rows(mesh2: Optional[tp.Mesh2D], global_batch: int,
+                resolution: int, n_ranks: int, my_rank: int):
+    """What one rank reads at a stage: ``(rows a batch, the index its data
+    stream is seeded by, its rows of H or None, the ranks the global batch
+    splits over)``.  Its own rows of the world from its own stream, or at a
+    stage of spatial mode that ``tp.use_spatial_sharding`` accepts the
+    rows of its data position from that position's stream (the same
+    images on every model rank of it), cut to its rows of H."""
+    if not tp.spatial_active(mesh2, resolution):
+        if global_batch % n_ranks:
+            raise ValueError(f"global batch {global_batch} not divisible by "
+                             f"{n_ranks} ranks")
+        return global_batch // n_ranks, my_rank, None, n_ranks
+    place = tp.spatial_batch_sharding(mesh2)
+    return (global_batch // mesh2.n_data, mesh2.d,
+            place.height_rows(resolution), mesh2.n_data)
 
 
 def _load_newest_state(trial_dir: str, state):
@@ -374,20 +397,28 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         mesh_batch = math.gcd(mesh_batch, b)
     mesh = mesh2 = None
     if loop_cfg.use_mesh and loop_cfg.model_parallel > 1:
-        # the ranks as a (data, model) grid; the state is sharded below
-        mesh2 = tp.make_mesh_2d_for_batch(mesh_batch, loop_cfg.model_parallel,
-                                          group=group)
+        # the ranks as a (data, model) grid; in channels mode the state is
+        # sharded below
+        mesh2 = tp.make_mesh_2d_for_batch(
+            mesh_batch, loop_cfg.model_parallel, group=group,
+            mode=loop_cfg.model_parallel_mode)
     elif loop_cfg.use_mesh:
         # over several ranks it raises at launch, not when the offending
         # stage begins, unless the ranks divide every stage's batch
         mesh = make_mesh_for_batch(mesh_batch, devices=[dev], group=group)
     elif n_ranks > 1:
         raise ValueError("multi-process training requires use_mesh=True")
-    host_seed = loop_cfg.seed + 104729 * my_rank
-
-    def host_batch_for(global_batch: int) -> int:
-        """This rank's share of a (per-stage) global batch."""
-        return host_batch_slice(global_batch, group)[0]
+    def stage_stream(global_batch: int, resolution: int, step: int):
+        """This rank's batches at a stage (``_stage_rows``) and how many
+        ranks split the global batch."""
+        rank_batch, source, hs, batch_ranks = _stage_rows(
+            mesh2, global_batch, resolution, n_ranks, my_rank)
+        stream = batch_fn(dataset, rank_batch, resolution,
+                          seed=loop_cfg.seed + 104729 * source + step)
+        if hs is not None:
+            stream = ((np.ascontiguousarray(x[:, hs]), y)
+                      for x, y in stream)
+        return stream, batch_ranks
 
     state = init_train_state(gcfg, dcfg, tc, seed=loop_cfg.seed, device=dev)
     state["rng"] = torch.Generator(device=dev).manual_seed(loop_cfg.seed)
@@ -477,7 +508,7 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
 
         def draws(i, real):
             # the global batch's draws: every rank keeps its rows
-            z, eps = draw_z_eps(gcfg, real.shape[0] * n_ranks, rng,
+            z, eps = draw_z_eps(gcfg, real.shape[0] * batch_ranks, rng,
                                 dtype=real.dtype)
             return z, eps, (draw_augment_sources(rng)
                             if augment_cfg is not None else None)
@@ -524,6 +555,7 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
     img_count = 0
     gp_count = 0
     cur_batch = loop_cfg.batch_size
+    batch_ranks = n_ranks           # the ranks the stage's batch splits over
     t_log = time.time()
     # per log tick: cumulative seconds since this run started and the
     # window's img/s; appends across resumes
@@ -561,9 +593,9 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 if prefetcher is not None:
                     prefetcher.close()
                 cur_batch = stage_batch_for(st.step)
-                prefetcher = DevicePrefetcher(
-                    batch_fn(dataset, host_batch_for(cur_batch),
-                             st.resolution, seed=host_seed + st.step), dev)
+                stream, batch_ranks = stage_stream(cur_batch, st.resolution,
+                                                   st.step)
+                prefetcher = DevicePrefetcher(stream, dev)
                 current_res = st.resolution
                 measure.clear()
 
@@ -728,8 +760,9 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         # iteration it stopped; the state is whole here (interrupts land
         # between steps).  Not with a model axis: the gather is a
         # collective one process's signal cannot start (pgx's rule for a
-        # state sharded across hosts)
-        if is_main and not interrupts.in_step and mesh2 is None:
+        # state sharded across hosts); spatial mode's state is whole
+        if (is_main and not interrupts.in_step
+                and (mesh2 is None or mesh2.mode == "spatial")):
             it = int(state["iteration"])
             try:
                 save_full(it, state)

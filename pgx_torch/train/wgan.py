@@ -80,6 +80,23 @@ to this rank's block; Adam and the EMA run on the blocks; the whole
 parameters are released at the end (``pgx_torch.parallel.tp``).  A
 ``process_group`` is the ``(world, 1)`` grid of the same type, with nothing
 sharded: one reduction, ``tp.reduce_gradients``, serves both.
+
+With a ``mesh`` in spatial mode (``tp.Mesh2D.mode == 'spatial'``) the
+state is whole on every rank and rank ``(d, m)`` holds rows ``[m * H / n,
+(m + 1) * H / n)`` of the batch rows of data position ``d``; z, eps and the
+augmentation draws are the global batch's, sliced by ``d`` over
+``n_data``.  G and D run on the rows with halo exchanges (``rows=``), D
+gathers whole images before its head, the ADA pipe warps whole images
+(gather, pipe, split), the minibatch statistic and the controller's count
+run over the data group, the penalty's squared norms are summed over the
+model group.  Every model rank computes each loss alike, and the row
+collectives' backwards are their exact adjoints
+(``pgx_torch.parallel.collectives``), so each rank's gradient is its part
+of ``n_model`` times the gradient: averaged over the world they give pgx's
+gradients, and the penalty's input gradient (of D's scores summed, which
+every model rank differentiates) is taken of the sum over ``n_model``.  A
+stage ``tp.use_spatial_sharding`` refuses runs as the ``(world, 1)`` grid:
+each rank its own rows of the world.
 """
 
 from __future__ import annotations
@@ -104,7 +121,8 @@ from pgx_torch.models.discriminator import Discriminator, init_discriminator
 from pgx_torch.models.generator import (Generator, _state_dict_of,
                                         generator_apply, init_generator)
 from pgx_torch.parallel import tp
-from pgx_torch.parallel.collectives import rank, world_size
+from pgx_torch.parallel.collectives import (all_reduce_sum, gather_rows,
+                                            rank, split_rows, world_size)
 from pgx_torch.utils import resolve_device
 
 METRICS = ("d_loss", "grad_penalty", "real_score", "fake_score", "d_total",
@@ -370,7 +388,11 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
 
     ``mesh`` (a ``tp.Mesh2D``, in place of ``process_group``): the same
     over the grid's world group, on a state ``tp.shard_state`` sharded
-    over its model axis (module docstring)."""
+    over its model axis; in spatial mode on a whole state, ``real`` and
+    ``labels`` this rank's part under ``tp.spatial_batch_sharding`` (the
+    rows of its data position, its rows of H), or at a stage
+    ``tp.use_spatial_sharding`` refuses its rows of the world (module
+    docstring)."""
     if mesh is not None:
         if process_group is not None:
             raise ValueError("pass mesh= or process_group=, not both")
@@ -380,8 +402,19 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         group = process_group
         mesh = (tp.Mesh2D(1, 1) if group is None else
                 tp.Mesh2D(world_size(group), 1, rank(group), 0, group))
-    sharded = mesh.n_model > 1
+    spatial = tp.spatial_active(mesh, gcfg.resolution(step))
+    if mesh.mode == "spatial" and not spatial:
+        # batch-only placement: the (world, 1) grid, nothing sharded
+        mesh = tp.Mesh2D(mesh.world, 1, mesh.rank, 0, group, mode="spatial")
+    sharded = mesh.n_model > 1 and mesh.mode == "channels"
     world, me = mesh.world, mesh.rank
+    # spatial: the images' rows split over the model group, whose ranks
+    # share their batch rows: the batch is split over the data positions
+    rows = mesh if spatial else None
+    batch_ranks, batch_pos = ((mesh.n_data, mesh.d) if spatial
+                              else (world, me))
+    batch_group = ((mesh.data_group if mesh.n_data > 1 else None)
+                   if spatial else group)
     conditional = gcfg.conditioning != "none"
     fused = bool(tc.fused_g) and update_g
     lam = tc.lambda_gp * tc.gp_every
@@ -420,38 +453,46 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         bsz = real.shape[0]
         if group is not None:
             # the global batch's draws: this rank's rows
-            if z.shape[0] != bsz * world or eps.shape[0] != bsz * world:
+            n = bsz * batch_ranks
+            if z.shape[0] != n or eps.shape[0] != n:
                 raise ValueError(
                     f"with a process group z and eps are the global "
-                    f"batch's draws ({bsz} rows x {world} ranks), got "
-                    f"{z.shape[0]} and {eps.shape[0]}")
-            z = z[me * bsz:(me + 1) * bsz]
-            eps = eps[me * bsz:(me + 1) * bsz]
+                    f"batch's draws ({bsz} rows x {batch_ranks} ranks), "
+                    f"got {z.shape[0]} and {eps.shape[0]}")
+            z = z[batch_pos * bsz:(batch_pos + 1) * bsz]
+            eps = eps[batch_pos * bsz:(batch_pos + 1) * bsz]
 
         if augment_cfg is not None:
             if aug_draws is None or len(aug_draws) != 3:
                 raise ValueError("augment_cfg needs aug_draws: three draw "
                                  "sources (draw_augment_sources)")
             if group is not None:
-                aug_draws = [RankRows(d, me, world) for d in aug_draws]
+                aug_draws = [RankRows(d, batch_pos, batch_ranks)
+                             for d in aug_draws]
             ada_p = (state["ada"]["p"] if ada_cfg is not None
                      else torch.full((), augment_p, dtype=torch.float32,
                                      device=real.device))
             draws_real, draws_d_fake, draws_g_fake = aug_draws
+
+            def pipe(draws, img):
+                # spatial: the warp moves rows across the cut, so it runs
+                # on whole images, alike on every model rank
+                if rows is None:
+                    return augment_pipe(draws, img, augment_cfg, ada_p)
+                return split_rows(augment_pipe(
+                    draws, gather_rows(img, rows), augment_cfg, ada_p), rows)
             with torch.no_grad():
-                real = augment_pipe(draws_real, real, augment_cfg, ada_p)
+                real = pipe(draws_real, real)
             # every application of the pipe draws fresh transforms: the G
             # step redraws rather than optimize G against the one transform
             # D happened to see
-            aug_d_fake = lambda img: augment_pipe(draws_d_fake, img,
-                                                  augment_cfg, ada_p)
-            aug_g_fake = lambda img: augment_pipe(draws_g_fake, img,
-                                                  augment_cfg, ada_p)
+            aug_d_fake = lambda img: pipe(draws_d_fake, img)
+            aug_g_fake = lambda img: pipe(draws_g_fake, img)
         else:
             aug_d_fake = aug_g_fake = lambda img: img
 
         def g_apply(g_params):
-            kw = dict(step=step, alpha=alpha, fading=fading)
+            kw = dict(step=step, alpha=alpha, fading=fading, rows=rows)
             if g_params is None:
                 return generator_apply(gen, z, lab, **kw)
             return functional_call(gen, g_params, (z, lab), kw)
@@ -459,7 +500,8 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         def d_apply(img, d_params, groups=1):
             lab_c = None if lab is None else torch.cat([lab] * groups)
             kw = dict(step=step, alpha=alpha, fading=fading,
-                      stddev_groups=groups, stddev_group=group)
+                      stddev_groups=groups, stddev_group=batch_group,
+                      rows=rows)
             if d_params is None:
                 out = disc(img, lab_c, **kw)
             else:
@@ -483,8 +525,18 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         def norms_of(grad_x):
             acc = torch.promote_types(grad_x.dtype, torch.float32)
             gx = grad_x.to(acc)
-            return gx, torch.sqrt(torch.sum(torch.square(gx),
-                                            dim=(1, 2, 3)))
+            ssq = torch.sum(torch.square(gx), dim=(1, 2, 3))
+            if rows is not None:
+                # each rank's rows: the squared norm's partial sums
+                ssq = all_reduce_sum(ssq, mesh.model_group)
+            return gx, torch.sqrt(ssq)
+
+        def summed(scores):
+            # the scalar an input gradient is taken of; spatial: every
+            # model rank differentiates it, so each takes 1 / n_model
+            if rows is None:
+                return scores.sum()
+            return scores.sum() / mesh.n_model
 
         def penalty(norms):
             return lam * torch.mean(torch.square(norms - 1.0))
@@ -497,7 +549,8 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
             with _frozen(disc):
                 frozen = (None if d_params is None
                           else {n: p.detach() for n, p in d_params.items()})
-                grad_x, = torch.autograd.grad(d_apply(xh, frozen).sum(), xh)
+                grad_x, = torch.autograd.grad(summed(d_apply(xh, frozen)),
+                                              xh)
             gx, norms = norms_of(grad_x)
             gp_value = penalty(norms)
             coef = 2.0 * lam * (norms - 1.0) / (norms * bsz)
@@ -523,7 +576,7 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 fake_scores = scores[bsz:2 * bsz]
                 if apply_gp:
                     grad_x, = torch.autograd.grad(
-                        scores[2 * bsz:].sum(), x_hat, create_graph=True)
+                        summed(scores[2 * bsz:]), x_hat, create_graph=True)
                     gp = penalty(norms_of(grad_x)[1])
             else:
                 real_scores = d_apply(real, d_params)
@@ -533,7 +586,7 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 elif apply_gp:
                     x_hat.requires_grad_(True)
                     grad_x, = torch.autograd.grad(
-                        d_apply(x_hat, d_params).sum(), x_hat,
+                        summed(d_apply(x_hat, d_params)), x_hat,
                         create_graph=True)
                     gp = penalty(norms_of(grad_x)[1])
             real_drifted = (torch.mean(real_scores) - tc.drift
@@ -580,7 +633,7 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
 
         if augment_cfg is not None and ada_cfg is not None:
             state["ada"] = ada_update(state["ada"], real_logits, ada_cfg,
-                                      bsz * world, group=group)
+                                      bsz * batch_ranks, group=batch_group)
         # the probability actually applied: the controller's when ADA drives
         # it, the fixed augment_p when augmentation runs without a
         # controller (whose p stays 0 there)

@@ -272,8 +272,8 @@ def test_loop_config_refuses_unported_options(tmp_path, field, value):
     ``model_parallel`` is ported (channels mode): the config is accepted,
     and one process has too few ranks for a model axis of 2 (pgx's
     ``ValueError`` for too few devices, before anything trains); the
-    spatial mode raises, naming the next slice, and so does a model axis
-    without the mesh (pgx's ``ValueError``).  Two ranks train in
+    spatial mode is accepted too, and a model axis without the
+    mesh raises pgx's ``ValueError``.  Two ranks train in
     tests/test_torch_tp_loop.py."""
     if field == "model_parallel":
         assert LoopConfig(**{field: value}).model_parallel == value
@@ -281,8 +281,9 @@ def test_loop_config_refuses_unported_options(tmp_path, field, value):
                                              "divide the 1 available"):
             _loop(tmp_path, model_parallel=value)
         assert not os.listdir(tmp_path)
-        with pytest.raises(NotImplementedError, match="next slice"):
-            LoopConfig(model_parallel=value, model_parallel_mode="spatial")
+        assert LoopConfig(model_parallel=value,
+                          model_parallel_mode="spatial"
+                          ).model_parallel_mode == "spatial"
         with pytest.raises(ValueError, match="requires use_mesh"):
             LoopConfig(model_parallel=value, use_mesh=False)
         with pytest.raises(ValueError, match="unknown model_parallel_mode"):

@@ -56,6 +56,12 @@ def _free_port() -> int:
 def run_ranks(case: str, inp: dict, world: int = 2, timeout: int = 240):
     """Run ``case`` of the worker on ``world`` gloo ranks; their outputs,
     by rank.  A rank that fails fails the test with both ranks' output."""
+    return start_ranks(case, inp, world, timeout)()
+
+
+def start_ranks(case: str, inp: dict, world: int = 2, timeout: int = 240):
+    """``run_ranks``, started now: returns the function that waits for the
+    ranks and returns their outputs (the caller works meanwhile)."""
     d = tempfile.mkdtemp(prefix=f"ddp_{case}_")
     with open(os.path.join(d, "in.pkl"), "wb") as f:
         pickle.dump(inp, f)
@@ -65,23 +71,26 @@ def run_ranks(case: str, inp: dict, world: int = 2, timeout: int = 240):
         [sys.executable, WORKER, case, str(r), str(world), str(port), d],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    assert all(p.returncode == 0 for p in procs), "\n".join(
-        f"--- rank {r} (rc {p.returncode}) ---\n{log[-4000:]}"
-        for r, (p, log) in enumerate(zip(procs, logs)))
-    outs = []
-    for r in range(world):
-        with open(os.path.join(d, f"out{r}.pkl"), "rb") as f:
-            outs.append(pickle.load(f))
-    return outs
+
+    def finish():
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        assert all(p.returncode == 0 for p in procs), "\n".join(
+            f"--- rank {r} (rc {p.returncode}) ---\n{log[-4000:]}"
+            for r, (p, log) in enumerate(zip(procs, logs)))
+        outs = []
+        for r in range(world):
+            with open(os.path.join(d, f"out{r}.pkl"), "rb") as f:
+                outs.append(pickle.load(f))
+        return outs
+    return finish
 
 
 def _mesh2():
@@ -267,16 +276,16 @@ def test_mesh_helpers_match_pgx():
     assert tpar.broadcast_obj({"a": 1}) == {"a": 1}
     got = tpar.make_global_batch(one, {"x": x, "y": None})
     assert torch.equal(got["x"], torch.as_tensor(x)) and got["y"] is None
-    # tp.py's names: channels mode ported (tests/test_torch_tp*.py), the
-    # spatial mode's placement raising, naming the next slice
+    # tp.py's names: channels mode (tests/test_torch_tp*.py) and the
+    # spatial mode's placement (tests/test_torch_spatial*.py)
     grid = tpar.make_mesh_2d_for_batch(8, 1)
     assert (grid.shape, grid.world) == ({"data": 1, "model": 1}, 1)
     assert tpar.make_mesh_2d(1, 1) == grid
     assert tpar.shard_state(grid, {"x": 1}) == {"x": 1}
     assert tpar.state_shardings({"x": torch.zeros(4)}, grid) == {
         "x": ("model",)} and tpar.use_spatial_sharding(8, 2)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tpar.spatial_batch_sharding(grid)
+    assert tpar.spatial_batch_sharding(grid).index((8, 4, 4, 3)) == (
+        slice(0, 8), slice(0, 4), slice(None), slice(None))
     from pgx_torch.parallel.distributed import backend_for
     assert backend_for("cpu") == "gloo"
 

@@ -21,7 +21,7 @@ rule, the blocks, the grid.
   The port's refusal of a batch the world does not divide is its own (pgx
   shrinks the data axis inside one process).  ``use_spatial_sharding``
   against pgx's at resolutions 4-1024 and model axes 1-8;
-  ``spatial_batch_sharding`` raises, naming the next slice.
+  ``spatial_batch_sharding`` gives a rank its rows of H.
 * ``check_replica_consistency(mesh=)`` passes on the sharded state and
   names a replicated leaf one rank changed.
 """
@@ -174,8 +174,11 @@ def test_use_spatial_sharding_equals_pgx_and_spatial_raises():
         for n_model in range(1, 9):
             assert tp.use_spatial_sharding(res, n_model) == \
                 jtp.use_spatial_sharding(res, n_model), (res, n_model)
-    with pytest.raises(NotImplementedError, match="spatial.*next slice"):
-        tpar.spatial_batch_sharding(tp.Mesh2D(1, 2))
+    # the rank's rows of H (tests/test_torch_spatial.py holds the
+    # placement against pgx's)
+    place = tpar.spatial_batch_sharding(tp.Mesh2D(1, 2, 0, 1, mode="spatial"))
+    assert (place.batch_rows(4), place.height_rows(8)) == (slice(0, 4),
+                                                           slice(4, 8))
 
 
 @pytest.fixture(scope="module")

@@ -19,8 +19,9 @@ gathered.
 * At the end of every run the blocks are equal within each data group and
   the gathered state on every rank (``check_replica_consistency(mesh=)``).
 * The flagship family's trainer with ``--multihost --model-parallel 2``
-  trains on the two ranks; ``--model-parallel-mode spatial`` raises
-  ``NotImplementedError`` naming the next slice, and ``model_parallel=2``
+  trains on the two ranks; in one process ``--model-parallel-mode
+  spatial`` raises pgx's ``ValueError`` for too few devices (two ranks
+  train in tests/test_torch_spatial_cli.py), and ``model_parallel=2``
   without the mesh pgx's ``ValueError``, before anything trains.  Launched
   with each rank on a host of its own (case ``cli_hosts``), it raises pgx's
   "the model axis must not span hosts" on every rank.
@@ -178,7 +179,8 @@ def test_trainer_cli_with_model_parallel_2(tmp_path):
     # whole tensors: the generator's 3x3 convs at their full 8 channels
     assert saved["g"]["blocks.8.conv1.w"].shape == (3, 3, 8, 8)
     assert saved["opt_g"]["mu"]["blocks.8.conv1.w"].shape == (3, 3, 8, 8)
-    with pytest.raises(NotImplementedError, match="spatial.*next slice"):
+    with pytest.raises(ValueError, match="model_parallel=2 does not "
+                                         "divide the 1 available"):
         cli.main(CLI_ARGV + ["--model-parallel", "2",
                              "--model-parallel-mode", "spatial",
                              "--output", str(tmp_path / "spatial")])

@@ -287,6 +287,236 @@ def case_tp_step(inp, rank, world):
     return results
 
 
+def _row_errors(got, want, n, m):
+    """Max |got - want| over each class of this rank's rows (dim 1): the
+    true image edges, the cuts between ranks, the rows between."""
+    h = got.shape[1]
+    out = {}
+    for i in range(h):
+        if (m == 0 and i == 0) or (m == n - 1 and i == h - 1):
+            kind = "edge"
+        elif i == 0 or i == h - 1:
+            kind = "cut"
+        else:
+            kind = "interior"
+        err = float((got[:, i] - want[:, i]).abs().max())
+        out[kind] = max(out.get(kind, 0.0), err)
+    return out
+
+
+def _tile_ref(x, n, m, rows, fill):
+    """The haloed tile of rank m cut from the whole image ``x``."""
+    big, h = x.shape[1], x.shape[1] // n
+    lo, hi = m * h, (m + 1) * h
+    if fill == "none":
+        return x[:, max(lo - rows, 0):min(hi + rows, big)]
+    if fill == "zero":
+        top = torch.zeros_like(x[:, :rows])
+        bot = torch.zeros_like(x[:, :rows])
+    else:
+        top = x[:, :1].expand(-1, rows, -1, -1)
+        bot = x[:, -1:].expand(-1, rows, -1, -1)
+    return torch.cat([top, x, bot], dim=1)[:, lo:hi + 2 * rows]
+
+
+def _split_checks(mesh, inp):
+    """The row collectives and the split layers on ``mesh`` against the
+    same functions of whole images (every rank holds the whole inputs):
+    per check, the errors by row class (``_row_errors``) or a number."""
+    from pgx_torch.core import layers as L
+    from pgx_torch.models import zoo
+    from pgx_torch.models.discriminator import (Discriminator,
+                                                discriminator_apply)
+    from pgx_torch.models.generator import Generator, generator_apply
+    from pgx_torch.ops.resize import downsample2x, upsample2x
+    from pgx_torch.parallel import collectives as coll
+    n, m = mesh.n_model, mesh.m
+    mine = lambda t: coll.split_rows(t, mesh)
+    x_all = torch.from_numpy(inp["x"])
+    h = x_all.shape[1] // n
+    out = {}
+
+    def rand(shape, seed):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randn(shape, generator=g, dtype=x_all.dtype)
+
+    # -- halo_exchange: forward, backward, double backward, jvp ----------
+    for fill, rows in (("zero", 1), ("edge", 1), ("none", 1), ("zero", 2)):
+        name = f"halo_{fill}_{rows}"
+        wts = [rand(_tile_ref(x_all, n, r, rows, fill).shape, 100 + r)
+               for r in range(n)]
+        t_all = rand(x_all.shape, 7)
+        x = mine(x_all).requires_grad_(True)
+        w = wts[m].clone().requires_grad_(True)
+        y = coll.halo_exchange(x, mesh, rows, fill)
+        g, = torch.autograd.grad((y * w).sum(), x, create_graph=True)
+        v = rand(x.shape, 300 + m)
+        gw, = torch.autograd.grad((g * v).sum(), w)
+        with fwAD.dual_level():
+            tan = fwAD.unpack_dual(coll.halo_exchange(
+                fwAD.make_dual(x.detach(), mine(t_all)), mesh, rows,
+                fill)).tangent
+        xr = x_all.clone().requires_grad_(True)
+        loss = sum((_tile_ref(xr, n, r, rows, fill) * wts[r]).sum()
+                   for r in range(n))
+        gr, = torch.autograd.grad(loss, xr)
+        v_all = torch.cat([rand((x_all.shape[0], h) + x_all.shape[2:],
+                                300 + r) for r in range(n)], dim=1)
+        want = _tile_ref(x_all, n, m, rows, fill)
+        out[name] = {
+            "shape": tuple(y.shape),
+            "forward": float((y - want).abs().max()),
+            "backward": _row_errors(g, mine(gr), n, m),
+            "double_backward": float(
+                (gw - _tile_ref(v_all, n, m, rows, fill)).abs().max()),
+            "jvp": float((tan - _tile_ref(t_all, n, m, rows, fill))
+                         .abs().max())}
+
+    # -- gather_rows / split_rows -----------------------------------------
+    x = mine(x_all).requires_grad_(True)
+    wg = rand(x_all.shape, 11)
+    w = wg.clone().requires_grad_(True)
+    whole = coll.gather_rows(x, mesh)
+    g, = torch.autograd.grad((whole * w).sum(), x, create_graph=True)
+    v = rand(x.shape, 400 + m)
+    gg, = torch.autograd.grad((g * v).sum(), w)
+    v_all = torch.cat([rand(x.shape, 400 + r) for r in range(n)], dim=1)
+    with fwAD.dual_level():
+        tan = fwAD.unpack_dual(coll.gather_rows(fwAD.make_dual(
+            x.detach(), mine(wg)), mesh)).tangent
+    xs = x_all.clone().requires_grad_(True)
+    gs, = torch.autograd.grad((coll.split_rows(xs, mesh) * x).sum(), xs)
+    out["gather"] = {
+        "forward": float((whole - x_all).abs().max()),
+        # every rank differentiates the same whole: n_model times the
+        # gradient of its rows (the collectives' convention)
+        "backward": float((g - n * mine(wg)).abs().max()),
+        # the reduce-scatter's backward: the gather of the ranks'
+        # cotangents, each rank's part of the shared whole's gradient
+        "double_backward": float((gg - v_all).abs().max()),
+        "jvp": float((tan - wg).abs().max()),
+        "split_backward": float((gs - torch.cat([
+            x.detach() if r == m else torch.zeros_like(x)
+            for r in range(n)], dim=1)).abs().max())}
+
+    # -- the two forms of every collective, bit for bit --------------------
+    xm = mine(x_all)
+    first, last = xm[:, :1], xm[:, -1:]
+    up, down = (first if m > 0 else None), (last if m < n - 1 else None)
+    a = coll._exchange_gloo(mesh, up, down, first)
+    b = coll._exchange_p2p(mesh, up, down, first)
+    forms = all((u is None and v is None) or torch.equal(u, v)
+                for u, v in zip(a, b))
+    with mock.patch.object(coll, "_nccl", lambda group: True):
+        ga, ra = coll._gather_rows(mesh, xm), coll._reduce_scatter_rows(
+            mesh, wg)
+    gb, rb = coll._gather_rows(mesh, xm), coll._reduce_scatter_rows(mesh, wg)
+    out["forms_bitwise"] = (forms and torch.equal(ga, gb)
+                            and torch.equal(ra, rb))
+
+    # -- a 3x3 conv (cuDNN's route and C's), upsample2x, downsample2x -----
+    conv = L.EqualConv2d(x_all.shape[-1], 8, 3).to(x_all.dtype)
+    with torch.no_grad():
+        conv.w.copy_(rand(conv.w.shape, 21))
+        conv.b.copy_(rand(conv.b.shape, 22))
+    wy = rand(x_all.shape[:3] + (8,), 23)
+    cases = {
+        "conv3x3": lambda t, r: L._conv_step(conv, t, 1, True, 0.2,
+                                             fused=False, rows=r),
+        "upsample2x": lambda t, r: upsample2x(t, r),
+        "downsample2x": lambda t, r: downsample2x(t)}
+    for name, fn in cases.items():
+        x = mine(x_all).requires_grad_(True)
+        y = fn(x, mesh)
+        xr = x_all.clone().requires_grad_(True)
+        yr = fn(xr, None)
+        wo = rand(yr.shape, 31)
+        params = list(conv.parameters()) if name == "conv3x3" else []
+        got = torch.autograd.grad((y * mine(wo)).sum(), [x] + params)
+        want = torch.autograd.grad((yr * wo).sum(), [xr] + params)
+        out[name] = {"forward": _row_errors(y, mine(yr), n, m),
+                     "backward": _row_errors(got[0], mine(want[0]), n, m)}
+        if params:
+            # each rank's weight gradient is its rows' part: summed over
+            # the model group, the whole image's
+            parts = [coll.all_reduce_sum(t, mesh.model_group)
+                     for t in got[1:]]
+            out[name]["weights"] = max(float((p - q).abs().max())
+                                       for p, q in zip(parts, want[1:]))
+    # kernel C's route (its plain version here), f32 on haloed tiles
+    x32 = x_all.float()
+    c32 = L.EqualConv2d(x_all.shape[-1], 8, 3)
+    c32.load_state_dict({k: v.float() for k, v in conv.state_dict().items()})
+    y = L._conv_step(c32, mine(x32), 1, True, 0.2, fused=True, rows=mesh)
+    yr = L._conv_step(c32, x32, 1, True, 0.2, fused=True)
+    out["conv3x3_c"] = {"forward": _row_errors(y, mine(yr), n, m)}
+
+    # -- G and D of the tiny pair, fading, split against whole -------------
+    gcfg = zoo.conditional_correct_generator(**inp["gkw"])
+    dcfg = zoo.conditional_correct_discriminator_wgangp(**inp["dkw"])
+    gen = Generator.from_jax_params(gcfg, inp["g"], "cpu")
+    disc = Discriminator.from_jax_params(dcfg, inp["d"], "cpu")
+    z, lab = torch.from_numpy(inp["z"]), torch.from_numpy(inp["labels"])
+    kw = dict(step=inp["step"], alpha=0.3, fading=True)
+    img = generator_apply(gen, z, lab, rows=mesh, **kw)
+    img_r = generator_apply(gen, z, lab, **kw)
+    out["generator"] = _row_errors(img, mine(img_r), n, m)
+    score = discriminator_apply(disc, mine(img_r), lab, rows=mesh, **kw)
+    score_r = discriminator_apply(disc, img_r, lab, **kw)
+    out["discriminator"] = float((score - score_r).abs().max())
+    return out
+
+
+def case_spatial(inp, rank, world):
+    """Spatial mode on the ``world`` ranks: the row collectives and the
+    split layers on the (1, world) grid and, at world 4, on the (2, 2) grid
+    (``units``), and WGAN-GP iterations of the port on the (1, world) grid
+    (``variants``): the state whole on every rank, each rank the rows of
+    its data position and its rows of H, the global draws handed in."""
+    from pgx_torch.augment import AdaConfig, bgc_config
+    from pgx_torch.models import zoo
+    from pgx_torch.parallel import tp
+    from pgx_torch.parallel.stats import check_replica_consistency
+    from pgx_torch.train import TrainConfig, make_train_step
+    meshes = {(1, world): tp.make_mesh_2d(1, world, mode="spatial")}
+    if world == 4:
+        meshes[(2, 2)] = tp.make_mesh_2d(2, 2, mode="spatial")
+    out = {}
+    if inp.get("units"):
+        out["units"] = {grid: _split_checks(mesh, inp["units"])
+                        for grid, mesh in meshes.items()}
+    mesh = meshes[(1, world)]
+    place = tp.spatial_batch_sharding(mesh)
+    out["grid"] = (mesh.n_data, mesh.n_model, mesh.d, mesh.m, mesh.mode)
+    gcfg = zoo.conditional_correct_generator(**inp["gkw"])
+    dcfg = zoo.conditional_correct_discriminator_wgangp(**inp["dkw"])
+    for name, var in inp.get("variants", {}).items():
+        tc = TrainConfig(**var["tc"])
+        state = _state_from(gcfg, dcfg, tc, var["state"])
+        kw = {}
+        if var["ada"]:
+            kw = dict(augment_cfg=bgc_config(),
+                      ada_cfg=AdaConfig(**var["ada"]))
+        metrics = []
+        for it in var["iterations"]:
+            step = make_train_step(gcfg, dcfg, tc, step=var["step"],
+                                   fading=False, apply_gp=it["apply_gp"],
+                                   mesh=mesh, **kw)
+            aug = (None if it["aug"] is None
+                   else [ReplayDraws(a) for a in it["aug"]])
+            labels = it["labels"][place.batch_rows(len(it["labels"]))]
+            state, m = step(
+                state, torch.from_numpy(place(it["real"])),
+                torch.from_numpy(labels), 1.0,
+                z=torch.from_numpy(it["z"]), eps=torch.from_numpy(it["eps"]),
+                aug_draws=aug)
+            metrics.append({k: float(v) for k, v in m.items()})
+        # the state is whole and the same on every rank, bit for bit
+        check_replica_consistency(state, label=name, group=WORLD)
+        out[name] = {"metrics": metrics, "state": _flat_state(state)}
+    return out
+
+
 def _error(fn, *args):
     """``fn(*args)``'s ValueError message (None when it returns)."""
     try:
@@ -506,15 +736,31 @@ def broadcast_trial(trial):
     return broadcast_obj(trial)
 
 
+def cut_loop_config(total):
+    """``loop_config_from_args`` patched to stop the run at ``total``
+    iterations (a context manager)."""
+    import dataclasses
+    from pgx_torch.cli import common
+    original = common.loop_config_from_args
+    return mock.patch.object(
+        common, "loop_config_from_args",
+        lambda args, **kw: dataclasses.replace(original(args, **kw),
+                                               total_iterations=total))
+
+
 def case_cli(inp, rank, world):
-    """A family trainer with --multihost: it joins the group itself."""
+    """A family trainer with --multihost: it joins the group itself
+    (stopped at ``inp['total']`` iterations when given)."""
+    import contextlib
     from pgx_torch.cli import conditional_proper_cifar_train as cli
     root = inp["root"] if rank == 0 else inp["root1"]
     argv = inp["argv"] + ["--output", root, "--multihost",
                           "--coordinator-address", inp["address"],
                           "--num-processes", str(world),
                           "--process-id", str(rank)]
-    trial = cli.main(argv)
+    with (cut_loop_config(inp["total"]) if inp.get("total")
+          else contextlib.nullcontext()):
+        trial = cli.main(argv)
     files = sorted(os.path.relpath(os.path.join(d, f), root)
                    for d, _, fs in os.walk(root) for f in fs)
     return {"trial": trial, "files": files,
