@@ -1,0 +1,4 @@
+"""cudnn_conv_ms.train (ms): ``readers.conv_ms``, a training iteration,
+in the cells that report ``train_img_per_s``."""
+
+from perfbench.lib.readers import conv_ms as read  # noqa: F401
