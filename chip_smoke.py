@@ -1637,9 +1637,11 @@ def profile_iteration(torch, run, reps: int = 2):
              "upsample / interpolate": ("upsample_bilinear",)}
     by_part = {k: 0.0 for k in [*parts, "elementwise and reductions",
                                 "other"]}
+    # less the ranges themselves and the program's spans, which the
+    # profiler mirrors on the device's timeline as user annotations
     device_events = [ev for ev in prof.events()
                      if ev.device_type == DeviceType.CUDA
-                     and ev.name not in ranges]      # the ranges themselves
+                     and ev.name not in ranges and not ev.is_user_annotation]
     for ev in device_events:
         name = ev.name.lower()
         part = next((k for k, pats in parts.items()
@@ -2250,6 +2252,8 @@ def profile_ada_iteration(torch, run, reps: int = 2):
         ms = ev.time_range.elapsed_us() / 1e3 / reps
         if ev.name == "augment_pipe_forward":
             pipe_ms += ms
+            continue
+        if ev.is_user_annotation:       # the program's spans
             continue
         if any(lo <= ev.time_range.start <= hi for lo, hi in pipe_ranges):
             pipe_kernels += 1
@@ -3473,7 +3477,8 @@ def profile_group(torch, run) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    dev = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    dev = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA
+           and not ev.is_user_annotation]       # less the program's spans
     kernel_ms = sum(ev.time_range.elapsed_us() for ev in dev) / 1e3
     host_ops = {ev.name for ev in prof.events()
                 if ev.device_type == DeviceType.CPU}

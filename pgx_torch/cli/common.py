@@ -4,6 +4,8 @@
 The flags are ``pgx``'s, plus ``--device`` (``cuda`` unless the caller asks
 for ``cpu``); ``--compile-cache`` has no counterpart.
 ``--checkpoint-backend orbax`` selects the port's step-indexed store.
+``--spans PATH`` records the run's spans (``pgx_torch.utils.trace``) and
+writes them to PATH at exit.
 ``--multihost`` runs one process per rank (``maybe_init_multihost``);
 with it ``--model-parallel N`` lays the ranks out as a (world / N, N) grid
 and shards the train state over its model axis (``pgx_torch.parallel.tp``),
@@ -18,6 +20,7 @@ import argparse
 from pgx_torch.data import load_cifar10, load_mnist, load_sklearn_digits, \
     synthetic_dataset
 from pgx_torch.train.loop import train_loop
+from pgx_torch.utils import trace
 
 
 def _steps_per_call(value: str) -> int:
@@ -149,6 +152,10 @@ def add_common_args(p: argparse.ArgumentParser,
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: cuda)")
+    p.add_argument("--spans", type=str, default=None, metavar="PATH",
+                   help="record the run's spans (data waits, checkpoints, "
+                        "grids, the step's phases) and write them to PATH "
+                        "at exit as a Chrome trace (pgx_torch.utils.trace)")
     return p
 
 
@@ -315,11 +322,12 @@ def run_trainer(args, gcfg, dcfg, schedule, dataset, batch_fn=None,
     ``array_batches``).  Returns the trial directory."""
     augment_cfg, ada_cfg, augment_p = ada_configs_from_args(args)
     kw = {} if batch_fn is None else {"batch_fn": batch_fn}
-    trial_dir = train_loop(gcfg, dcfg, train_config_from_args(args),
-                           schedule, dataset,
-                           loop_config_from_args(args, **loop_extra),
-                           resume_dir=args.resume, augment_cfg=augment_cfg,
-                           ada_cfg=ada_cfg, augment_p=augment_p,
-                           device=args.device, **kw)
+    with trace.recording_to(args.spans):
+        trial_dir = train_loop(gcfg, dcfg, train_config_from_args(args),
+                               schedule, dataset,
+                               loop_config_from_args(args, **loop_extra),
+                               resume_dir=args.resume,
+                               augment_cfg=augment_cfg, ada_cfg=ada_cfg,
+                               augment_p=augment_p, device=args.device, **kw)
     print(f"done: {trial_dir}")
     return trial_dir

@@ -7,7 +7,8 @@ device (counterpart of ``pgx/cli/serve.py``; design in pgx_torch/serve.py).
 
 ``--watch 30`` polls the trial for newer checkpoints every 30s and swaps
 them in live — point it at a trial that is still training.  ``--device cpu``
-runs the plain PyTorch versions of the kernels on the CPU.
+runs the plain PyTorch versions of the kernels on the CPU.  ``--spans
+PATH`` records every request's spans and writes them to PATH at exit.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import argparse
 
 from pgx_torch.serve import GeneratorService, make_http_server
+from pgx_torch.utils import trace
 
 
 def main(argv=None):
@@ -41,8 +43,16 @@ def main(argv=None):
                         "'none' = lazy")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default: cuda)")
+    p.add_argument("--spans", default=None, metavar="PATH",
+                   help="record every request's spans (queue, batch, fetch, "
+                        "request) and write them to PATH at exit as a "
+                        "Chrome trace (pgx_torch.utils.trace)")
     args = p.parse_args(argv)
+    with trace.recording_to(args.spans):
+        serve(args)
 
+
+def serve(args) -> None:
     service = GeneratorService(args.trial, checkpoint=args.checkpoint,
                                max_batch=args.max_batch,
                                max_wait_ms=args.max_wait_ms,

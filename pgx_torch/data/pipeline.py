@@ -20,7 +20,7 @@ import torch
 
 from pgx_torch import native
 from pgx_torch.data.datasets import ArrayDataset, ImageFolderDataset
-from pgx_torch.utils import resolve_device
+from pgx_torch.utils import resolve_device, trace
 
 
 def normalize_to_unit(images_u8: np.ndarray) -> np.ndarray:
@@ -133,7 +133,8 @@ class DevicePrefetcher:
     on it, so the caching allocator does not reuse their memory while the
     step still reads them.  On the CPU the batches are wrapped as tensors.
     An exception in the worker is raised in the consumer; ``close()`` stops
-    the worker.  ``wait_s`` sums the time ``__next__`` waited for a batch.
+    the worker.  ``wait_s`` sums the time ``__next__`` waited for a batch
+    (each wait a ``data.wait`` span, ``pgx_torch.utils.trace``).
     """
 
     _SENTINEL = object()
@@ -200,9 +201,10 @@ class DevicePrefetcher:
         return self
 
     def __next__(self):
-        t0 = time.perf_counter()
-        item = self._q.get()
-        self.wait_s += time.perf_counter() - t0
+        with trace.span("data.wait"):
+            t0 = time.perf_counter()
+            item = self._q.get()
+            self.wait_s += time.perf_counter() - t0
         if item is self._SENTINEL:
             if self._error is not None:
                 raise RuntimeError(

@@ -20,11 +20,26 @@ the port's CUDA kernels.  Serving it well is mostly a batching problem:
   multiple of n, split into n row chunks that are enqueued on their devices
   without waiting, and gathered on the first (``pgx``'s batch-sharded
   mesh, laid out as one process over n devices).
+
+``stats()`` counts requests, images, batches and the images batched, and
+keeps two cumulative histograms (``HIST_EDGES_MS``: 20 buckets a decade
+from 0.1 ms to 10 s) of each request's latency (submit to result) and queue
+wait (submit to the start of its batch), on the monotonic clock: the
+difference of two snapshots gives a window's percentiles
+(``percentile_ms``).  Spans
+(``pgx_torch.utils.trace``, recorded under a profiler or after
+``trace.enable()``) share each request's id: ``serve.queue`` (submit to its
+batch's start), ``serve.batch`` (packing, upload, G and the queued fetch, on
+the batcher's thread), ``serve.fetch`` (the wait for the batch's copy and
+the copy out, on a fetch thread) and ``serve.request`` (submit to result).
 """
 
 from __future__ import annotations
 
+import bisect
+import itertools
 import json
+import math
 import threading
 import time
 import queue
@@ -41,7 +56,7 @@ from pgx_torch.models.generator import Generator
 from pgx_torch.parallel import mesh as pmesh
 from pgx_torch.train.schedule import ScheduleState, schedule_from_dict
 from pgx_torch.train.wgan import make_eval_generate
-from pgx_torch.utils import resolve_device
+from pgx_torch.utils import resolve_device, trace
 from pgx_torch.utils.png import encode_png, make_grid
 
 
@@ -60,11 +75,45 @@ def _bucket(n: int, max_batch: int) -> int:
     return min(b, max_batch)
 
 
+# the buckets' edges of the latency histograms: 20 a decade, 0.1 ms - 10 s
+HIST_EDGES_MS = tuple(0.1 * 10 ** (i / 20) for i in range(101))
+_EDGES_NS = tuple(round(e * 1e6) for e in HIST_EDGES_MS)
+
+
+def _count(counts: list, ns: int) -> None:
+    """One duration into its bucket: 0 below the first edge, k between
+    edges k - 1 and k, the last at or above the last edge."""
+    counts[bisect.bisect_right(_EDGES_NS, ns)] += 1
+
+
+def percentile_ms(counts, q: float) -> Optional[float]:
+    """The ``q`` quantile (0 < q <= 1, nearest rank) of the durations a
+    histogram of ``stats()`` counts, or of the difference of two snapshots
+    of it (a window): the geometric middle of the bucket holding it (the
+    edge, for the two open buckets at the ends); None when it is empty."""
+    total = sum(counts)
+    if not total:
+        return None
+    rank, seen = max(1, math.ceil(q * total)), 0
+    for k, c in enumerate(counts):
+        seen += c
+        if seen >= rank:
+            break
+    if k == 0:
+        return HIST_EDGES_MS[0]
+    if k == len(HIST_EDGES_MS):
+        return HIST_EDGES_MS[-1]
+    return math.sqrt(HIST_EDGES_MS[k - 1] * HIST_EDGES_MS[k])
+
+
 @dataclass
 class _Request:
     z: np.ndarray                      # (n, z_dim) float32
     labels: Optional[np.ndarray]       # (n,) int32 or None
     future: Future
+    id: int
+    t_submit: int                      # ns, trace.now(): the spans' clock
+    m_submit: int                      # ns, time.monotonic_ns(): the stats'
 
 
 class GeneratorService:
@@ -138,7 +187,11 @@ class GeneratorService:
 
         self._stats = {"requests": 0, "images": 0, "batches": 0,
                        "batched_images": 0, "reloads": 0}
-        self._latencies = []                 # last N request latencies (s)
+        # cumulative, under _lock: submit -> result, submit -> batch start
+        self._latency = [0] * (len(_EDGES_NS) + 1)
+        self._queue_wait = [0] * (len(_EDGES_NS) + 1)
+        self._request_ids = itertools.count()
+        self._batch_ids = itertools.count()
 
         # Dispatch/fetch pipeline: the batcher thread only coalesces and
         # launches (uploads, kernels and the result's copy back are all
@@ -287,11 +340,37 @@ class GeneratorService:
                 req.future.set_exception(RuntimeError("service closed"))
 
     def _run_batch(self, batch, total: int) -> None:
-        t0 = time.monotonic()
+        t0, m0 = trace.now(), time.monotonic_ns()
+        bid = next(self._batch_ids)
         padded = _bucket(total, self.max_batch)
         if self._mesh is not None:     # a multiple of the mesh's devices
             dp = len(self._mesh.devices)
             padded = ((max(padded, dp) + dp - 1) // dp) * dp
+        bspan = trace.IDLE
+        if trace.active():
+            for r in batch:
+                trace.record("serve.queue", r.t_submit, t0, request=r.id,
+                             batch=bid)
+            bspan = trace.span("serve.batch", batch=bid,
+                               requests=[r.id for r in batch], images=total,
+                               padded=padded)
+        with bspan:
+            fetched = self._launch(batch, total, padded)
+        if fetched is None:
+            return
+        # hand the pending copy to the fetch pool; the batcher is
+        # immediately free to coalesce + launch the next batch
+        args = (fetched, batch, total, m0, bid, bspan.id)
+        try:
+            self._resolver.submit(self._resolve, *args)
+        except RuntimeError:
+            # close() abandoned the join and shut the fetch pool: resolve
+            # inline so these futures still complete instead of hanging
+            self._resolve(*args)
+
+    def _launch(self, batch, total: int, padded: int):
+        """Pack, upload, run G and queue the copy back; the pending copy,
+        or None when the launch failed (its requests fail with it)."""
         z = np.concatenate([r.z for r in batch])
         if padded > total:
             z = np.concatenate(
@@ -315,20 +394,12 @@ class GeneratorService:
                     self._mesh, lambda g, zc, lc: gen(g, zc, lc,
                                                       float(alpha)),
                     params, z_dev, lab_dev)
-            fetched = self._start_fetch(out)
+            return self._start_fetch(out)
         except Exception as exc:           # launch-time failure
             self._inflight.release()
             for r in batch:
                 r.future.set_exception(exc)
-            return
-        # hand the pending copy to the fetch pool; the batcher is
-        # immediately free to coalesce + launch the next batch
-        try:
-            self._resolver.submit(self._resolve, fetched, batch, total, t0)
-        except RuntimeError:
-            # close() abandoned the join and shut the fetch pool: resolve
-            # inline so these futures still complete instead of hanging
-            self._resolve(fetched, batch, total, t0)
+            return None
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
@@ -352,34 +423,42 @@ class GeneratorService:
         done.record()
         return host, done
 
-    def _resolve(self, fetched, batch, total: int, t0: float) -> None:
+    def _resolve(self, fetched, batch, total: int, m0: int, bid: int,
+                 parent: Optional[int]) -> None:
         try:
             try:
-                host, done = fetched
-                if done is None:
-                    images = host.numpy()[:total]
-                else:
-                    done.synchronize()
-                    # copy out, so the pinned buffer goes back to the
-                    # allocator's cache instead of living on in the results
-                    images = host.numpy()[:total].copy()
+                with trace.span("serve.fetch", parent=parent, batch=bid):
+                    host, done = fetched
+                    if done is None:
+                        images = host.numpy()[:total]
+                    else:
+                        done.synchronize()
+                        # copy out, so the pinned buffer goes back to the
+                        # allocator's cache instead of living on in the
+                        # results
+                        images = host.numpy()[:total].copy()
             except Exception as exc:       # device faults surface here
                 for r in batch:
                     r.future.set_exception(exc)
                 return
-            dt = time.monotonic() - t0
+            t_done, m_done = trace.now(), time.monotonic_ns()
             # count the batch before any client sees its result, so stats
             # read after a result always include the batch that made it
             with self._lock:
                 self._stats["batches"] += 1
                 self._stats["batched_images"] += total
-                self._latencies.append(dt)
-                del self._latencies[:-512]
+                for r in batch:
+                    _count(self._latency, m_done - r.m_submit)
+                    _count(self._queue_wait, m0 - r.m_submit)
             lo = 0
             for r in batch:
                 n = r.z.shape[0]
                 r.future.set_result(images[lo:lo + n])
                 lo += n
+            if trace.active():
+                for r in batch:
+                    trace.record("serve.request", r.t_submit, t_done,
+                                 request=r.id, batch=bid)
         finally:
             self._inflight.release()
 
@@ -410,6 +489,7 @@ class GeneratorService:
                 raise ValueError(
                     f"labels must be in [0, {self.gcfg.num_classes})")
         fut = Future()
+        t_submit, m_submit = trace.now(), time.monotonic_ns()
         # the closed-check and the put must be atomic with close() (which
         # flips _closed and enqueues the sentinel under the same lock) —
         # otherwise a request can slip in after the batcher drained and its
@@ -421,7 +501,8 @@ class GeneratorService:
             self._stats["images"] += z.shape[0]
             self._queue.put(_Request(z,
                                      labels if self.conditional else None,
-                                     fut))
+                                     fut, next(self._request_ids), t_submit,
+                                     m_submit))
         return fut
 
     def generate_images(self, num: int, labels=None, class_id=None,
@@ -461,15 +542,22 @@ class GeneratorService:
         return images
 
     def stats(self) -> dict:
+        """The counters since the service started; ``latency_p50_ms`` and
+        ``latency_p95_ms`` (submit to result), ``queue_wait_p50_ms`` and
+        ``queue_wait_p95_ms`` (submit to the batch's start) from the
+        histograms, which ``latency_hist`` holds whole (None while no
+        request has resolved)."""
         with self._lock:
             s = dict(self._stats)
-            lats = sorted(self._latencies)
+            latency, wait = list(self._latency), list(self._queue_wait)
         s["mean_batch_fill"] = (s["batched_images"] / s["batches"]
                                 if s["batches"] else 0.0)
-        if lats:
-            s["latency_p50_ms"] = 1e3 * lats[len(lats) // 2]
-            s["latency_p95_ms"] = 1e3 * lats[min(len(lats) - 1,
-                                                 int(len(lats) * 0.95))]
+        s["latency_p50_ms"] = percentile_ms(latency, 0.5)
+        s["latency_p95_ms"] = percentile_ms(latency, 0.95)
+        s["queue_wait_p50_ms"] = percentile_ms(wait, 0.5)
+        s["queue_wait_p95_ms"] = percentile_ms(wait, 0.95)
+        s["latency_hist"] = {"edges_ms": list(HIST_EDGES_MS),
+                             "request": latency, "queue_wait": wait}
         s.update(iteration=self.iteration, step=self.state.step,
                  resolution=self.state.resolution,
                  alpha=float(self.state.alpha),

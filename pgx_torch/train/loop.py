@@ -54,6 +54,11 @@ Design notes (CUDA):
   rows of the world, as above.  Host reads need no gather: rank 0 writes
   checkpoints, grids and FID ticks from its whole state, and an interrupt
   leaves an emergency checkpoint as without a model axis.
+
+Spans (``pgx_torch.utils.trace``): ``loop.checkpoint`` around each
+checkpoint write, ``loop.grid`` around each sample grid, ``loop.fid``
+around each FID tick, beside the prefetcher's ``data.wait`` and the step's
+own (``train.*``).
 """
 
 from __future__ import annotations
@@ -86,7 +91,7 @@ from pgx_torch.train.wgan import (TrainConfig, draw_augment_sources,
                                   draw_z_eps, init_train_state,
                                   make_eval_generate, make_train_multi_step,
                                   make_train_step)
-from pgx_torch.utils import resolve_device
+from pgx_torch.utils import resolve_device, trace
 from pgx_torch.utils.png import save_image_grid
 
 
@@ -433,17 +438,18 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         alone writes: the state is replicated, or with a model axis
         gathered whole on every rank first (a collective)."""
         nonlocal store
-        if mesh2 is not None:
-            current_state = tp.gather_state(mesh2, current_state)
-        if not is_main:
-            return
-        ckpt.save_checkpoint(trial_dir, it, current_state,
-                             full_state=loop_cfg.keep_full_state
-                             and not use_store)
-        if use_store and loop_cfg.keep_full_state:
-            if store is None:
-                store = StepStateStore(trial_dir)
-            store.save(it, current_state)
+        with trace.span("loop.checkpoint", iteration=it):
+            if mesh2 is not None:
+                current_state = tp.gather_state(mesh2, current_state)
+            if not is_main:
+                return
+            ckpt.save_checkpoint(trial_dir, it, current_state,
+                                 full_state=loop_cfg.keep_full_state
+                                 and not use_store)
+            if use_store and loop_cfg.keep_full_state:
+                if store is None:
+                    store = StepStateStore(trial_dir)
+                store.save(it, current_state)
 
     if resume_dir is not None:
         trial_dir = resume_dir.rstrip("/")
@@ -691,12 +697,13 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 if gkey not in gen_cache:
                     gen_cache[gkey] = make_eval_generate(
                         gcfg, step=st.step, fading=st.fading)
-                images = gen_cache[gkey](g_ema, sample_z,
-                                         sample_labels, alpha)
-                save_image_grid(
-                    os.path.join(trial_dir, "sample",
-                                 f"{str(it).zfill(3)}.png"),
-                    images.float().cpu().numpy(), nrow=sample_nrow)
+                with trace.span("loop.grid", iteration=it):
+                    images = gen_cache[gkey](g_ema, sample_z,
+                                             sample_labels, alpha)
+                    save_image_grid(
+                        os.path.join(trial_dir, "sample",
+                                     f"{str(it).zfill(3)}.png"),
+                        images.float().cpu().numpy(), nrow=sample_nrow)
 
             if it % loop_cfg.checkpoint_every == 0 or i == start_iter:
                 try:
@@ -706,7 +713,8 @@ def train_loop(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
 
             if fid_hook is not None and fid_now:
                 try:
-                    fid = fid_hook.score(trial_dir, it, g_ema, st)
+                    with trace.span("loop.fid", iteration=it):
+                        fid = fid_hook.score(trial_dir, it, g_ema, st)
                     if loop_cfg.verbose:
                         print(f"{it}; FID: {fid:.4f} "
                               f"(res {st.resolution})", flush=True)

@@ -97,6 +97,18 @@ gradients, and the penalty's input gradient (of D's scores summed, which
 every model rank differentiates) is taken of the sum over ``n_model``.  A
 stage ``tp.use_spatial_sharding`` refuses runs as the ``(world, 1)`` grid:
 each rank its own rows of the world.
+
+Spans (``pgx_torch.utils.trace``, recorded under a profiler or after
+``trace.enable()``) mark the phases of each iteration: ``train.iteration``
+around it, ``train.ada_pipe`` around each forward application of the pipe
+(``which``: ``real``, ``d_fake``, ``g_fake``), ``train.d_step`` (the fake
+pass that feeds D, D's loss and its gradients), ``train.penalty`` inside it
+(D on x_hat, the input gradient and its norms; under ``d_concat``, whose
+joint pass scores x_hat outside it, the input gradient and its norms alone;
+the jvp form whole), ``train.g_step``
+(G's loss and gradients) and ``train.optimizer`` (Adam, and for G the EMA);
+a window adds ``train.draws`` around the caller's ``draws(j, real)``.  None
+sits inside a checkpoint region, so a recomputation records nothing.
 """
 
 from __future__ import annotations
@@ -123,7 +135,7 @@ from pgx_torch.models.generator import (Generator, _state_dict_of,
 from pgx_torch.parallel import tp
 from pgx_torch.parallel.collectives import (all_reduce_sum, gather_rows,
                                             rank, split_rows, world_size)
-from pgx_torch.utils import resolve_device
+from pgx_torch.utils import resolve_device, trace
 
 METRICS = ("d_loss", "grad_penalty", "real_score", "fake_score", "d_total",
            "ada_p", "ada_r", "g_loss")
@@ -430,21 +442,24 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         return _cast(module, dtype, detach)
 
     def train_step(state, real, labels, alpha, *, z, eps, aug_draws=None):
-        if not sharded:
-            return step_body(state, real, labels, alpha, z, eps, aug_draws)
-        gen, disc = state["g"], state["d"]
-        if not (tp.sharded_names(gen) and tp.sharded_names(disc)):
-            raise ValueError("a mesh with a model axis needs a state that "
-                             "tp.shard_state sharded")
-        # the blocks at rest are the master weights; the whole parameters
-        # live for this step only
-        blocks = tp.unshard_(mesh, (gen, disc))
-        try:
-            return step_body(state, real, labels, alpha, z, eps, aug_draws,
-                             blocks)
-        finally:
-            tp.reshard_(gen, blocks[0])
-            tp.reshard_(disc, blocks[1])
+        with trace.span("train.iteration", iteration=state["iteration"],
+                        penalty=apply_gp):
+            if not sharded:
+                return step_body(state, real, labels, alpha, z, eps,
+                                 aug_draws)
+            gen, disc = state["g"], state["d"]
+            if not (tp.sharded_names(gen) and tp.sharded_names(disc)):
+                raise ValueError("a mesh with a model axis needs a state "
+                                 "that tp.shard_state sharded")
+            # the blocks at rest are the master weights; the whole
+            # parameters live for this step only
+            blocks = tp.unshard_(mesh, (gen, disc))
+            try:
+                return step_body(state, real, labels, alpha, z, eps,
+                                 aug_draws, blocks)
+            finally:
+                tp.reshard_(gen, blocks[0])
+                tp.reshard_(disc, blocks[1])
 
     def step_body(state, real, labels, alpha, z, eps, aug_draws,
                   blocks=({}, {})):
@@ -474,20 +489,22 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                                      device=real.device))
             draws_real, draws_d_fake, draws_g_fake = aug_draws
 
-            def pipe(draws, img):
+            def pipe(draws, img, which):
                 # spatial: the warp moves rows across the cut, so it runs
                 # on whole images, alike on every model rank
-                if rows is None:
-                    return augment_pipe(draws, img, augment_cfg, ada_p)
-                return split_rows(augment_pipe(
-                    draws, gather_rows(img, rows), augment_cfg, ada_p), rows)
+                with trace.span("train.ada_pipe", which=which):
+                    if rows is None:
+                        return augment_pipe(draws, img, augment_cfg, ada_p)
+                    return split_rows(augment_pipe(
+                        draws, gather_rows(img, rows), augment_cfg, ada_p),
+                        rows)
             with torch.no_grad():
-                real = pipe(draws_real, real)
+                real = pipe(draws_real, real, "real")
             # every application of the pipe draws fresh transforms: the G
             # step redraws rather than optimize G against the one transform
             # D happened to see
-            aug_d_fake = lambda img: pipe(draws_d_fake, img)
-            aug_g_fake = lambda img: pipe(draws_g_fake, img)
+            aug_d_fake = lambda img: pipe(draws_d_fake, img, "d_fake")
+            aug_g_fake = lambda img: pipe(draws_g_fake, img, "g_fake")
         else:
             aug_d_fake = aug_g_fake = lambda img: img
 
@@ -575,20 +592,24 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                 real_scores = scores[:bsz]
                 fake_scores = scores[bsz:2 * bsz]
                 if apply_gp:
-                    grad_x, = torch.autograd.grad(
-                        summed(scores[2 * bsz:]), x_hat, create_graph=True)
-                    gp = penalty(norms_of(grad_x)[1])
+                    with trace.span("train.penalty"):
+                        grad_x, = torch.autograd.grad(
+                            summed(scores[2 * bsz:]), x_hat,
+                            create_graph=True)
+                        gp = penalty(norms_of(grad_x)[1])
             else:
                 real_scores = d_apply(real, d_params)
                 fake_scores = d_apply(fake_live, d_params)
-                if apply_gp and tc.gp_mode == "jvp":
-                    gp = jvp_penalty(x_hat, d_params)
-                elif apply_gp:
-                    x_hat.requires_grad_(True)
-                    grad_x, = torch.autograd.grad(
-                        summed(d_apply(x_hat, d_params)), x_hat,
-                        create_graph=True)
-                    gp = penalty(norms_of(grad_x)[1])
+                if apply_gp:
+                    with trace.span("train.penalty"):
+                        if tc.gp_mode == "jvp":
+                            gp = jvp_penalty(x_hat, d_params)
+                        else:
+                            x_hat.requires_grad_(True)
+                            grad_x, = torch.autograd.grad(
+                                summed(d_apply(x_hat, d_params)), x_hat,
+                                create_graph=True)
+                            gp = penalty(norms_of(grad_x)[1])
             real_drifted = (torch.mean(real_scores) - tc.drift
                             * torch.mean(torch.square(real_scores)))
             loss = -real_drifted + torch.mean(fake_scores) + gp
@@ -624,8 +645,10 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
                                         _grads_of(loss, d_params))
             return grads, None, aux, logits
 
-        d_grads, g_grads, metrics, real_logits = d_step()
-        _adam_update(disc, d_grads, state["opt_d"], tc, blocks[1])
+        with trace.span("train.d_step"):
+            d_grads, g_grads, metrics, real_logits = d_step()
+        with trace.span("train.optimizer", net="d"):
+            _adam_update(disc, d_grads, state["opt_d"], tc, blocks[1])
         del d_grads
         if sharded and update_g and not fused:
             # the G step scores G against the updated D: gather it again
@@ -644,21 +667,22 @@ def make_train_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         # --- G update: same z, the updated D (fused: the joint pass's
         # negated gradient against the pre-update D) -----------------------
         if update_g:
-            if fused:
-                metrics["g_loss"] = -metrics["fake_score"]
-            else:
-                with _frozen(disc):
-                    # the updated D: cast again (weights_cast='once')
-                    g_loss = -torch.mean(d_apply(
-                        aug_g_fake(g_apply(g_params)),
-                        cast_of(disc, d_dtype)))
-                    g_grads = tp.reduce_gradients(
-                        mesh, (gen,),
-                        _grads_of(g_loss, list(gen.parameters())))
-                metrics["g_loss"] = g_loss.detach()
-                del g_loss
-            _adam_update(gen, g_grads, state["opt_g"], tc, blocks[0])
-            with torch.no_grad():
+            with trace.span("train.g_step", fused=fused):
+                if fused:
+                    metrics["g_loss"] = -metrics["fake_score"]
+                else:
+                    with _frozen(disc):
+                        # the updated D: cast again (weights_cast='once')
+                        g_loss = -torch.mean(d_apply(
+                            aug_g_fake(g_apply(g_params)),
+                            cast_of(disc, d_dtype)))
+                        g_grads = tp.reduce_gradients(
+                            mesh, (gen,),
+                            _grads_of(g_loss, list(gen.parameters())))
+                    metrics["g_loss"] = g_loss.detach()
+                    del g_loss
+            with trace.span("train.optimizer", net="g"), torch.no_grad():
+                _adam_update(gen, g_grads, state["opt_g"], tc, blocks[0])
                 ema = list(state["g_ema"].parameters())
                 torch._foreach_mul_(ema, tc.ema_decay)
                 torch._foreach_add_(
@@ -716,7 +740,11 @@ def make_train_multi_step(gcfg: GeneratorConfig, dcfg: DiscriminatorConfig,
         sums = None
         for j in range(k):
             real = reals[j]
-            z, eps, aug = draws(j, real) if callable(draws) else draws[j]
+            if callable(draws):
+                with trace.span("train.draws"):
+                    z, eps, aug = draws(j, real)
+            else:
+                z, eps, aug = draws[j]
             body = body_gp if j % tc.gp_every == 0 else body_plain
             state, m = body(state, real,
                             None if labels is None else labels[j],

@@ -1,6 +1,7 @@
 """Host utilities of the port (counterpart of ``pgx/utils/__init__.py``):
-PNG and grid writing, URLs, ``EasyDict``, the tee logger, profiling ranges,
-the dnnlib.util helpers, and the device an entry point runs on."""
+PNG and grid writing, URLs, ``EasyDict``, the tee logger, the dnnlib.util
+helpers, and the device an entry point runs on.  Named spans (pgx's
+``profiled`` ranges) are ``pgx_torch.utils.trace.span``."""
 
 from __future__ import annotations
 
@@ -67,26 +68,6 @@ class Logger:
         sys.stdout = self.stdout
         if self.file is not None:
             self.file.close()
-
-
-def profiled(name: str):
-    """Annotate a function with a named range: ``torch.profiler``'s
-    ``record_function`` (a span in its traces) and, while a card is in use,
-    an NVTX range (pgx's is a ``jax.profiler.TraceAnnotation``; the
-    reference's ``misc.profiled_function``)."""
-    import contextlib
-    import functools
-
-    def deco(fn):
-        @functools.wraps(fn)
-        def wrapper(*args, **kwargs):
-            with contextlib.ExitStack() as stack:
-                stack.enter_context(torch.profiler.record_function(name))
-                if torch.cuda.is_available() and torch.cuda.is_initialized():
-                    stack.enter_context(torch.cuda.nvtx.range(name))
-                return fn(*args, **kwargs)
-        return wrapper
-    return deco
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port's host utilities against pgx's, on the CPU.
 
-``pgx_torch.utils`` (``EasyDict``, ``Logger``, ``profiled``,
-``format_time``, ``format_size``, ``get_obj_by_name``,
+``pgx_torch.utils`` (``EasyDict``, ``Logger``, ``trace.span`` as pgx's
+``profiled``, ``format_time``, ``format_size``, ``get_obj_by_name``,
 ``call_func_by_name``, ``list_dir_recursively_with_ignore``),
 ``pgx_torch.utils.misc`` (``constant``, ``assert_shape``,
 ``InfiniteSampler``, ``named_leaves``, ``copy_params``,
@@ -34,7 +34,7 @@ import pgx_torch.utils as tutils
 from pgx_torch.models import zoo as tzoo
 from pgx_torch.models.generator import Generator
 from pgx_torch.utils import misc as tmisc
-from pgx_torch.utils import persistence
+from pgx_torch.utils import persistence, trace
 from pgx_torch.utils import url as turl
 
 
@@ -96,8 +96,11 @@ def test_easydict_logger_and_reflection(tmp_path, capsys):
         tutils.get_obj_by_name("no_such_module.thing")
 
 
-def test_profiled_names_a_span():
-    @tutils.profiled("pgx_span")
+def test_profiled_names_a_span(monkeypatch):
+    """pgx's ``profiled`` is ``trace.span``'s decorator form: the span is
+    named in a CPU profiler's operators, and with no profiler active no
+    ``record_function`` is entered, recording or not."""
+    @trace.span("pgx_span")
     def work(x):
         return x * 2
 
@@ -106,6 +109,21 @@ def test_profiled_names_a_span():
         assert torch.equal(work(torch.ones(3)), torch.full((3,), 2.0))
     assert "pgx_span" in {e.key for e in prof.key_averages()}
     assert work.__name__ == "work"
+    entered = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda *a, **k: entered.append(a) or real(*a, **k))
+    trace.clear()
+    try:
+        for on in (False, True):
+            if on:
+                trace.enable()
+            assert torch.equal(work(torch.ones(3)), torch.full((3,), 2.0))
+    finally:
+        trace.disable()
+    assert entered == []
+    assert [s["name"] for s in trace.spans()] == ["pgx_span"]
+    trace.clear()
 
 
 def test_constant_and_assert_shape():
