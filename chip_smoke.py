@@ -49,13 +49,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    with the second derivative's plain closed form swapped in) and a
    torch.profiler split of one iteration by part, with A's backward and
    its second derivative as labelled ranges.
-5. ada     — kernels F (shift_1d), D (upfirdn2d) and E (bias_act): the
-   launches of one bf16 ADA iteration at 128px, batch 32, are recorded
-   for the shear warp (F) and for the gather warp (D); each kernel is
-   held against its plain version there in f32 and bf16 and timed (D and
-   F, per axis, also by their own device time, replayed from a CUDA
-   graph; F's y-shear on the column crop it reads in place), F also
-   at the 256px and 512px extents (batch 2, both axes), D at the gather
+5. ada     — kernels F (shift_1d), D (upfirdn2d), E (bias_act) and W
+   (warp_resample, warp_down2 and their transposes): the launches of one
+   bf16 ADA iteration at 128px, batch 32, are recorded for the shear warp
+   (F, W) and for the gather warp (D); each kernel is held against its
+   plain version there in f32 and bf16 and timed (D, F per axis, and W
+   also by their own device time, replayed from a CUDA graph; F's y-shear
+   on the column crop it reads in place, W2 on the y-shear's row crop), F
+   also at the 256px and 512px extents (batch 2, both axes), W at the
+   512px recipe's four calls (batch 8), D at the gather
    warp's four calls at 256px and 512px (batch 1), E for all nine
    activations with and without clamp at [32,128,128,256]; gradients of
    F and D (their backward launches the kernel) and of E (first and
@@ -252,7 +254,7 @@ Every bf16 kernel row of phase 2 also carries the kernel's device time
 from a CUDA graph (``device_ms``), beside the back-to-back time (``ms``).
 
 Prints JSON lines; the last two lines before the final one are the
-kernels table (ten entries, each with ``launches_ddp`` and
+kernels table (fourteen entries, each with ``launches_ddp`` and
 ``launches_tp``) and the card, the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -287,6 +289,8 @@ A_BWD = "bias_pixelnorm_lrelu_bwd"
 A_BWD2 = "bias_pixelnorm_lrelu_bwd2"
 A_JVP = "bias_pixelnorm_lrelu_jvp"
 F_, D_, E_ = "shift_1d", "upfirdn2d", "bias_act"
+W1, W1_T, W2, W2_T = ("warp_resample", "warp_resample_t", "warp_down2",
+                      "warp_down2_t")
 SOURCES = {
     A: ("pgx_torch/ops/kernels/csrc/epilogue.cu",
         "pgx/ops/pallas/epilogue.py:97"),
@@ -314,6 +318,15 @@ SOURCES = {
          "pgx/ops/pallas/kernels.py:70"),
     E_: ("pgx_torch/ops/kernels/csrc/bias_act.cu",
          "pgx/ops/pallas/kernels.py:227"),
+    # kernel W replaces no Pallas kernel: pgx leaves these einsums to XLA
+    W1: ("pgx_torch/ops/kernels/csrc/warp_resample.cu",
+         "none: pgx/ops/warp.py's pad + pass 1 einsums (XLA)"),
+    W1_T: ("pgx_torch/ops/kernels/csrc/warp_resample.cu",
+           "none: the transpose of pgx/ops/warp.py's pass 1 (XLA)"),
+    W2: ("pgx_torch/ops/kernels/csrc/warp_resample.cu",
+         "none: pgx/ops/warp.py's pass 4 einsums (XLA)"),
+    W2_T: ("pgx_torch/ops/kernels/csrc/warp_resample.cu",
+           "none: the transpose of pgx/ops/warp.py's pass 4 (XLA)"),
 }
 PER_FORWARD = {A: 2, B: 1, C: 9}
 DEVICE = "cuda"           # every phase runs on the card
@@ -439,7 +452,7 @@ def swap_path_kernels(wrap):
 def plain_versions():
     """The paths with the kernels' plain versions (a comparison on the
     card; the port itself has no such switch): A, B, C where the models
-    call them, F, D, E where the warp and the ops layer call them."""
+    call them, F, W, D, E where the warp and the ops layer call them."""
     import importlib
     from pgx_torch.ops import kernels as K
     from pgx_torch.ops import warp
@@ -456,6 +469,8 @@ def plain_versions():
         lambda name, fn: getattr(K, name + "_ref")))
     for mod, name, plain in (
             (warp, "shift_1d", K.shift_1d_ref),
+            (warp, "warp_resample", K.warp_resample_ref),
+            (warp, "warp_down2", K.warp_down2_ref),
             (ops_upfirdn2d, "upfirdn2d_separable", K.upfirdn2d_ref),
             (ops_bias_act, "bias_act_channel_last", bias_act_plain)):
         stack.enter_context(mock.patch.object(mod, name, plain))
@@ -880,6 +895,17 @@ def misaligned_phase(torch):
     shift = torch.linspace(-100.0, 100.0, 268, device=DEVICE).expand(
         TRAIN_BATCH, 268)
     taps = [1.0 / 12] * 12
+    # kernel W at 64px: an image, its samples, the down-filter's input
+    from pgx_torch.augment.pipe import _hz_geom
+    from pgx_torch.ops import warp
+    hz = tuple(float(v) for v in _hz_geom())
+    sq = misaligned(TRAIN_BATCH, 64, 64, 3)
+    crop = misaligned(TRAIN_BATCH, 3, 140, 140)
+    th = torch.linspace(-3.0, 3.0, TRAIN_BATCH, device=DEVICE)
+    params, _, _ = warp.resample_params(
+        torch.stack([torch.stack([th.cos(), -th.sin()], -1),
+                     torch.stack([th.sin(), th.cos()], -1)], 1),
+        torch.zeros(TRAIN_BATCH, 2, device=DEVICE))
     cases = {
         A: (lambda: K.bias_pixelnorm_lrelu(y, b),
             lambda: K.bias_pixelnorm_lrelu_ref(y, b)),
@@ -900,6 +926,11 @@ def misaligned_phase(torch):
              lambda: K.upfirdn2d_ref(x, taps, 2, 1, (6, 5, 6, 5))),
         E_: (lambda: bias_act(y, b, act="lrelu"),
              lambda: K.bias_act_ref(y, b, -1, "lrelu")),
+        # W against its plain version in f32 (warp_case)
+        W1: (lambda: K.warp_resample(sq, params, 320, 512, hz),
+             lambda: K.warp_resample_ref(sq.float(), params, 320, 512, hz)),
+        W2: (lambda: K.warp_down2(crop, hz),
+             lambda: K.warp_down2_ref(crop.float(), hz)),
     }
     out = {}
     for name, (kern, plain) in cases.items():
@@ -1069,9 +1100,10 @@ def calls_per_iteration(gcfg, dcfg, step: int, warp=None,
     the G step's under grad (C's residual-emitting entry).  With ADA the
     pipe runs three times (reals, the D step's fakes, the G step's fakes)
     and the G step differentiates its call: the shear warp launches F
-    twice per call and twice in the backward (8); the gather warp launches
-    D once per upsample2d and once per downsample2d, forward and backward
-    (8).  Kernel E is not on the training path.
+    twice per call and twice in the backward (8), and kernel W's two passes
+    once per call (3 each) and their transposes once in the backward; the
+    gather warp launches D once per upsample2d and once per downsample2d,
+    forward and backward (8).  Kernel E is not on the training path.
 
     Kernel A's backward runs wherever a first-order backward reaches A:
     the D step's real, fake and x_hat forwards and the G step's D forward
@@ -1095,7 +1127,16 @@ def calls_per_iteration(gcfg, dcfg, step: int, warp=None,
             A_BWD: (6 * n if jvp else 5 * n - 1) + g[A], A_BWD2: n,
             A_JVP: n if jvp else 0, B: 2 * g[B], C: g[C], C_R: g[C],
             F_: 8 if warp == "shear" else 0,
-            D_: 8 if warp == "gather" else 0, E_: 0}
+            D_: 8 if warp == "gather" else 0, E_: 0,
+            **shear_warp_calls(3 if warp == "shear" else 0,
+                               1 if warp == "shear" else 0)}
+
+
+def shear_warp_calls(forward: int, backward: int) -> dict:
+    """Kernel W's launches for ``forward`` calls of the shear warp and
+    ``backward`` backwards through it: each call launches W1 and W2 once,
+    each backward their transposes."""
+    return {W1: forward, W2: forward, W1_T: backward, W2_T: backward}
 
 
 def flagship(torch):
@@ -1750,8 +1791,7 @@ def train_phase(torch, gcfg, dcfg):
     torch.cuda.synchronize()
     d_alone = K.launch_counts()
     d_convs = (want[A] - 2 * PER_FORWARD[A]) // 4
-    require(d_alone == {A: d_convs, A_BWD: 0, A_BWD2: 0, A_JVP: 0, B: 0,
-                        C: 0, C_R: 0, F_: 0, D_: 0, E_: 0},
+    require(d_alone == {k: 0 for k in d_alone} | {A: d_convs},
             f"a discriminator forward launched {d_alone}")
     require(scores.shape == (TRAIN_BATCH, 1), f"D output {scores.shape}")
 
@@ -1800,31 +1840,44 @@ OPS_SHAPE = (TRAIN_BATCH, 128, 128, 256)     # a flagship 128px activation
 
 
 def record_launches(torch, run):
-    """Every launch of kernels F, D and E that ``run()`` makes, forward and
-    backward alike, as (kernel, input shape, arguments): recorded where the
-    wrappers launch (one kernel launch per call).  F's input may be a view
-    (the x-shear reads the einsum's permuted output, the y-shear the column
-    crop): its strides, offset and storage size are recorded too."""
+    """Every launch of kernels F, D, E and W that ``run()`` makes, forward
+    and backward alike, as (kernel, input shape, arguments): recorded where
+    the wrappers launch (one kernel launch per call).  F's and W2's input
+    may be a view (the y-shear reads the x-shear's column crop, W2 the
+    y-shear's row crop): its strides, offset and storage size are recorded
+    too.  W1's per-sample parameters are not recorded: the calls that hold
+    it draw the pipe's kinds of sample (``warp_case``)."""
+    import importlib
     from pgx_torch.ops.kernels import bias_act, shear, upfirdn2d
+    warp_resample = importlib.import_module(
+        "pgx_torch.ops.kernels.warp_resample")
     calls = []
 
-    def rec(mod, name, describe):
-        inner = mod._launch
+    def rec(mod, name, describe, attr="_launch"):
+        inner = getattr(mod, attr)
 
         def wrapped(x, *args):
             calls.append((name, tuple(x.shape),
                           json.dumps(describe(x, *args), sort_keys=True)))
             return inner(x, *args)
-        return mock.patch.object(mod, "_launch", wrapped)
+        return mock.patch.object(mod, attr, wrapped)
 
-    def describe_f(x, shift, axis):
+    def view(x):
         if x.is_contiguous():
-            return {"axis": axis}
-        return {"axis": axis, "strides": list(x.stride()),
-                "offset": x.storage_offset(),
+            return {}
+        return {"strides": list(x.stride()), "offset": x.storage_offset(),
                 "storage": x.untyped_storage().nbytes() // x.element_size()}
 
-    with rec(shear, F_, describe_f), \
+    def describe_f(x, shift, axis):
+        return {"axis": axis, **view(x)}
+
+    with rec(warp_resample, W1, lambda x, params, vy, vx, taps: {
+                "vy": vy, "vx": vx}), \
+            rec(warp_resample, W1_T, lambda x, params, n, taps: {"n": n},
+                "_launch_t"), \
+            rec(warp_resample, W2, lambda x, taps: view(x), "_launch_down"), \
+            rec(warp_resample, W2_T, lambda x, taps: {}, "_launch_down_t"), \
+            rec(shear, F_, describe_f), \
             rec(upfirdn2d, D_, lambda x, taps, up, down, pads, flip: {
                 "taps": list(taps), "up": up, "down": down,
                 "pads": list(pads), "flip_filter": flip}), \
@@ -1873,6 +1926,8 @@ def fde_case(torch, name, shape, opts, dt, rng):
     es = torch.finfo(dt).bits // 8
     x = (torch.randn(*shape, generator=rng, device=DEVICE)).to(dt)
     numel = x.numel()
+    if name in WARP:
+        return warp_case(torch, name, shape, opts, dt, rng, x)
     if name == F_:
         axis = opts["axis"]
         b, c, r, n = shape
@@ -1937,12 +1992,89 @@ def fde_case(torch, name, shape, opts, dt, rng):
             None, 2 * numel * es + shape[-1] * es, 10.0 * numel)
 
 
+WARP = (W1, W1_T, W2, W2_T)
+
+
+def warp_case(torch, name, shape, opts, dt, rng, x):
+    """``fde_case`` for kernel W.  W1 and its transpose take a batch of the
+    pipe's kinds of sample: rotations, scales and translations drawn as
+    bgc draws them (pivoted to the transposed blit where that is nearer).
+    W2's input may be the recorded view.  The plain version runs in f32 on
+    the same values: for bf16 inputs it rounds its matrices and its
+    intermediate to bf16, the kernel only its output.  Operations: 7 taps
+    an axis, two multiply-adds each (x on the staged rows, y per output)."""
+    import importlib
+    from pgx_torch.augment.pipe import _hz_geom
+    from pgx_torch.ops import warp
+    wr = importlib.import_module("pgx_torch.ops.kernels.warp_resample")
+    hz = tuple(float(v) for v in _hz_geom())
+    es = torch.finfo(dt).bits // 8
+    numel = x.numel()
+    if name in (W2, W2_T):
+        if "strides" in opts:
+            x = torch.randn(opts["storage"], generator=rng, device=DEVICE).to(
+                dt).as_strided(shape, opts["strides"], opts["offset"])
+        if name == W2:                  # the crop in, the NHWC side out
+            b, c, r, s_ = shape
+            big, small = numel, b * (r // 2 - 6) * (s_ // 2 - 6) * c
+        else:
+            b, h, w, c = shape
+            big, small = b * c * (2 * h + 12) * (2 * w + 12), numel
+        nbytes = (small + big) * es
+        ops = 2.0 * W_TAPS * (big / 2 + small)
+        if name == W2:
+            return (lambda: wr.warp_down2(x, hz),
+                    lambda: wr.warp_down2_ref(x.float(), hz), None, nbytes,
+                    ops)
+        return (lambda: wr.down_transpose_op(x, hz),
+                lambda: wr.warp_down2_t_ref(x.float(), hz), None, nbytes,
+                ops)
+    b = shape[0]
+    th = (torch.rand(b, generator=rng, device=DEVICE) * 2 - 1) * math.pi
+    sc = torch.exp2(torch.randn(b, 2, generator=rng, device=DEVICE) * 0.2)
+    a = torch.stack([torch.stack([th.cos() * sc[:, 0], -th.sin() * sc[:, 1]],
+                                 -1),
+                     torch.stack([th.sin() * sc[:, 0], th.cos() * sc[:, 1]],
+                                 -1)], 1)
+    t = torch.randn(b, 2, generator=rng, device=DEVICE) * 4.0
+    params, _, _ = warp.resample_params(a, t)
+    if name == W1:
+        vy, vx = opts["vy"], opts["vx"]
+        out = b * shape[3] * vy * vx
+        return (lambda: wr.op(x, params, vy, vx, hz),
+                lambda: wr.warp_resample_ref(x.float(), params, vy, vx, hz),
+                None, (numel + out) * es, 4.0 * 7 * out)
+    n = opts["n"]
+    out = b * n * n * shape[1]
+    return (lambda: wr.transpose_op(x, params, n, hz),
+            lambda: wr.warp_resample_t_ref(x.float(), params, n, hz), None,
+            (numel + out) * es, 4.0 * 7 * numel)
+
+
+W_TAPS = 12               # the pipe's sym6
+
+
+def warp_512_calls() -> list:
+    """Kernel W's four launches at the 512px recipe's shapes, batch 8, as
+    the warp makes them (W2 on the y-shear's row crop)."""
+    from pgx_torch.ops import warp
+    b, n, c = R512_BATCH, 512, 3
+    out_n, vy, vx, my2, _ = warp.warp_extents(n, W_TAPS)
+    crop = {"strides": [c * vy * out_n, vy * out_n, out_n, 1],
+            "offset": my2 * out_n, "storage": b * c * vy * out_n}
+    return [(W1, (b, n, n, c), json.dumps({"vx": vx, "vy": vy})),
+            (W1_T, (b, c, vy, vx), json.dumps({"n": n})),
+            (W2, (b, c, out_n, out_n), json.dumps(crop, sort_keys=True)),
+            (W2_T, (b, n, n, c), json.dumps({}))]
+
+
 def fde_phase(torch, calls, per: str, reps: int = 5, sums=None):
-    """Hold kernels F, D and E against their plain versions at every
+    """Hold kernels F, D, E and W against their plain versions at every
     distinct launch of ``calls``, in bf16 and f32, and time kernel, plain
     version and library call.  Tolerance: both sides compute in f32 and
     round once, so f32 agrees to 1e-5 (sums in another order) and bf16 to
-    one bf16 step at the largest output.  Adds the sums over the calls by
+    one bf16 step at the largest output; W, held against its plain version
+    in f32 (``warp_case``), to two.  Adds the sums over the calls by
     (kernel, dtype) to ``sums`` and returns it."""
     import math
     rng = torch.Generator(device=DEVICE).manual_seed(7)
@@ -1962,7 +2094,8 @@ def fde_phase(torch, calls, per: str, reps: int = 5, sums=None):
                 torch.cuda.synchronize()
                 err = (got.float() - want.float()).abs().max().item()
                 ref_max = want.float().abs().max().item()
-                tol = (bf16_tol(ref_max) / 2 if dt_name == "bfloat16"
+                tol = (bf16_tol(ref_max) / (1 if name in WARP else 2)
+                       if dt_name == "bfloat16"
                        else 1e-5 * max(ref_max, 1.0))
                 require(got.shape == want.shape and got.dtype == dt,
                         f"{name} {shape} {dt_name}: shape/dtype mismatch")
@@ -1979,8 +2112,8 @@ def fde_phase(torch, calls, per: str, reps: int = 5, sums=None):
                     del lib
                 del got, want
                 ms = cuda_ms(torch, kern, reps)
-                device_ms = (graph_ms(torch, kern) if name in (D_, F_)
-                             else None)
+                device_ms = (graph_ms(torch, kern)
+                             if name in (D_, F_, *WARP) else None)
                 plain_ms = cuda_ms(torch, plain, reps)
                 if library is not None:
                     lib_ms = cuda_ms(torch, library, reps)
@@ -2136,7 +2269,7 @@ def ops_layer_phase(torch):
 
 
 def shear_pipe_f32_check(torch, res: int):
-    """The shear pipe through kernel F against the same pipe with the
+    """The shear pipe through kernels W and F against the same pipe with the
     plain versions swapped in, f32, the same seeded draws, with its
     gradient.  Tolerance 1e-4 of the largest output: the blend's
     multiply-add contracts differently, and sums downstream reorder."""
@@ -2193,14 +2326,15 @@ def ada_batch(torch, gcfg, seed: int):
 
 
 def record_ada_launches(torch, gcfg, dcfg, warp: str):
-    """The launches of F, D and E in one bf16 ADA iteration, batch 32."""
+    """The launches of F, D, E and W in one bf16 ADA iteration, batch
+    32."""
     g, d, state, step = new_ada_step(gcfg, dcfg, warp)
     real, labels, draws = ada_batch(torch, g, seed=500)
     calls = record_launches(
         torch, lambda: step(state, real, labels, 1.0, **draws))
     want = calls_per_iteration(g, d, TRAIN_STEP, warp)
     got = count_calls(calls)
-    require(got == {k: v for k, v in ((F_, want[F_]), (D_, want[D_])) if v},
+    require(got == {k: want[k] for k in (F_, D_, *WARP) if want[k]},
             f"{warp} ADA iteration recorded {got}")
     return calls
 
@@ -2209,7 +2343,12 @@ def profile_ada_iteration(torch, run, reps: int = 2):
     """Device time of one bf16 ADA iteration by part (torch.profiler,
     kernels classified by name), with the forward calls of the pipe as a
     labelled range (its backward runs inside autograd's and is not in the
-    range; kernel F's launches are counted by name in both)."""
+    range; kernel F's launches are counted by name in both).  Also what
+    kernel W took off the path: float32 matrix products (CUTLASS's SIMT
+    "sgemm" and cuBLAS's "gemm_f32f32" kernels; the color stage's 3 x 3
+    products per pixel and the pipe's 4 x 4 matrices remain) and copies
+    from pageable host memory, of which the pipe's ranges must hold
+    none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from pgx_torch.train import wgan
@@ -2228,6 +2367,8 @@ def profile_ada_iteration(torch, run, reps: int = 2):
                 run()
             torch.cuda.synchronize()
     parts = {"kernel F": ("shear_cols", "shear_rows"),
+             "kernel W": ("resample_kernel", "resample_t_kernel",
+                          "down2_kernel", "down2_t_kernel"),
              "kernel C (plain + emit-r)": ("conv3x3_wgmma_kernel",
                                            "conv3x3_fma_kernel"),
              "kernel A second order": ("rownorm_bwd2",),
@@ -2246,6 +2387,7 @@ def profile_ada_iteration(torch, run, reps: int = 2):
                    if ev.device_type == DeviceType.CUDA
                    and ev.name == "augment_pipe_forward"]
     pipe_kernels, pipe_busy_ms = 0, 0.0
+    f32_gemm, pageable = {}, {"iteration": 0, "pipe": 0}
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
             continue
@@ -2255,10 +2397,17 @@ def profile_ada_iteration(torch, run, reps: int = 2):
             continue
         if ev.is_user_annotation:       # the program's spans
             continue
-        if any(lo <= ev.time_range.start <= hi for lo, hi in pipe_ranges):
+        in_pipe = any(lo <= ev.time_range.start <= hi
+                      for lo, hi in pipe_ranges)
+        if in_pipe:
             pipe_kernels += 1
             pipe_busy_ms += ms
         name = ev.name.lower()
+        if "sgemm" in name or "gemm_f32f32" in name:
+            f32_gemm[ev.name[:96]] = f32_gemm.get(ev.name[:96], 0.0) + ms
+        if "pageable" in name and "htod" in name.replace(" ", ""):
+            pageable["iteration"] += 1
+            pageable["pipe"] += in_pipe
         part = next((k for k, pats in parts.items()
                      if any(pat in name for pat in pats)), None)
         if part is None:
@@ -2269,10 +2418,16 @@ def profile_ada_iteration(torch, run, reps: int = 2):
                     else "other")
         by_part[part] += ms
     total = sum(by_part.values())
-    require(total > 0 and by_part["kernel F"] > 0 and pipe_ms > 0
-            and pipe_kernels > 0,
-            "profiler saw no device time for kernel F or the pipe")
+    require(total > 0 and by_part["kernel F"] > 0 and by_part["kernel W"] > 0
+            and pipe_ms > 0 and pipe_kernels > 0,
+            "profiler saw no device time for kernel F, W or the pipe")
+    require(pageable["pipe"] == 0,
+            f"the pipe copied from pageable host memory: {pageable}")
     return {"device_ms_per_iteration": total, "by_part_ms": by_part,
+            "f32_gemm_ms_by_kernel": f32_gemm,
+            "f32_gemm_ms": sum(f32_gemm.values()),
+            "pageable_htod_copies": {k: v / reps for k, v in
+                                     pageable.items()},
             "augment_pipe_forward_3_calls_ms": pipe_ms,
             "augment_pipe_forward_3_calls_busy_ms": pipe_busy_ms,
             "augment_pipe_forward_kernels_per_call":
@@ -3024,8 +3179,8 @@ def cli_profile(torch, tmp: str) -> dict:
 
 
 def cli_augmentation_demo(torch, tmp: str) -> dict:
-    """cli/augmentation_demo at 128px: the shear warp launches F twice per
-    p-row; every launch held at its shape."""
+    """cli/augmentation_demo at 128px: the shear warp launches F twice and
+    W1 and W2 once per p-row; every launch held at its shape."""
     from pgx_torch.cli import augmentation_demo
     png = os.path.join(tmp, "aug.png")
     _, launches, seconds, recorded = recorded_run(
@@ -3041,6 +3196,7 @@ def cli_augmentation_demo(torch, tmp: str) -> dict:
             f"augmentation grid {wh}")
     want = {k: 0 for k in launches}
     want[F_] = 2 * CLI_AUG_ROWS
+    want.update(shear_warp_calls(CLI_AUG_ROWS, 0))
     require(launches == want, f"augmentation_demo launched {launches}, "
                               f"expected {want}")
     return {"seconds": seconds, "launches": launches,
@@ -3222,7 +3378,8 @@ def recipe_launches(gen, dcfg, mode: str, apply_gp: bool) -> dict:
     warp), from the weights' shapes and the routing rules.  One generator
     forward under grad (B, C's residual-emitting entry, A where it takes
     the upsampled convs) and its backward (A's backward for each A); the
-    pipe on the reals and on the fakes, forward and backward: F 6; D's real
+    pipe on the reals and on the fakes, forward and backward: F 6, W1 and
+    W2 2 each, their transposes 1 each; D's real
     and fake forwards (n A each, n = D's convs, all on A) and their
     backward.  The penalty adds, with 'jvp', the frozen inner forward and
     its backward (n, n), the dual forward's primal (n A), n tangents, and in
@@ -3236,7 +3393,8 @@ def recipe_launches(gen, dcfg, mode: str, apply_gp: bool) -> dict:
     n = sum(2 if (k == 0 or dcfg.block_type == "double") else 1
             for k in range(dcfg.entry_stage(R512_STEP) + 1))
     out = {A: 2 * n + g[A], A_BWD: 2 * n + g[A], A_BWD2: 0, A_JVP: 0,
-           B: g[B], C: 0, C_R: g[C], F_: 6, D_: 0, E_: 0}
+           B: g[B], C: 0, C_R: g[C], F_: 6, D_: 0, E_: 0,
+           **shear_warp_calls(2, 1)}
     if apply_gp and mode == "jvp":
         out[A] += 2 * n
         out[A_BWD] += 3 * n
@@ -3761,7 +3919,8 @@ def recipe_cli_phase(torch) -> dict:
         require(in_windows + alone == 4 * R512_PHASE,
                 f"recipe: {in_windows} iterations in windows and {alone} "
                 f"alone")
-        for name in (A, A_BWD, A_BWD2, A_JVP, B, C_R, F_):
+        for name in (A, A_BWD, A_BWD2, A_JVP, B, C_R, F_, W1, W1_T, W2,
+                     W2_T):
             require(launches[name] > 0, f"recipe CLI run: {name} not "
                                         f"launched ({launches})")
 
@@ -6405,6 +6564,8 @@ def main() -> int:
                                           ((2, 3, 2112, 3200), 3),
                                           ((2, 3, 2112, 1036), 2))],
               "the warp's extents at 256px and 512px, batch 2", reps=3)
+    w512 = fde_phase(torch, warp_512_calls(), "kernel W at the 512px "
+                     "recipe's shapes, batch 8", reps=3)
     fde_phase(torch, gather_extent_calls(torch, 256)
               + gather_extent_calls(torch, 512),
               "the gather warp's resampling at 256px and 512px, batch 1, "
@@ -6677,6 +6838,41 @@ def main() -> int:
                     "device_ms"]}
                 for ax in (3, 2)}
         kernels.append(entry)
+
+    # W: launches from the counted runs of the shear warp's paths; times
+    # summed over one 128px ADA iteration's calls, and over the 512px
+    # recipe's four calls
+    w_per = {W1: "3 forward calls", W2: "3 forward calls",
+             W1_T: "1 backward", W2_T: "1 backward"}
+    for name in WARP:
+        source, replaces = SOURCES[name]
+        launches = {"launches_train_ada": ada["launches"][name],
+                    "launches_train_loop": loop_launches[name],
+                    "launches_train_512_recipe": recipe_launches_[name],
+                    "launches_ddp": ddp_launches[name],
+                    "launches_tp": tp_launches[name]}
+        require(all(v > 0 for v in launches.values()),
+                f"{name}: not launched on its main path ({launches})")
+        launches["launches_cli"] = cli_launches[name]
+        agg = fde[(name, "bfloat16")]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(launches.values()),
+            **launches,
+            "launches_per_path_run": ada["launches_per_iteration"][name],
+            **{k: v for k, v in summed(agg).items()
+               if k not in ("launches", "cudnn_conv_bias_ms")},
+            "device_ms": agg["device_ms"], "library_ms": None,
+            "f32": {k: v for k, v in summed(fde[(name, "float32")]).items()
+                    if k != "cudnn_conv_bias_ms"},
+            "per": f"one bf16 ADA iteration (shear warp) at batch 32: "
+                   f"{w_per[name]}; plain_ms: the plain version in f32",
+            "train_512_recipe": {
+                "per": "one call at the 512px recipe's shapes, batch 8",
+                **{dt: {**{k: v for k, v in summed(w512[(name, dt)]).items()
+                           if k != "cudnn_conv_bias_ms"},
+                        "device_ms": w512[(name, dt)]["device_ms"]}
+                   for dt in ("bfloat16", "float32")}}})
 
     # 13. the card
     smi = subprocess.run(

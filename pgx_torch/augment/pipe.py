@@ -84,7 +84,7 @@ class AugmentConfig:
     noise_std: float = 0.1
     cutout_size: float = 0.5
     # Geometric-warp backend: 'shear' = the gather-free multi-pass warp
-    # (pgx_torch.ops.warp: matmuls + kernel F; exact for every non-rotation
+    # (pgx_torch.ops.warp: kernels W and F; exact for every non-rotation
     # transform); 'gather' = the grid_sample formulation that matches the
     # reference (the oracle / non-square fallback; runs kernel D).
     warp_impl: str = "shear"
@@ -347,18 +347,19 @@ def augment_pipe(draws, images: torch.Tensor, cfg: AugmentConfig, p,
     if geom_active:
         hz_np = _hz_geom()
         hz_pad = hz_np.shape[0] // 4
-        # static worst-case reflect margin; F.pad reflects NCHW and wants a
-        # margin below the size, which width - 1 is
-        mx, my = width - 1, height - 1
-        images = F.pad(images.permute(0, 3, 1, 2), (mx, mx, my, my),
-                       mode="reflect").permute(0, 2, 3, 1)
-        # symmetric pad => the (mx0-mx1)/2 origin shift is zero
 
         if cfg.warp_impl == "shear" and height == width:
+            # pads by the same static margin itself (pass 0)
             images = ada_geom_warp_shear(
-                images, g_inv[:, :2, :2], g_inv[:, :2, 2], (height, width),
-                hz_np, shear_margin=cfg.shear_margin)
+                images, g_inv[:, :2, :2], g_inv[:, :2, 2], hz_np,
+                shear_margin=cfg.shear_margin)
         else:
+            # static worst-case reflect margin; F.pad reflects NCHW and
+            # wants a margin below the size, which width - 1 is
+            mx, my = width - 1, height - 1
+            images = F.pad(images.permute(0, 3, 1, 2), (mx, mx, my, my),
+                           mode="reflect").permute(0, 2, 3, 1)
+            # symmetric pad => the (mx0-mx1)/2 origin shift is zero
             images = upsample2d(images, hz_np, up=2)
             s2 = _scale2d(_full(b, 2.0, images), _full(b, 2.0, images))
             s2_inv = _scale2d(_full(b, 0.5, images), _full(b, 0.5, images))
@@ -386,7 +387,12 @@ def augment_pipe(draws, images: torch.Tensor, cfg: AugmentConfig, p,
     # ---------------- color transform C ------------------------------------
     eye4 = _eye(4, images)
     cmat = eye4
-    v = _f32(np.asarray([1, 1, 1, 0]) / np.sqrt(3), images)
+    # the luma axis (1, 1, 1, 0) / sqrt(3), filled on the device: a copy
+    # from pageable host memory (of an array, or of the scalar that item
+    # assignment wraps) makes the host wait for the stream
+    v = torch.full((4,), float(1 / np.sqrt(3)), dtype=torch.float32,
+                   device=dev)
+    v.narrow(0, 3, 1).zero_()
 
     if cfg.brightness > 0:
         bb = randn((b,)) * cfg.brightness_std

@@ -41,3 +41,11 @@ from pgx_torch.ops.kernels.upfirdn2d import (  # noqa: F401
     upfirdn2d_ref,
     upfirdn2d_separable,
 )
+from pgx_torch.ops.kernels.warp_resample import (  # noqa: F401
+    warp_down2,
+    warp_down2_ref,
+    warp_down2_t_ref,
+    warp_resample,
+    warp_resample_ref,
+    warp_resample_t_ref,
+)

@@ -143,12 +143,24 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pgx_upfirdn2d.argtypes = [p, p, p, i, p]
     # (x, b, out, n, c, act, alpha, gain, clamp, dtype, stream)
     lib.pgx_bias_act.argtypes = [p, p, p, i64, i, i, f, f, f, i, p]
+    # (in, params, out, b, n, c, vy, vx, hz, dtype, stream): W1 and its
+    # transpose; hz points at the filter's taps on the host
+    lib.pgx_warp_resample.argtypes = [p, p, p, i, i, i, i, i, p, i, p]
+    lib.pgx_warp_resample_t.argtypes = [p, p, p, i, i, i, i, i, p, i, p]
+    # (v, out, b, c, h, w, sb, sc, sr, hz, dtype, stream)
+    lib.pgx_warp_down2.argtypes = [p, p, i, i, i, i, i64, i64, i64, p, i, p]
+    # (g, out, b, c, h, w, hz, dtype, stream)
+    lib.pgx_warp_down2_t.argtypes = [p, p, i, i, i, i, p, i, p]
+    lib.pgx_warp_resample_limits.argtypes = [i]
+    lib.pgx_warp_resample_limits.restype = ctypes.c_int
     for fn in (lib.pgx_bias_pixelnorm_lrelu, lib.pgx_pixel_norm_lrelu,
                lib.pgx_bias_pixelnorm_lrelu_bwd,
                lib.pgx_bias_pixelnorm_lrelu_bwd2,
                lib.pgx_bias_pixelnorm_lrelu_jvp,
                lib.pgx_conv3x3_epilogue, lib.pgx_conv3x3_epilogue_r,
-               lib.pgx_shift_1d, lib.pgx_upfirdn2d, lib.pgx_bias_act):
+               lib.pgx_shift_1d, lib.pgx_upfirdn2d, lib.pgx_bias_act,
+               lib.pgx_warp_resample, lib.pgx_warp_resample_t,
+               lib.pgx_warp_down2, lib.pgx_warp_down2_t):
         fn.restype = ctypes.c_int
     lib.pgx_upfirdn2d_plan_bytes.argtypes = []
     lib.pgx_upfirdn2d_plan_bytes.restype = ctypes.c_int
@@ -211,12 +223,16 @@ def check(status: int, name: str) -> None:
 # A's backward ("bias_pixelnorm_lrelu_bwd"), its second derivative
 # ("bias_pixelnorm_lrelu_bwd2") and its tangent ("bias_pixelnorm_lrelu_jvp")
 # count their own launches.  Kernel D
-# ("upfirdn2d") is one launch per call.
+# ("upfirdn2d") is one launch per call.  Kernel W counts its two
+# resampling passes and their transposes apart ("warp_resample",
+# "warp_down2"; "warp_resample_t", "warp_down2_t").
 LAUNCHES = {"bias_pixelnorm_lrelu": 0, "bias_pixelnorm_lrelu_bwd": 0,
             "bias_pixelnorm_lrelu_bwd2": 0, "bias_pixelnorm_lrelu_jvp": 0,
             "pixel_norm_lrelu": 0,
             "conv3x3_epilogue": 0, "conv3x3_epilogue_r": 0,
-            "shift_1d": 0, "upfirdn2d": 0, "bias_act": 0}
+            "shift_1d": 0, "upfirdn2d": 0, "bias_act": 0,
+            "warp_resample": 0, "warp_resample_t": 0, "warp_down2": 0,
+            "warp_down2_t": 0}
 
 
 def launch_counts() -> dict:

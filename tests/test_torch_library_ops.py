@@ -23,9 +23,10 @@ import torch
 from pgx_torch.ops.kernels import build
 
 # the modules (some packages export functions of the same names)
-A, B, C, D, E, F = (importlib.import_module(f"pgx_torch.ops.kernels.{m}")
-                    for m in ("epilogue", "pixel_norm_lrelu", "conv_epilogue",
-                              "upfirdn2d", "bias_act", "shear"))
+A, B, C, D, E, F, W = (
+    importlib.import_module(f"pgx_torch.ops.kernels.{m}")
+    for m in ("epilogue", "pixel_norm_lrelu", "conv_epilogue", "upfirdn2d",
+              "bias_act", "shear", "warp_resample"))
 
 KERNELS = os.path.join(os.path.dirname(__file__), "..", "pgx_torch", "ops",
                        "kernels")
@@ -39,7 +40,11 @@ OPS = {"bias_pixelnorm_lrelu": (A, "forward_op"),
        "conv3x3_epilogue_r": (C, "op_r"),
        "shift_1d": (F, "op"),
        "upfirdn2d": (D, "op"),
-       "bias_act": (E, "op")}
+       "bias_act": (E, "op"),
+       "warp_resample": (W, "op"),
+       "warp_resample_t": (W, "transpose_op"),
+       "warp_down2": (W, "down_op"),
+       "warp_down2_t": (W, "down_transpose_op")}
 
 
 def _t(rng, *shape, dtype=torch.float32):
@@ -55,6 +60,13 @@ def _cases(dtype=torch.float32):
     w = _t(rng, 3, 3, 8, 16, dtype=dtype) * 0.2
     img = _t(rng, 2, 3, 6, 10, dtype=dtype)
     taps = [0.125, 0.375, 0.375, 0.125]
+    # kernel W: a 5px image, its 2x grid (64 x 128), the sym6-length filter
+    sq = _t(rng, 2, 5, 5, 3, dtype=dtype)
+    params = torch.tensor([[0.0, 1.0, 1.0, 0.3, -0.2],
+                           [1.0, -0.8, 1.2, 2.0, -1.0]])
+    grid = _t(rng, 2, 3, 64, 128, dtype=dtype)
+    crop = _t(rng, 2, 3, 22, 22, dtype=dtype)
+    hz = list(np.linspace(0.02, 0.15, 12))
     return [
         ("bias_pixelnorm_lrelu", (y, b, 0.2, 1e-8),
          lambda: A.bias_pixelnorm_lrelu_ref(y, b, 0.2, 1e-8)),
@@ -91,6 +103,12 @@ def _cases(dtype=torch.float32):
          lambda: E.bias_act_ref(y, b, -1, "lrelu", 0.2, 2 ** 0.5, 1.5)),
         ("bias_act", (y, None, "linear", 0.0, 1.0, -1.0),
          lambda: E.bias_act_ref(y, None, -1, "linear", 0.0, 1.0, None)),
+        ("warp_resample", (sq, params, 64, 128, hz),
+         lambda: W.warp_resample_ref(sq, params, 64, 128, hz)),
+        ("warp_resample_t", (grid, params, 5, hz),
+         lambda: W.warp_resample_t_ref(grid, params, 5, hz)),
+        ("warp_down2", (crop, hz), lambda: W.warp_down2_ref(crop, hz)),
+        ("warp_down2_t", (sq, hz), lambda: W.warp_down2_t_ref(sq, hz)),
     ]
 
 

@@ -7,11 +7,14 @@ Tolerance 1e-6 absolute on O(1) data: the same two-tap blend in f32, where
 XLA may contract the multiply-add.  The backward (the Function with the
 shift negated) is held against ``jax.vjp`` of the contract.
 
-``ada_geom_warp_shear`` is held against pgx's in f64 images with the f32
-matrices both packages build: 1e-5 absolute (the tent matrices are f32
-products summed in another order; a shift whose floor differs by one f32
-bit would show as a whole-pixel error, far above this).
+``ada_geom_warp_shear`` (unpadded images; its pass 0 pads them) is held
+against pgx's on the same images reflect-padded by ``jnp.pad``, in f64
+images with the f32 matrices both packages build: 1e-5 absolute (the tent
+matrices are f32 products summed in another order; a shift whose floor
+differs by one f32 bit would show as a whole-pixel error, far above this).
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -23,6 +26,8 @@ import jax.numpy as jnp
 from pgx.ops import warp as jwarp
 from pgx.ops.pallas.shear import shift_1d_pallas
 from pgx_torch.ops import warp as twarp
+# the package exports a function of the module's name: take the module
+twres = importlib.import_module("pgx_torch.ops.kernels.warp_resample")
 from pgx_torch.ops.kernels import shear as tshear
 from pgx_torch.ops.kernels import launch_counts, shift_1d, shift_1d_ref
 
@@ -270,17 +275,17 @@ def test_static_helpers_match_pgx():
                dict(up=1, down=2, pad0=-1, pad1=-1, flip_filter=True),
                dict(up=2, down=2, pad0=4, pad1=4, flip_filter=True)):
         np.testing.assert_array_equal(
-            twarp.upfirdn_matrix_1d(37, f, **kw),
+            twres.upfirdn_matrix_1d(37, f, **kw),
             jwarp.upfirdn_matrix_1d(37, f, **kw))
     hz = tuple(np.linspace(0.1, 1.2, 12).tolist())
-    for got, want in zip(twarp._static_matrices(46, 16, hz),
+    for got, want in zip(twres._static_matrices(46, 16, hz),
                          jwarp._static_matrices(46, 16, hz)):
         np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(twarp._centered(7).numpy(),
+    np.testing.assert_array_equal(twres._centered(7).numpy(),
                                   np.asarray(jwarp._centered(7)))
     u = np.random.RandomState(1).randn(2, 5).astype(np.float32) * 3
     np.testing.assert_allclose(
-        twarp._tent_matrix(torch.from_numpy(u), 8).numpy(),
+        twres._tent_matrix(torch.from_numpy(u), 8).numpy(),
         np.asarray(jwarp._tent_matrix(jnp.asarray(u), 8)), atol=1e-7)
 
 
@@ -315,21 +320,24 @@ def test_ada_geom_warp_shear_matches_pgx(res, c, rotate):
     hz = np.linspace(0.2, 1.0, 12)
     hz = (hz / hz.sum()).astype(np.float32)
     b, pad = 3, res - 1
-    padded = np.tanh(rng.randn(b, res + 2 * pad, res + 2 * pad, c))
+    images = np.tanh(rng.randn(b, res, res, c))
     a, t = _affine(b, seed=res, rotate=rotate)
-    want = np.asarray(jwarp.ada_geom_warp_shear(
-        jnp.asarray(padded), jnp.asarray(a), jnp.asarray(t), (res, res),
-        hz))
-    x = torch.from_numpy(padded).requires_grad_(True)
+
+    def j_warp(v):              # pgx's warp takes the reflect-padded batch
+        padded = jnp.pad(v, ((0, 0), (pad, pad), (pad, pad), (0, 0)),
+                         mode="reflect")
+        return jwarp.ada_geom_warp_shear(padded, jnp.asarray(a),
+                                         jnp.asarray(t), (res, res), hz)
+
+    want = np.asarray(j_warp(jnp.asarray(images)))
+    x = torch.from_numpy(images).requires_grad_(True)
     got = twarp.ada_geom_warp_shear(x, torch.from_numpy(a),
-                                    torch.from_numpy(t), (res, res), hz)
+                                    torch.from_numpy(t), hz)
     assert got.shape == (b, res, res, c) and got.dtype == torch.float64
     np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5, rtol=0)
 
     ct = rng.randn(*want.shape)
-    _, vjp = jax.vjp(lambda v: jwarp.ada_geom_warp_shear(
-        v, jnp.asarray(a), jnp.asarray(t), (res, res), hz),
-        jnp.asarray(padded))
+    _, vjp = jax.vjp(j_warp, jnp.asarray(images))
     gx, = torch.autograd.grad(got, x, torch.from_numpy(ct))
     np.testing.assert_allclose(gx.numpy(), np.asarray(vjp(jnp.asarray(ct))[0]),
                                atol=1e-5, rtol=0)
@@ -337,6 +345,6 @@ def test_ada_geom_warp_shear_matches_pgx(res, c, rotate):
 
 def test_warp_refuses_non_square():
     with pytest.raises(ValueError, match="square"):
-        twarp.ada_geom_warp_shear(torch.zeros(1, 10, 12, 3),
+        twarp.ada_geom_warp_shear(torch.zeros(1, 4, 5, 3),
                                   torch.eye(2)[None], torch.zeros(1, 2),
-                                  (4, 5), np.ones(12) / 12)
+                                  np.ones(12) / 12)
